@@ -1,0 +1,38 @@
+"""Scene and frame state carried over from the reference package as
+plain numpy fields, so both engines render the same scene and camera:
+``{f: getattr(jax_obj, f) for f in ...}`` -> the port's objects.
+Fields the port does not use (the binary engine's hit/miss links,
+vertex colours, split axes) are ignored."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shader_ray_tpu_torch.models.world import SceneData
+from shader_ray_tpu_torch.ops.render import FrameParams
+
+
+def scene_data_from_numpy(fields: dict[str, np.ndarray]) -> SceneData:
+    """SceneData from the reference SceneData's fields (numpy arrays and
+    ints)."""
+    return SceneData(
+        tri_positions=np.ascontiguousarray(fields["tri_positions"], np.float32),
+        tri_normals=np.ascontiguousarray(fields["tri_normals"], np.float32),
+        node_boxes=np.ascontiguousarray(fields["node_boxes"], np.float32),
+        node_objects=np.ascontiguousarray(fields["node_objects"], np.int32),
+        node_children=np.ascontiguousarray(fields["node_children"], np.int32),
+        tree_root=int(fields["tree_root"]),
+        triangle_count=int(fields["triangle_count"]),
+        group_count=int(fields["group_count"]),
+    )
+
+
+def frame_params_from_numpy(fields: dict[str, np.ndarray]) -> FrameParams:
+    """FrameParams (f32 CPU tensors; the Renderer moves them to its
+    device) from the reference FrameParams' fields."""
+    out = {}
+    for name in FrameParams._fields:
+        x = fields.get(name)
+        out[name] = None if x is None else torch.from_numpy(np.array(x, np.float32))
+    return FrameParams(**out)

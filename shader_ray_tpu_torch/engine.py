@@ -1,0 +1,98 @@
+"""Renderer facade (counterpart of shader_ray_tpu/engine.py): packs the
+scene onto the device and hands out frame functions per static render
+configuration.  Every frame function runs the frame kernel
+(ops/frame_kernel.py) once per call.
+
+The device is the CUDA card unless the caller passes ``device="cpu"``;
+with no card and no explicit CPU request the constructor raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shader_ray_tpu_torch.config import Config
+from shader_ray_tpu_torch.models.world import SceneData
+from shader_ray_tpu_torch.ops.engine_frame import (
+    frame_jitter,
+    halton_jitters,
+    render_frame,
+    render_linear,
+    render_progressive,
+)
+from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
+
+
+def pick_device(device: str | torch.device | None) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the renderer runs on the card; pass "
+                "device='cpu' to render with the plain PyTorch path"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+def _true_f32() -> None:
+    """Camera and object transforms must stay true f32 (TF32 would warp
+    rays as bf16 did on the TPU, ROADMAP 8f00d1f)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 could not be disabled")
+
+
+class Renderer:
+    def __init__(
+        self,
+        data: SceneData,
+        background: np.ndarray,
+        config: Config | None = None,
+        device: str | torch.device | None = None,
+    ) -> None:
+        self.device = pick_device(device)
+        _true_f32()
+        self.cfg = (config or Config()).validate()
+        self.packed = pack_scene_wide(data, background, self.cfg).to(self.device)
+        self.max_steps = self.cfg.packet_max_steps
+
+    def make_fn(self, statics: RenderStatics):
+        """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter."""
+
+        def fn(params: FrameParams) -> torch.Tensor:
+            return render_frame(self.packed, params, statics, self.max_steps)
+
+        return fn
+
+    def make_checksum_fn(self, statics: RenderStatics):
+        """``fn(params) -> scalar`` sum of the frame (a cheap fence)."""
+        frame = self.make_fn(statics)
+        return lambda params: frame(params).sum()
+
+    def make_progressive_fn(self, statics: RenderStatics, samples: int, reduce_sum: bool = False):
+        """``fn(params) -> (H, W, 3)``: the linear mean of ``samples``
+        Halton-jittered frames, tonemapped once, in ONE kernel launch;
+        ``reduce_sum`` returns its sum instead."""
+        jitters = torch.from_numpy(halton_jitters(samples)).to(self.device)
+
+        def fn(params: FrameParams) -> torch.Tensor:
+            out = render_progressive(self.packed, params, statics, jitters, self.max_steps)
+            return out.sum() if reduce_sum else out
+
+        return fn
+
+    def make_count_fn(self, statics: RenderStatics):
+        """``fn(params) -> int`` rays actually cast for one frame (live
+        bounce rays + shadow rays from light-facing hits), the honest
+        Mrays/s denominator vs the W*H*6 potential."""
+
+        def fn(params: FrameParams) -> int:
+            _, counters = render_linear(
+                self.packed, params, statics, frame_jitter(params), self.max_steps
+            )
+            return int(counters[0])
+
+        return fn

@@ -1,0 +1,88 @@
+"""World: scene build and the flattened scene data the packer reads
+(reference world.cpp:46-134, 298-347; numpy path of
+shader_ray_tpu/models/world.py)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from shader_ray_tpu_torch.config import Config
+from shader_ray_tpu_torch.models.bvh import BVH, make_bvh
+from shader_ray_tpu_torch.models.flatten import flatten_bvh
+from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+
+
+@dataclass
+class World:
+    triangles: TriangleSet
+    bvh: BVH
+    scene_center: np.ndarray
+    scene_extent: float
+    triangle_count: int
+
+
+@dataclass
+class SceneData:
+    """Flattened scene (reference scene_shader_data, world.h:68-93).
+    Triangle arrays are in BVH order and unindexed, (T, 9) per
+    triangle: leaf (start, count) ranges index them directly."""
+
+    tri_positions: np.ndarray   # (T, 9) f32: v0 v1 v2
+    tri_normals: np.ndarray     # (T, 9) f32: n0 n1 n2
+    node_boxes: np.ndarray      # (N, 8) f32: boxmin(3) boxmax(3) pad(2)
+    node_objects: np.ndarray    # (N, 2) i32: (start, count); (0,0) for branch
+    node_children: np.ndarray   # (N, 2) i32: (negative, positive), -1 for leaf
+    tree_root: int
+    triangle_count: int
+    group_count: int
+
+
+def make_world(triangles: TriangleSet, config: Config | None = None) -> World:
+    """Scene center (AABB center), extent (2x the largest vertex
+    distance from it, world.cpp:106-117) and the SAH BVH."""
+    cfg = config or Config()
+    tcount = triangles.triangle_count
+    scene_center = triangles.box_center()
+    if tcount > 0:
+        d = scene_center[None, None, :] - triangles.positions[triangles.indices]
+        scene_extent = float(np.sqrt((d * d).sum(axis=-1).max())) * 2.0
+    else:
+        scene_extent = 1.0
+    bvh = make_bvh(
+        triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg
+    )
+    return World(
+        triangles=triangles, bvh=bvh, scene_center=scene_center,
+        scene_extent=scene_extent, triangle_count=tcount,
+    )
+
+
+def get_shader_data(world: World) -> SceneData:
+    """Flatten a World into SceneData (world.cpp:298-347)."""
+    flat = flatten_bvh(world.bvh)
+    order = world.bvh.order
+    ts = world.triangles
+    T = len(order)
+    if T > 0:
+        idx = ts.indices[order]
+        tri_positions = ts.positions[idx].reshape(T, 9)
+        tri_normals = ts.normals[idx].reshape(T, 9)
+    else:
+        tri_positions = np.zeros((1, 9), np.float32)
+        tri_normals = np.zeros((1, 9), np.float32)
+    n = flat.node_count
+    node_boxes = np.zeros((n, 8), np.float32)
+    node_boxes[:, 0:3] = flat.boxmin
+    node_boxes[:, 3:6] = flat.boxmax
+    return SceneData(
+        tri_positions=np.ascontiguousarray(tri_positions, np.float32),
+        tri_normals=np.ascontiguousarray(tri_normals, np.float32),
+        node_boxes=node_boxes,
+        node_objects=np.stack([flat.start, flat.count], axis=1).astype(np.int32),
+        node_children=flat.children,
+        tree_root=flat.root,
+        triangle_count=T,
+        group_count=n,
+    )

@@ -1,0 +1,500 @@
+"""The fused frame kernel: raygen, 3 bounces of closest-hit walk +
+Schlick/Lambert shading + any-hit shadow walk, the env term, bad-ray
+paint and the jitter-sample mean, for a whole frame batch.
+
+Replaces the TPU kernel ``mega_kernel``
+(shader_ray_tpu/ops/pallas/kernel_mega.py, launched by
+packet_mega.packet_shade) with its walker ``make_wide_walker``
+(kernel_wide.py), the leaf math ``slot_hit``/``slot_normal``/
+``safe_inv`` (kernel_body.py) and the fused env sampler
+(envwin.env_window_body, trig.env_coords_kernel), for ``which = 0``.
+
+``frame_kernel`` is the wrapper: CPU tensors run ``frame_plain``, the
+same function in plain PyTorch; CUDA tensors launch the hand-written
+kernel in ``csrc/frame_kernel.cu`` (built with nvcc at first use into
+``shader_ray_tpu_torch/build/``) or raise.  Both return the linear
+colour mean over the jitter samples and an int64 counter row:
+``[0]`` rays cast (live bounce rays + lcos-gated shadow rays), then per
+walk phase p (bounce walks and shadow walks interleaved, as the
+reference stats row) ``[1+3p]`` node pops, ``[2+3p]`` leaf visits,
+``[3+3p]`` triangle tests.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from shader_ray_tpu_torch.ops.envmap import sample_env
+from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, WIDE, PackedWide
+
+INFINITELY_FAR = 1.0e7   # fs:115
+RANGE_T1 = 1.0e8         # fs:463,491
+MAX_STACK = 128          # per-thread stack slots in the kernel
+MAX_PHASES = 16          # walk phases the kernel's counter row holds
+
+# uniform table layout (kernel_mega.py:43-54; ops/engine_frame.pack_uniforms)
+UNI_OBJECT_MATRIX = 0    # [:3,:4] row-major, world->object points
+UNI_NORMAL_MATRIX = 12   # [:3,:3] row-major, world->object directions
+UNI_NORMAL_INVERSE = 21  # [:3,:3] row-major, object->world normals
+UNI_LIGHT_DIR = 30       # (3,) world light direction
+UNI_SPECULAR = 33        # (3,) specular color
+UNI_DIFFUSE = 36         # (3,) diffuse color
+UNI_CAM_ORIGIN = 39      # (3,) world camera position
+UNI_CAM_NORMAL = 42      # [:3,:3] row-major camera normal matrix
+UNI_IPW = 51             # () image plane width = 2*tan(fov/2)
+UNI_SIZE = 52
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "frame_kernel.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# launches per kernel wrapper, process-wide: a run sets a count to 0,
+# drives the main path, and reads how often the kernel really ran
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+class FrameSettings(NamedTuple):
+    """The frame kernel's static arguments."""
+
+    width: int
+    height: int
+    bounce_count: int = 3
+    cast_shadows: bool = True
+    enable_diffuse: bool = True
+    surface_fudge: float = 1.0e-4
+    mt_eps: float = 1.0e-7
+    max_steps: int = 0          # node pops per walk; 0 = n_wide + 2
+
+    def phases(self) -> int:
+        shadows = self.cast_shadows and self.enable_diffuse
+        return self.bounce_count * (2 if shadows else 1)
+
+
+class WalkResult(NamedTuple):
+    t: torch.Tensor        # (R,) f32; INFINITELY_FAR = miss, 0 = any-hit found
+    normal: torch.Tensor   # (R, 3) f32 interpolated object-space normal
+    which: torch.Tensor    # (R,) i64 BVH-order triangle id, -1 = none
+    bad: torch.Tensor      # (R,) bool: stack or step budget exceeded
+    steps: torch.Tensor    # (R,) i64 node pops
+    leafs: torch.Tensor    # (R,) i64 leaf visits
+    tris: torch.Tensor     # (R,) i64 triangle tests
+
+
+def safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """Finite 1/d for slab math: a zero component maps to 1/1e-30.  With
+    IEEE inf the slab terms turn NaN and the walk dies after the root
+    pop — which silently un-shadowed axis-aligned lights on the TPU
+    (kernel_body.py:48-59)."""
+    return 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
+
+
+def walk_plain(
+    packed: PackedWide,
+    P: torch.Tensor,
+    D: torch.Tensor,
+    active: torch.Tensor,
+    any_hit: bool,
+    mt_eps: float = 1.0e-7,
+    max_steps: int = 0,
+) -> WalkResult:
+    """Per-ray 8-wide short-stack walk, vectorized over rays: each step
+    every open ray pops one node, slab-tests its 8 children in its
+    octant's near-to-far order, Woop-tests the hit leaves near-to-far
+    and pushes the hit internal children far-to-near.  ``any_hit``
+    stops a ray at its first accepted triangle.  A ray that overflows
+    the stack or ``max_steps`` pops (0 = n_wide + 2) is bad.
+
+    Hits accept at ``d <= t`` in visit order, so among equal distances
+    the LAST tested triangle wins, exactly as the kernel's sequential
+    loop and the reference leaf tests (kernel_body.py:78-102)."""
+    R = P.shape[0]
+    dev = P.device
+    SD = packed.stack_depth
+    max_steps = max_steps or packed.n_wide + 2
+    MC = packed.max_count
+    inv = safe_inv(D)
+    octant = (D[:, 0] > 0).long() + 2 * (D[:, 1] > 0).long() + 4 * (D[:, 2] > 0).long()
+    t = torch.full((R,), INFINITELY_FAR, dtype=torch.float32, device=dev)
+    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    which = torch.full((R,), -1, dtype=torch.long, device=dev)
+    bad = torch.zeros(R, dtype=torch.bool, device=dev)
+    steps = torch.zeros(R, dtype=torch.long, device=dev)
+    leafs = torch.zeros(R, dtype=torch.long, device=dev)
+    tris = torch.zeros(R, dtype=torch.long, device=dev)
+    stack = torch.zeros((R, SD), dtype=torch.long, device=dev)  # root = 0
+    sp = active.long()
+    shifts = 3 * torch.arange(WIDE, device=dev)
+    slot_k = torch.arange(MC, device=dev)
+    pos = torch.arange(WIDE, device=dev)
+    node_meta = packed.node_meta.long()
+    big = WIDE * MC
+
+    idx = torch.nonzero(sp > 0).squeeze(1)
+    while idx.numel():
+        spi = sp[idx] - 1
+        node = stack[idx, spi]
+        steps[idx] += 1
+        Pi, Di, ti = P[idx], D[idx], t[idx]
+        order = node_meta[node, WIDE + octant[idx]]
+        ck = (order[:, None] >> shifts) & 7                 # (M, 8) near first
+        cm = node_meta[node[:, None], ck]                   # (M, 8)
+        box = packed.node_boxes[node[:, None], ck]          # (M, 8, 6)
+        ta = (box[..., 0:3] - Pi[:, None, :]) * inv[idx][:, None, :]
+        tb = (box[..., 3:6] - Pi[:, None, :]) * inv[idx][:, None, :]
+        lo = torch.minimum(ta, tb)
+        hi = torch.maximum(ta, tb)
+        t0 = torch.maximum(
+            torch.maximum(lo[..., 0], lo[..., 1]), torch.clamp(lo[..., 2], min=0.0)
+        )
+        t1 = torch.minimum(
+            torch.minimum(hi[..., 0], hi[..., 1]), torch.clamp(hi[..., 2], max=RANGE_T1)
+        )
+        hit = (cm != -1) & (t0 < t1) & (t0 < ti[:, None])
+        leaf_hit = hit & (cm >= (1 << COUNT_SHIFT))
+        push = hit & (cm >= 0) & (cm < (1 << COUNT_SHIFT))
+
+        # leaf triangles near-to-far, flattened as key = p * MC + k
+        cnt = torch.where(leaf_hit, cm >> COUNT_SHIFT, 0)
+        slot_ok = slot_k < cnt[:, :, None]                  # (M, 8, MC)
+        mi, pi, ki = torch.nonzero(slot_ok, as_tuple=True)
+        tri = (cm[mi, pi] & FIRST_MASK) + ki
+        key = pi * MC + ki
+        rec = packed.leaves[tri]
+        Ps, Ds = Pi[mi], Di[mi]
+        dz = rec[:, 0] * Ds[:, 0] + rec[:, 1] * Ds[:, 1] + rec[:, 2] * Ds[:, 2]
+        oz = rec[:, 0] * Ps[:, 0] + rec[:, 1] * Ps[:, 1] + rec[:, 2] * Ps[:, 2] + rec[:, 3]
+        ok = torch.abs(dz) >= mt_eps
+        d = oz * (-1.0 / dz)
+        ok &= (d <= ti[mi]) & (d >= 0.0)
+        u = (rec[:, 4] * Ps[:, 0] + rec[:, 5] * Ps[:, 1] + rec[:, 6] * Ps[:, 2] + rec[:, 7]) + d * (
+            rec[:, 4] * Ds[:, 0] + rec[:, 5] * Ds[:, 1] + rec[:, 6] * Ds[:, 2]
+        )
+        ok &= u >= 0.0
+        v = (rec[:, 8] * Ps[:, 0] + rec[:, 9] * Ps[:, 1] + rec[:, 10] * Ps[:, 2] + rec[:, 11]) + d * (
+            rec[:, 8] * Ds[:, 0] + rec[:, 9] * Ds[:, 1] + rec[:, 10] * Ds[:, 2]
+        )
+        ok &= (v >= 0.0) & (u + v <= 1.0)
+
+        M = idx.numel()
+        if any_hit:
+            first = torch.full((M,), big, dtype=torch.long, device=dev).scatter_reduce(
+                0, mi, torch.where(ok, key, big), "amin"
+            )
+            done = first < big
+            last_p = torch.where(done, first // MC, WIDE - 1)
+            leafs[idx] += (leaf_hit & (pos <= last_p[:, None])).sum(1)
+            tris[idx] += torch.zeros(M, dtype=torch.long, device=dev).scatter_add(
+                0, mi, (key <= first[mi]).long()
+            )
+            t[idx[done]] = 0.0
+        else:
+            done = torch.zeros(M, dtype=torch.bool, device=dev)
+            leafs[idx] += leaf_hit.sum(1)
+            tris[idx] += slot_ok.sum((1, 2))
+            best = torch.full((M,), float("inf"), device=dev).scatter_reduce(
+                0, mi, torch.where(ok, d, float("inf")), "amin"
+            )
+            win = ok & (d == best[mi])
+            wkey = torch.full((M,), -1, dtype=torch.long, device=dev).scatter_reduce(
+                0, mi, torch.where(win, key, -1), "amax"
+            )
+            sel = win & (key == wkey[mi])
+            rows = idx[mi[sel]]
+            t[rows] = d[sel]
+            which[rows] = tri[sel]
+            us, vs, rs = u[sel, None], v[sel, None], rec[sel]
+            normal[rows] = rs[:, 12:15] + us * rs[:, 15:18] + vs * rs[:, 18:21]
+
+        # push hit internal children far-to-near (nearest on top)
+        for p in range(WIDE - 1, -1, -1):
+            want = push[:, p] & ~done
+            fits = want & (spi < SD)
+            bad[idx[want & ~fits]] = True
+            stack[idx[fits], spi[fits]] = cm[fits, p]
+            spi = spi + fits.long()
+        spi = torch.where(done, 0, spi)
+        overflow = (steps[idx] >= max_steps) & (spi > 0)
+        bad[idx[overflow]] = True
+        spi = torch.where(overflow, 0, spi)
+        sp[idx] = spi
+        idx = idx[spi > 0]
+    return WalkResult(t, normal, which, bad, steps, leafs, tris)
+
+
+def frame_plain(
+    packed: PackedWide,
+    uni: torch.Tensor,
+    jitters: torch.Tensor,
+    fs: FrameSettings,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame kernel's function in plain PyTorch, vectorized over all
+    K * H * W sample rays (ray r = k * H * W + pixel): returns the
+    (H, W, 3) linear colour mean over the K jitters and the counter
+    row (module docstring).  Arithmetic follows the kernel op by op
+    (kernel_mega.py:174-367 with which = 0)."""
+    W, H = fs.width, fs.height
+    K = jitters.shape[0]
+    HW = W * H
+    dev = uni.device
+    u = [uni[i] for i in range(UNI_SIZE)]
+    m = u[UNI_OBJECT_MATRIX : UNI_OBJECT_MATRIX + 12]
+    nm = u[UNI_NORMAL_MATRIX : UNI_NORMAL_MATRIX + 9]
+    ni = u[UNI_NORMAL_INVERSE : UNI_NORMAL_INVERSE + 9]
+    Lx, Ly, Lz = u[UNI_LIGHT_DIR : UNI_LIGHT_DIR + 3]
+    csp = u[UNI_SPECULAR : UNI_SPECULAR + 3]
+    cdf = u[UNI_DIFFUSE : UNI_DIFFUSE + 3]
+    cm = u[UNI_CAM_NORMAL : UNI_CAM_NORMAL + 9]
+    ipw = u[UNI_IPW]
+    counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=dev)
+
+    # pinhole raygen (kernel_mega.py:203-220): two normalisations
+    pix = torch.arange(HW, device=dev).repeat(K)
+    iif = (pix % W).float()
+    jf = (pix // W).float()
+    jx = jitters[:, 0].repeat_interleave(HW)
+    jy = jitters[:, 1].repeat_interleave(HW)
+    inv_w, inv_h, aspect = _raygen_scalars(W, H)
+    uu = (iif + 0.5 + jx) * inv_w
+    vv = 1.0 - (jf + 0.5 + jy) * inv_h
+    ex = ipw * (uu - 0.5)
+    ey = (ipw * aspect) * (vv - 0.5)
+    inv_e = 1.0 / torch.sqrt(ex * ex + ey * ey + 1.0)
+    dex, dey, dez = ex * inv_e, ey * inv_e, -inv_e
+    Dx = cm[0] * dex + cm[1] * dey + cm[2] * dez
+    Dy = cm[3] * dex + cm[4] * dey + cm[5] * dez
+    Dz = cm[6] * dex + cm[7] * dey + cm[8] * dez
+    inv_d = 1.0 / torch.sqrt(Dx * Dx + Dy * Dy + Dz * Dz)
+    Dx, Dy, Dz = Dx * inv_d, Dy * inv_d, Dz * inv_d
+    R = K * HW
+    Px, Py, Pz = (u[UNI_CAM_ORIGIN + i].expand(R) for i in range(3))
+
+    oLx = nm[0] * Lx + nm[1] * Ly + nm[2] * Lz
+    oLy = nm[3] * Lx + nm[4] * Ly + nm[5] * Lz
+    oLz = nm[6] * Lx + nm[7] * Ly + nm[8] * Lz
+    oL = torch.stack([oLx, oLy, oLz]).expand(R, 3)
+
+    acc = [torch.zeros(R, device=dev) for _ in range(3)]
+    mod = [torch.ones(R, device=dev) for _ in range(3)]
+    act = torch.ones(R, dtype=torch.bool, device=dev)
+    badv = torch.zeros(R, dtype=torch.bool, device=dev)
+    shadows = fs.cast_shadows and fs.enable_diffuse
+    phase = 0
+
+    def record(w: WalkResult) -> None:
+        nonlocal phase
+        counters[1 + 3 * phase] += w.steps.sum()
+        counters[2 + 3 * phase] += w.leafs.sum()
+        counters[3 + 3 * phase] += w.tris.sum()
+        phase += 1
+
+    for _ in range(fs.bounce_count):
+        counters[0] += act.sum()
+        oP = torch.stack([
+            m[0] * Px + m[1] * Py + m[2] * Pz + m[3],
+            m[4] * Px + m[5] * Py + m[6] * Pz + m[7],
+            m[8] * Px + m[9] * Py + m[10] * Pz + m[11],
+        ], dim=1)
+        oD = torch.stack([
+            nm[0] * Dx + nm[1] * Dy + nm[2] * Dz,
+            nm[3] * Dx + nm[4] * Dy + nm[5] * Dz,
+            nm[6] * Dx + nm[7] * Dy + nm[8] * Dz,
+        ], dim=1)
+        w = walk_plain(packed, oP, oD, act, False, fs.mt_eps, fs.max_steps)
+        record(w)
+        t = w.t
+        hit_ok = act & ~w.bad & (t < INFINITELY_FAR)
+        badv |= act & w.bad
+
+        # object -> world normal, flipped against the incoming ray
+        nx, ny, nz = w.normal[:, 0], w.normal[:, 1], w.normal[:, 2]
+        wnx = ni[0] * nx + ni[1] * ny + ni[2] * nz
+        wny = ni[3] * nx + ni[4] * ny + ni[5] * nz
+        wnz = ni[6] * nx + ni[7] * ny + ni[8] * nz
+        flip = torch.where(wnx * Dx + wny * Dy + wnz * Dz > 0.0, -1.0, 1.0)
+        wnx, wny, wnz = wnx * flip, wny * flip, wnz * flip
+
+        # transfer + fudged reflect (fs:65-96)
+        rPx = Px + t * Dx + wnx * fs.surface_fudge
+        rPy = Py + t * Dy + wny * fs.surface_fudge
+        rPz = Pz + t * Dz + wnz * fs.surface_fudge
+        ddn = Dx * wnx + Dy * wny + Dz * wnz
+        rDx = Dx - 2.0 * ddn * wnx
+        rDy = Dy - 2.0 * ddn * wny
+        rDz = Dz - 2.0 * ddn * wnz
+
+        # Schlick in (view . reflected) half-angle form (fs:479-482)
+        h = (Dx * rDx + Dy * rDy + Dz * rDz) * 0.5 + 0.5
+        h2 = h * h
+        fres = h2 * h2 * h
+        spec = [c + (1.0 - c) * fres for c in csp]
+
+        if fs.enable_diffuse:
+            lcos = torch.clamp(wnx * Lx + wny * Ly + wnz * Lz, min=0.0)
+            if fs.cast_shadows:
+                # light-facing hits only (fs:454-464 cast unconditionally;
+                # lcos == 0 adds no diffuse either way)
+                sact = hit_ok & (lcos > 0.0)
+                counters[0] += sact.sum()
+                sP = torch.stack([
+                    m[0] * rPx + m[1] * rPy + m[2] * rPz + m[3],
+                    m[4] * rPx + m[5] * rPy + m[6] * rPz + m[7],
+                    m[8] * rPx + m[9] * rPy + m[10] * rPz + m[11],
+                ], dim=1)
+                sw = walk_plain(packed, sP, oL, sact, True, fs.mt_eps, fs.max_steps)
+                record(sw)
+                badv |= sact & sw.bad
+                irr = lcos * (sw.t >= INFINITELY_FAR).float()
+            else:
+                irr = lcos
+            acc = [torch.where(hit_ok, a + mo * c * irr, a) for a, mo, c in zip(acc, mod, cdf)]
+
+        mod = [torch.where(hit_ok, mo * s, mo) for mo, s in zip(mod, spec)]
+        Px = torch.where(hit_ok, rPx, Px)
+        Py = torch.where(hit_ok, rPy, Py)
+        Pz = torch.where(hit_ok, rPz, Pz)
+        Dx = torch.where(hit_ok, rDx, Dx)
+        Dy = torch.where(hit_ok, rDy, Dy)
+        Dz = torch.where(hit_ok, rDz, Dz)
+        act = hit_ok
+
+    env = sample_env(packed.env, torch.stack([Dx, Dy, Dz], dim=1))
+    col = torch.stack([a + mo * env[:, c] for c, (a, mo) in enumerate(zip(acc, mod))], dim=1)
+    red = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    col = torch.where(badv[:, None], red, col).reshape(K, HW, 3)
+    total = col[0]
+    for k in range(1, K):
+        total = total + col[k]
+    return (total / K).reshape(H, W, 3), counters
+
+
+def _raygen_scalars(W: int, H: int) -> tuple[float, float, float]:
+    """1/W, 1/H and H/W rounded to f32 once, shared by both versions."""
+    return (float(np.float32(1.0 / W)), float(np.float32(1.0 / H)),
+            float(np.float32(H / W)))
+
+
+@functools.cache
+def _library() -> tuple[ctypes.CDLL, str]:
+    """Build (once per source hash) and load the kernel library.
+    Returns (library, the compiler's resource report)."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = BUILD_DIR / f"frame_kernel-{tag}.so"
+    log_path = so.with_suffix(".log")
+    if not so.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found: the frame kernel builds with the CUDA toolkit")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.srt_frame_kernel
+    P = ctypes.c_void_p
+    I = ctypes.c_int
+    F = ctypes.c_float
+    fn.argtypes = [
+        P, P, P, P, I, I,          # boxes, meta, leaves, env, env_h, env_w
+        P, P, I, I, I,             # uni, jitters, K, W, H
+        F, F, F,                   # 1/W, 1/H, H/W
+        I, I, I, F, F, I, I,       # bounces, shadows, diffuse, fudge, eps, max_steps, stack
+        P, P, P,                   # out, counters, stream
+    ]
+    fn.restype = I
+    return lib, log_path.read_text() if log_path.exists() else ""
+
+
+def build_report() -> str:
+    """Build the kernel if needed; return nvcc's register/spill report."""
+    return _library()[1]
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    if x.dtype != dtype or not x.is_contiguous() or x.dim() != len(shape) or any(
+        s is not None and s != n for s, n in zip(shape, x.shape)
+    ):
+        raise ValueError(
+            f"frame_kernel: {name} must be contiguous {dtype} of shape {shape}, "
+            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
+        )
+
+
+def frame_kernel(
+    packed: PackedWide,
+    uni: torch.Tensor,
+    jitters: torch.Tensor,
+    fs: FrameSettings,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Render K jittered samples of a W x H frame: (H, W, 3) f32 linear
+    colour mean and the int64 counter row.  CPU tensors run
+    ``frame_plain``; CUDA tensors launch the CUDA kernel."""
+    tensors = dict(
+        node_boxes=packed.node_boxes, node_meta=packed.node_meta,
+        leaves=packed.leaves, env=packed.env, uni=uni, jitters=jitters,
+    )
+    devices = {x.device for x in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"frame_kernel: tensors on several devices {devices}")
+    (device,) = devices
+    if device.type == "cpu":
+        return frame_plain(packed, uni, jitters, fs)
+    if device.type != "cuda":
+        raise ValueError(f"frame_kernel: unsupported device {device}")
+    Nw = packed.n_wide
+    _check("node_boxes", packed.node_boxes, torch.float32, (Nw, WIDE, 6))
+    _check("node_meta", packed.node_meta, torch.int32, (Nw, 2 * WIDE))
+    _check("leaves", packed.leaves, torch.float32, (None, 21))
+    _check("env", packed.env, torch.float32, (None, None, 3))
+    _check("uni", uni, torch.float32, (UNI_SIZE,))
+    _check("jitters", jitters, torch.float32, (None, 2))
+    K = jitters.shape[0]
+    if K < 1 or fs.width < 1 or fs.height < 1:
+        raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
+    if not 1 <= packed.stack_depth <= MAX_STACK:
+        raise ValueError(f"frame_kernel: stack depth {packed.stack_depth} > {MAX_STACK}")
+    if fs.phases() > MAX_PHASES:
+        raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
+
+    out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
+    counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
+    inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
+    lib, _ = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.srt_frame_kernel(
+            packed.node_boxes.data_ptr(), packed.node_meta.data_ptr(),
+            packed.leaves.data_ptr(), packed.env.data_ptr(),
+            packed.env.shape[0], packed.env.shape[1],
+            uni.data_ptr(), jitters.data_ptr(), K, fs.width, fs.height,
+            inv_w, inv_h, aspect,
+            fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
+            fs.surface_fudge, fs.mt_eps, fs.max_steps or Nw + 2,
+            packed.stack_depth,
+            out.data_ptr(), counters.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"frame_kernel launch failed: CUDA error {err}")
+    LAUNCHES["frame_kernel"] += 1
+    return out, counters

@@ -1,0 +1,266 @@
+"""Host-side 8-wide BVH pack for per-thread traversal (counterpart of
+shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's Woop records).
+
+The binary SAH tree is collapsed into 8-wide nodes by the same SAH
+dynamic program (``_collapse_sah``), with the same per-octant
+near-to-far child orders and stack bound, so both packages walk the
+same wide tree.  The layout is the one a thread walking one ray wants:
+
+  node_boxes (Nw, 8, 6) f32   child k: lo.xyz, hi.xyz (exact f32 — the
+                              16-bit quantisation existed for the TPU's
+                              scalar memory)
+  node_meta  (Nw, 16) i32     [0:8] child meta: leaf count<<26 | first
+                              triangle; internal: wide node index;
+                              empty: -1.  [8:16] per-octant child order,
+                              8 x 3-bit slots, nearest first (empties
+                              last)
+  leaves     (T, 21) f32      one Woop record per triangle in BVH order
+                              (layout at WOOP_RECORD); the record index
+                              is the triangle id
+
+Leaf counts are capped at ``max_leaf_tests`` (the reference's
+10-triangle leaf budget, raytracer.es.fs:382).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from shader_ray_tpu_torch.config import Config
+from shader_ray_tpu_torch.models.world import SceneData
+from shader_ray_tpu_torch.ops.envmap import pack_env
+
+WIDE = 8            # children per wide node
+TINY_LEAF_MAX = 4   # leaf size classes of the collapse cost model
+SMALL_LEAF_MAX = 7  # (the reference kernel's static unroll lengths)
+COUNT_SHIFT = 26    # child meta: count << 26 | first triangle
+FIRST_MASK = (1 << COUNT_SHIFT) - 1
+
+# Woop record, 21 f32 per triangle (pack.WOOP_LEAF_RECORD):
+#   0-2   N = (v1-v0) x (v2-v0)  (unscaled: N.D == -det_MT, so the eps
+#   3     -N.v0                   accept test matches Moller-Trumbore)
+#   4-6   r0 = (E2 x N) / |N|^2  (u row of the inverse basis)
+#   7     -r0.v0
+#   8-10  r1 = (N x E1) / |N|^2  (v row)
+#   11    -r1.v0
+#   12-20 n0.xyz (n1-n0).xyz (n2-n0).xyz
+WOOP_RECORD = 21
+
+
+@dataclass
+class PackedWide:
+    node_boxes: torch.Tensor  # (Nw, 8, 6) f32
+    node_meta: torch.Tensor   # (Nw, 16) i32
+    leaves: torch.Tensor      # (T, 21) f32
+    env: torch.Tensor         # (H0, W0, 3) f32
+    n_wide: int
+    stack_depth: int
+    max_count: int            # largest leaf count after the cap
+
+    def to(self, device) -> "PackedWide":
+        return PackedWide(
+            node_boxes=self.node_boxes.to(device),
+            node_meta=self.node_meta.to(device),
+            leaves=self.leaves.to(device),
+            env=self.env.to(device),
+            n_wide=self.n_wide,
+            stack_depth=self.stack_depth,
+            max_count=self.max_count,
+        )
+
+
+def woop_records(pos: np.ndarray, nrm: np.ndarray) -> np.ndarray:
+    """(T, 9) v0v1v2 positions + (T, 9) n0n1n2 normals -> (T, 21)
+    Woop records (f64 host math, pack.py:132-156)."""
+    p = pos.astype(np.float64)
+    v0, v1, v2 = p[:, 0:3], p[:, 3:6], p[:, 6:9]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    N = np.cross(e1, e2)
+    det = np.einsum("ij,ij->i", N, N)  # |N|^2
+    inv = np.where(det > 0.0, 1.0 / np.maximum(det, 1e-300), 0.0)[:, None]
+    r0 = np.cross(e2, N) * inv
+    r1 = np.cross(N, e1) * inv
+    rec = np.zeros((len(p), WOOP_RECORD), np.float32)
+    rec[:, 0:3] = N
+    rec[:, 3] = -np.einsum("ij,ij->i", N, v0)
+    rec[:, 4:7] = r0
+    rec[:, 7] = -np.einsum("ij,ij->i", r0, v0)
+    rec[:, 8:11] = r1
+    rec[:, 11] = -np.einsum("ij,ij->i", r1, v0)
+    nn = nrm.astype(np.float32)
+    rec[:, 12:15] = nn[:, 0:3]
+    rec[:, 15:18] = nn[:, 3:6] - nn[:, 0:3]
+    rec[:, 18:21] = nn[:, 6:9] - nn[:, 0:3]
+    return rec
+
+
+def _collapse_sah(data: SceneData, c_node: float = 1.0,
+                  c_leaf_fixed: float = 0.8, c_slot: float = 0.45):
+    """SAH-aware 8-wide collapse (dynamic program over the binary tree,
+    after Ylitie et al. 2017): C(n, i) = least cost of subtree(n) as a
+    forest of <= i wide-node child slots; cutting an internal node costs
+    area(n) * c_node, a leaf child area(n) * (c_leaf_fixed + c_slot *
+    unroll(count)).  The same cost model and tie order as the reference
+    packer, so both packages build the same wide tree.
+
+    Returns (wide_children, wid_of_binary, depth_of, is_leaf):
+    wide_children[w] = binary node ids of wide node w's child slots."""
+    children = data.node_children
+    count = data.node_objects[:, 1]
+    bmin = data.node_boxes[:, 0:3].astype(np.float64)
+    bmax = data.node_boxes[:, 3:6].astype(np.float64)
+    ext = np.maximum(bmax - bmin, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    root = int(data.tree_root)
+    if area[root] > 0:
+        area = area / area[root]
+    is_leaf = count > 0
+
+    def unroll(c: int) -> int:
+        if c <= TINY_LEAF_MAX:
+            return TINY_LEAF_MAX
+        if c <= SMALL_LEAF_MAX:
+            return SMALL_LEAF_MAX
+        return max(int(count.max()), SMALL_LEAF_MAX + 1)
+
+    n = data.group_count
+    INF = float("inf")
+    # C[b, i-1]: best cost of subtree(b) as <= i roots; K[b, i-1]: 0 =>
+    # keep b as one root, k > 0 => k slots left, i-k right
+    C = np.full((n, WIDE), INF)
+    K = np.zeros((n, WIDE), np.int16)
+
+    order: list[int] = []
+    stack = [root]
+    seen = np.zeros(n, bool)
+    while stack:
+        b = stack.pop()
+        if seen[b]:
+            continue
+        seen[b] = True
+        order.append(b)
+        if not is_leaf[b] and children[b, 0] >= 0:
+            stack.append(int(children[b, 0]))
+            stack.append(int(children[b, 1]))
+    for b in reversed(order):  # children before parents
+        if is_leaf[b] or children[b, 0] < 0:
+            C[b, :] = area[b] * (c_leaf_fixed + c_slot * unroll(int(count[b])))
+            continue
+        l, r = int(children[b, 0]), int(children[b, 1])
+        dist = np.full(WIDE + 1, INF)
+        dargk = np.zeros(WIDE + 1, np.int16)
+        for i in range(2, WIDE + 1):
+            for k in range(1, i):
+                c = C[l, k - 1] + C[r, i - k - 1]
+                if c < dist[i]:
+                    dist[i] = c
+                    dargk[i] = k
+        c_cut = area[b] * c_node + dist[WIDE]
+        C[b, 0] = c_cut
+        K[b, 0] = 0
+        for i in range(2, WIDE + 1):
+            if dist[i] < c_cut:
+                C[b, i - 1] = dist[i]
+                K[b, i - 1] = dargk[i]
+            else:
+                C[b, i - 1] = c_cut
+                K[b, i - 1] = 0
+
+    def forest(b: int, i: int) -> list[int]:
+        if is_leaf[b] or children[b, 0] < 0:
+            return [int(b)]
+        k = int(K[b, i - 1])
+        if k == 0:
+            return [int(b)]
+        return forest(int(children[b, 0]), k) + forest(int(children[b, 1]), i - k)
+
+    def node_children_of(b: int) -> list[int]:
+        if is_leaf[b]:
+            return [int(b)]
+        if children[b, 0] < 0:
+            return []
+        l, r = int(children[b, 0]), int(children[b, 1])
+        best, bestk = INF, 1
+        for k in range(1, WIDE):
+            c = C[l, k - 1] + C[r, WIDE - k - 1]
+            if c < best:
+                best, bestk = c, k
+        return forest(l, bestk) + forest(r, WIDE - bestk)
+
+    # BFS with FIFO ids: parents precede children, root = 0
+    queue = deque([(root, 0)])
+    wid_of_binary = {root: 0}
+    next_id = 1
+    wide_children: list[list[int]] = []
+    depth_of: list[int] = []
+    while queue:
+        b, d = queue.popleft()
+        fr = node_children_of(b)
+        wide_children.append(fr)
+        depth_of.append(d)
+        for f in fr:
+            if not is_leaf[f]:
+                wid_of_binary[f] = next_id
+                next_id += 1
+                queue.append((f, d + 1))
+    return wide_children, wid_of_binary, depth_of, is_leaf
+
+
+def pack_scene_wide(
+    data: SceneData, env: np.ndarray, config: Config | None = None
+) -> PackedWide:
+    """Wide node table, Woop leaf records and the env level 0, as CPU
+    tensors (``PackedWide.to(device)`` moves them)."""
+    cfg = (config or Config()).validate()
+    wide_children, wid_of_binary, depth_of, is_leaf = _collapse_sah(data)
+    Nw = len(wide_children)
+    if Nw >= (1 << COUNT_SHIFT) or data.triangle_count > FIRST_MASK:
+        raise ValueError("scene too large for the 26-bit child meta")
+    counts = np.minimum(data.node_objects[:, 1], cfg.max_leaf_tests)
+    starts = data.node_objects[:, 0]
+
+    boxes = np.zeros((Nw, WIDE, 6), np.float32)
+    meta = np.full((Nw, 2 * WIDE), -1, np.int64)
+    centers = np.full((Nw, WIDE, 3), np.inf)
+    for w, fr in enumerate(wide_children):
+        for k, b in enumerate(fr):
+            boxes[w, k] = data.node_boxes[b, 0:6]
+            centers[w, k] = 0.5 * (
+                data.node_boxes[b, 0:3].astype(np.float64)
+                + data.node_boxes[b, 3:6].astype(np.float64)
+            )
+            if is_leaf[b]:
+                meta[w, k] = (int(counts[b]) << COUNT_SHIFT) | int(starts[b])
+            else:
+                meta[w, k] = wid_of_binary[b]
+
+    # per-octant near-to-far order: sort child centers projected on the
+    # octant direction (bit set = D positive on that axis)
+    odirs = np.array(
+        [[1.0 if (o >> a) & 1 else -1.0 for a in range(3)] for o in range(8)]
+    )
+    filled = np.isfinite(centers[:, :, 0])
+    keys = np.einsum("oa,wka->owk", odirs, np.where(filled[..., None], centers, 0.0))
+    keys = np.where(filled[None, :, :], keys, np.inf)  # empties sort last
+    order = np.argsort(keys, axis=2, kind="stable")    # (o, Nw, 8)
+    packed_order = np.zeros((Nw, 8), np.int64)
+    for p in range(WIDE):
+        packed_order |= order[:, :, p].T << (3 * p)
+    meta[:, WIDE:] = packed_order
+
+    leaf_counts = counts[is_leaf]
+    return PackedWide(
+        node_boxes=torch.from_numpy(boxes),
+        node_meta=torch.from_numpy(meta.astype(np.int32)),
+        leaves=torch.from_numpy(woop_records(data.tri_positions, data.tri_normals)),
+        env=torch.from_numpy(pack_env(env, cfg.env_base)),
+        n_wide=Nw,
+        # each pop pushes <= 7 net entries per level (pack_wide.py:427)
+        stack_depth=(WIDE - 1) * (max(depth_of) + 1) + 8,
+        max_count=int(max(1, leaf_counts.max())) if leaf_counts.size else 1,
+    )
