@@ -1,7 +1,9 @@
 """Renderer facade (counterpart of shader_ray_tpu/engine.py): packs the
-scene onto the device and hands out frame functions per static render
-configuration.  Every frame function runs the frame kernel
-(ops/frame_kernel.py) once per call.
+scene onto the device — the 8-wide tables or, with
+``Config.packet_kernel = "binary"``, the binary ones — and hands out
+frame functions per static render configuration.  A frame function runs
+the fused frame kernel once per call (wide tables, ``Config.packet_fused``,
+``which = 0``) or the unfused trace engine; ops/engine_frame.py routes.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.
@@ -15,12 +17,12 @@ import torch
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
 from shader_ray_tpu_torch.ops.engine_frame import (
-    frame_jitter,
+    count_cast,
     halton_jitters,
     render_frame,
-    render_linear,
     render_progressive,
 )
+from shader_ray_tpu_torch.ops.pack import pack_scene
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
 
@@ -56,14 +58,16 @@ class Renderer:
         self.device = pick_device(device)
         _true_f32()
         self.cfg = (config or Config()).validate()
-        self.packed = pack_scene_wide(data, background, self.cfg).to(self.device)
+        pack = pack_scene_wide if self.cfg.packet_kernel == "wide" else pack_scene
+        self.packed = pack(data, background, self.cfg).to(self.device)
         self.max_steps = self.cfg.packet_max_steps
+        self.fused = self.cfg.packet_fused
 
     def make_fn(self, statics: RenderStatics):
         """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter."""
 
         def fn(params: FrameParams) -> torch.Tensor:
-            return render_frame(self.packed, params, statics, self.max_steps)
+            return render_frame(self.packed, params, statics, self.max_steps, self.fused)
 
         return fn
 
@@ -74,12 +78,14 @@ class Renderer:
 
     def make_progressive_fn(self, statics: RenderStatics, samples: int, reduce_sum: bool = False):
         """``fn(params) -> (H, W, 3)``: the linear mean of ``samples``
-        Halton-jittered frames, tonemapped once, in ONE kernel launch;
-        ``reduce_sum`` returns its sum instead."""
+        Halton-jittered frames, tonemapped once (ONE kernel launch on
+        the fused route); ``reduce_sum`` returns its sum instead."""
         jitters = torch.from_numpy(halton_jitters(samples)).to(self.device)
 
         def fn(params: FrameParams) -> torch.Tensor:
-            out = render_progressive(self.packed, params, statics, jitters, self.max_steps)
+            out = render_progressive(
+                self.packed, params, statics, jitters, self.max_steps, self.fused
+            )
             return out.sum() if reduce_sum else out
 
         return fn
@@ -90,9 +96,6 @@ class Renderer:
         Mrays/s denominator vs the W*H*6 potential."""
 
         def fn(params: FrameParams) -> int:
-            _, counters = render_linear(
-                self.packed, params, statics, frame_jitter(params), self.max_steps
-            )
-            return int(counters[0])
+            return count_cast(self.packed, params, statics, self.max_steps, self.fused)
 
         return fn

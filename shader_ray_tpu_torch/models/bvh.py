@@ -40,6 +40,7 @@ class BVHNode:
     positive: int = -1
     start: int = 0
     count: int = 0
+    axis: int = -1  # split axis, -1 for leaves
 
     @property
     def is_leaf(self) -> bool:
@@ -158,7 +159,8 @@ def make_bvh(
         neg = build(start, countA, level + 1)
         pos = build(start + countA, countB, level + 1)
         nodes.append(
-            BVHNode(boxmin=vertexbox_min, boxmax=vertexbox_max, negative=neg, positive=pos)
+            BVHNode(boxmin=vertexbox_min, boxmax=vertexbox_max, negative=neg, positive=pos,
+                    axis=axis)
         )
         return len(nodes) - 1
 

@@ -37,6 +37,7 @@ class SceneData:
     tree_root: int
     triangle_count: int
     group_count: int
+    hitmiss: np.ndarray | None = None  # (8, N, 2) i32 per-octant (hit, miss) links
 
 
 def make_world(triangles: TriangleSet, config: Config | None = None) -> World:
@@ -85,4 +86,5 @@ def get_shader_data(world: World) -> SceneData:
         tree_root=flat.root,
         triangle_count=T,
         group_count=n,
+        hitmiss=flat.hitmiss,
     )

@@ -1,12 +1,27 @@
-"""Frame and progressive entry functions around the frame kernel
-(counterpart of the fused paths of shader_ray_tpu/ops/engine_pallas.py:
-the S = 1 branch of ``render_frame_packet`` and
-``render_progressive_packet``).
+"""Frame and progressive entry functions (counterpart of
+shader_ray_tpu/ops/engine_pallas.render_frame_packet and
+render_progressive_packet).
 
-One frame or a progressive batch is ONE frame-kernel launch: the kernel
-averages the K jittered samples in linear space and the tonemap runs
-once on the mean, in plain PyTorch, as it runs in plain XLA outside the
-Pallas kernel in the reference.
+Routing is by configuration, decided in ``fused_route``:
+
+* ``which = 0``, ``fused`` and wide tables: the fused frame kernel
+  (ops/frame_kernel.py).  One frame or a progressive batch is ONE
+  launch; the kernel averages the K jittered samples in linear space.
+* ``fused=False``, binary tables, or ``which`` in (1, 2): primary rays
+  as tensors (``generate_rays``) through the unfused trace engine
+  (ops/engine_trace.py).  The reference runs ``which = 1/2`` inside its
+  fused kernel when ``fused`` is set; the port's frame kernel does not
+  carry ray differentials yet, so these modes take the unfused engine
+  whatever ``fused`` says.
+* ``which = 3``: pure math on the primary rays, no trace (fs:642-650).
+* ``which = 5``: the 25 sub-sample offsets of the supersample oracle
+  (fs:654-673), each through the unfused engine, averaged.
+* any other ``which`` renders as ``which = 0`` does, as in the reference.
+
+A progressive batch off the fused route renders its K frames one after
+the other and sums them in order.  The tonemap runs once on the linear
+mean, in plain PyTorch, as it runs in plain XLA outside the Pallas
+kernels in the reference.
 """
 
 from __future__ import annotations
@@ -28,9 +43,18 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     FrameSettings,
     frame_kernel,
 )
+from shader_ray_tpu_torch.ops.engine_trace import trace_rays
+from shader_ray_tpu_torch.ops.envmap import env_coords
+from shader_ray_tpu_torch.ops.pack import PackedBinary
 from shader_ray_tpu_torch.ops.pack_wide import PackedWide
-from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
-from shader_ray_tpu_torch.ops.shading import tonemap_and_gamma
+from shader_ray_tpu_torch.ops.render import (
+    FrameParams,
+    RenderStatics,
+    generate_rays,
+    rays_for_pixels,
+)
+from shader_ray_tpu_torch.ops.shading import Rays, tonemap_and_gamma
+from shader_ray_tpu_torch.ops.vecmath import dot, normalize
 from shader_ray_tpu_torch.utils.halton import halton
 
 
@@ -61,10 +85,26 @@ def halton_jitters(samples: int) -> np.ndarray:
     )
 
 
+SUPERSAMPLE = 5  # which=5 sub-samples per axis (fs:654-673)
+
+Packed = PackedWide | PackedBinary
+
+
+def fused_route(packed: Packed, statics: RenderStatics, fused: bool) -> bool:
+    """Whether this configuration renders through the fused frame
+    kernel (module docstring)."""
+    return fused and isinstance(packed, PackedWide) and statics.which not in (1, 2, 3, 5)
+
+
 def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
-    if statics.which != 0:
+    """The fused frame kernel's settings.  The kernel renders no debug
+    mode: ``which`` 1, 2, 3 and 5 have their route in ``unfused_linear``
+    and must not arrive here."""
+    if statics.which in (1, 2, 3, 5):
         raise NotImplementedError(
-            f"which={statics.which}: the port renders which=0 only so far"
+            f"which={statics.which}: the fused frame kernel carries no ray "
+            "differentials; this mode renders through ops/engine_trace "
+            "(render_linear routes it there)"
         )
     return FrameSettings(
         width=statics.width,
@@ -78,22 +118,91 @@ def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
     )
 
 
-def render_linear(
-    packed: PackedWide,
-    params: FrameParams,
-    statics: RenderStatics,
-    jitters: torch.Tensor,
-    max_steps: int = 0,
+def _on(params: FrameParams, device) -> FrameParams:
+    return FrameParams(*[None if x is None else torch.as_tensor(x).to(device) for x in params])
+
+
+def unfused_linear(
+    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0
+) -> torch.Tensor:
+    """One frame at ``params.pixel_jitter`` off the fused route: linear
+    (H, W, 3) colour."""
+    params = _on(params, packed.env_pyramid.texels.device)
+    dev = params.camera_matrix.device
+    jj = torch.arange(statics.height, dtype=torch.float32, device=dev)[:, None]
+    ii = torch.arange(statics.width, dtype=torch.float32, device=dev)[None, :]
+    rays, (right, up) = rays_for_pixels(statics, params, jj, ii)
+    if statics.which == 3:
+        # this pixel's env-coordinate differentials (fs:642-650)
+        below = torch.stack(env_coords(rays.D - rays.dDdy / 2.0), dim=-1)
+        above = torch.stack(env_coords(rays.D + rays.dDdy / 2.0), dim=-1)
+        delta = torch.abs(above - below) * 100.0
+        color = torch.cat([delta, torch.zeros_like(delta[..., :1])], dim=-1)
+    elif statics.which == 5:
+        n = SUPERSAMPLE
+        color = torch.zeros_like(rays.P)
+        zeros = torch.zeros_like(rays.P)
+        for i in range(n):
+            for j in range(n):
+                Ds = normalize(rays.D + (i / n - 0.5) * 0.2 * right + (j / n - 0.5) * 0.2 * up)
+                sub = Rays(
+                    P=rays.P, D=Ds, dPdx=zeros, dDdx=right - dot(Ds, right)[..., None] * Ds,
+                    dPdy=zeros, dDdy=up - dot(Ds, up)[..., None] * Ds,
+                )
+                color = color + trace_rays(packed, sub, params, statics, max_steps)
+        color = color / (n * n)
+    else:
+        color = trace_rays(packed, rays, params, statics, max_steps)
+    return color.reshape(statics.height, statics.width, 3)
+
+
+def fused_linear(
+    packed: PackedWide, params: FrameParams, statics: RenderStatics,
+    jitters: torch.Tensor, max_steps: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Linear (H, W, 3) mean over the (K, 2) jitters + the kernel's
-    counter row (ops/frame_kernel.py).  The uniform table is built where
-    ``params`` live (usually the host) and copied to the scene's device
-    once."""
+    """ONE frame-kernel launch: the linear (H, W, 3) mean over the
+    (K, 2) jitters + the kernel's counter row (ops/frame_kernel.py).  The
+    uniform table is built where ``params`` live (usually the host) and
+    copied to the scene's device once."""
     dev = packed.leaves.device
     return frame_kernel(
         packed, pack_uniforms(params).to(dev), jitters.to(dev),
         frame_settings(statics, max_steps),
     )
+
+
+def render_linear(
+    packed: Packed,
+    params: FrameParams,
+    statics: RenderStatics,
+    jitters: torch.Tensor,
+    max_steps: int = 0,
+    fused: bool = True,
+) -> torch.Tensor:
+    """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
+    the configuration (module docstring)."""
+    if fused_route(packed, statics, fused):
+        return fused_linear(packed, params, statics, jitters, max_steps)[0]
+    total = None
+    for jit in jitters:
+        frame = unfused_linear(packed, params._replace(pixel_jitter=jit), statics, max_steps)
+        total = frame if total is None else total + frame
+    return total / jitters.shape[0]
+
+
+def count_cast(
+    packed: Packed, params: FrameParams, statics: RenderStatics,
+    max_steps: int = 0, fused: bool = True,
+) -> int:
+    """Rays actually cast for one frame at ``params.pixel_jitter``: live
+    bounce rays + shadow rays from light-facing hits.  Off the fused
+    route it is one trace of the primary rays, whatever ``which``
+    (shader_ray_tpu/engine.py:339-371)."""
+    if fused_route(packed, statics, fused):
+        return int(fused_linear(packed, params, statics, frame_jitter(params), max_steps)[1][0])
+    params = _on(params, packed.env_pyramid.texels.device)
+    rays = generate_rays(statics, params)
+    return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
 
 
 def frame_jitter(params: FrameParams) -> torch.Tensor:
@@ -108,21 +217,23 @@ def _finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
 
 
 def render_frame(
-    packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0
+    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
+    fused: bool = True,
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
     unless ``statics.do_tonemap`` is off."""
-    color, _ = render_linear(packed, params, statics, frame_jitter(params), max_steps)
+    color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused)
     return _finish(color, statics)
 
 
 def render_progressive(
-    packed: PackedWide,
+    packed: Packed,
     params: FrameParams,
     statics: RenderStatics,
     jitters: torch.Tensor,
     max_steps: int = 0,
+    fused: bool = True,
 ) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
-    return _finish(render_linear(packed, params, statics, jitters, max_steps)[0], statics)
+    return _finish(render_linear(packed, params, statics, jitters, max_steps, fused), statics)

@@ -1,14 +1,21 @@
-"""Lat-long environment lookup for ``which = 0``: direction -> equirect
-(u, v) (fs:121-125) and a level-0 bilinear REPEAT fetch (fs:153 samples
-the native-resolution texture) — the counterpart of
-shader_ray_tpu/ops/envmap.env_coords and ``_bilinear_level``.
+"""Lat-long environment lookup: direction -> equirect (u, v)
+(fs:121-125), the analytic texture-coordinate derivatives (fs:135-142),
+the anisotropic-sampler approximation, and bilinear REPEAT fetches from
+the env pyramid — the counterpart of shader_ray_tpu/ops/envmap.py.
 
-The env is kept as ONE contiguous (H0, W0, 3) f32 tensor: at the bench
-(1024 x 2048) that is 25 MB, resident in the H100's 50 MB L2.  Row 0 is
-the top scanline and v = 1 maps to it (+y pole).
+The pyramid (``pack_env_pyramid``) is ONE flat (texels, 3) f32 tensor
+with an (NL, 3) int32 table of (texel offset, height, width) per level:
+the pow2 base level, then 2x2 box means until height 16, as the
+reference's plane pyramid (ops/pallas/envwin.pack_env_planes) without
+its guard rows, seam phases and lane padding.  Level 0 comes first, so
+the (H0, W0, 3) tensor the frame kernel samples is a view of it: at the
+bench (1024 x 2048) 25 MB of 33.5 MB, resident in the H100's 50 MB L2.
+Row 0 is the top scanline and v = 1 maps to it (+y pole).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -16,6 +23,38 @@ import torch
 PI = 3.14159265259  # fs:116 (the reference's slightly-off pi, kept verbatim)
 TAU = 2.0 * PI
 MIN_H = 16          # smallest env level height the packer emits
+ANISO_PROBES = 4    # probe taps of the aniso approximation (GL
+                    # MAX_ANISOTROPY 4, ray.cpp:505-508)
+
+
+@dataclass
+class EnvPyramid:
+    """The packed env pyramid (module docstring)."""
+
+    texels: torch.Tensor        # (texels, 3) f32, level 0 first
+    table: torch.Tensor         # (NL, 3) i32: texel offset, height, width
+    base: tuple[int, int]       # (H0, W0)
+
+    @property
+    def n_levels(self) -> int:
+        return int(self.table.shape[0])
+
+    @property
+    def level0(self) -> torch.Tensor:
+        """(H0, W0, 3) view of level 0."""
+        h, w = self.base
+        return self.texels[: h * w].view(h, w, 3)
+
+    def to(self, device) -> "EnvPyramid":
+        return EnvPyramid(self.texels.to(device), self.table.to(device), self.base)
+
+    @staticmethod
+    def pack(env: np.ndarray, env_base: int = 1024) -> "EnvPyramid":
+        texels, table = pack_env_pyramid(env, env_base)
+        return EnvPyramid(
+            torch.from_numpy(texels), torch.from_numpy(table),
+            (int(table[0, 1]), int(table[0, 2])),
+        )
 
 
 def env_coords(D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -24,6 +63,72 @@ def env_coords(D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     u = 1.0 + torch.atan2(-D[..., 2], D[..., 0]) / TAU
     v = 1.0 - torch.acos(torch.clamp(D[..., 1], -1.0, 1.0)) / PI
     return u, v
+
+
+def env_derivatives(D: torch.Tensor, dDdx: torch.Tensor, dDdy: torch.Tensor):
+    """Analytic du/dv derivatives w.r.t. the image plane (fs:135-142):
+    (dudx, dvdx, dudy, dvdy).  Only ``denom_v`` is clamped, as in the
+    reference: a ray straight along +-y divides by zero in ``dudx``."""
+    x, y, z = D[..., 0], D[..., 1], D[..., 2]
+    denom_u = TAU * (x * x + z * z)
+    dudx = (x * dDdx[..., 2] - z * dDdx[..., 0]) / denom_u
+    dudy = (x * dDdy[..., 2] - z * dDdy[..., 0]) / denom_u
+    denom_v = PI * torch.sqrt(torch.clamp(1.0 - y * y, min=1e-12))
+    dvdx = dDdx[..., 1] / denom_v
+    dvdy = dDdy[..., 1] / denom_v
+    return dudx, dvdx, dudy, dvdy
+
+
+def aniso_lod_and_probes(rho_x, rho_y, dudx, dvdx, dudy, dvdy, aniso: int):
+    """The anisotropic-sampler approximation (envmap.py:91-117 of the
+    reference):
+
+      N_eff = clip(rho_max / rho_min, 1, aniso)
+      lod   = log2(max(rho_min, rho_max / aniso))
+      probes: ANISO_PROBES taps at t_i = ((i+.5)/P - .5)*(1 - 1/N_eff)
+              along the MAJOR gradient axis, equal weights
+
+    Returns (rho_eff, [(tu_i, tv_i)] uv offsets)."""
+    use_x = rho_x >= rho_y
+    rho_max = torch.maximum(rho_x, rho_y)
+    rho_min = torch.minimum(rho_x, rho_y)
+    n_eff = torch.clamp(rho_max / torch.clamp(rho_min, min=1e-12), 1.0, float(aniso))
+    rho_eff = torch.maximum(rho_min, rho_max / float(aniso))
+    du_maj = torch.where(use_x, dudx, dudy)
+    dv_maj = torch.where(use_x, dvdx, dvdy)
+    spread = 1.0 - 1.0 / n_eff
+    offs = []
+    for i in range(ANISO_PROBES):
+        t = ((i + 0.5) / ANISO_PROBES - 0.5) * spread
+        offs.append((t * du_maj, t * dv_maj))
+    return rho_eff, offs
+
+
+def bilinear_level(
+    pyramid: torch.Tensor, table: torch.Tensor, level: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor,
+) -> torch.Tensor:
+    """Bilinear REPEAT-wrapped fetch at a per-ray pyramid level
+    (``level`` int64, same shape as u) -> (..., 3)."""
+    tbl = table.long()[level]
+    off, h, w = tbl[..., 0], tbl[..., 1], tbl[..., 2]
+    x = u * w.float() - 0.5
+    y = (1.0 - v) * h.float() - 0.5  # v = 1 -> top row 0
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    xi0 = torch.remainder(x0.long(), w)
+    xi1 = torch.remainder((x0 + 1.0).long(), w)
+    yi0 = torch.remainder(y0.long(), h)
+    yi1 = torch.remainder((y0 + 1.0).long(), h)
+    c00 = pyramid[off + yi0 * w + xi0]
+    c10 = pyramid[off + yi0 * w + xi1]
+    c01 = pyramid[off + yi1 * w + xi0]
+    c11 = pyramid[off + yi1 * w + xi1]
+    top = c00 * (1 - fx) + c10 * fx
+    bot = c01 * (1 - fx) + c11 * fx
+    return top * (1 - fy) + bot * fy
 
 
 def bilinear_level0(env: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -67,6 +172,23 @@ def _resize_env(img: np.ndarray, H: int, W: int) -> np.ndarray:
     yi = np.clip((np.arange(H) + 0.5) * h0 / H, 0, h0 - 1).astype(np.int64)
     xi = np.clip((np.arange(W) + 0.5) * w0 / W, 0, w0 - 1).astype(np.int64)
     return np.ascontiguousarray(img[yi][:, xi], dtype=np.float32)
+
+
+def pack_env_pyramid(env: np.ndarray, env_base: int = 1024) -> tuple[np.ndarray, np.ndarray]:
+    """(pyramid (texels, 3) f32, table (NL, 3) i32 of (texel offset, h,
+    w)): ``pack_env``'s level 0, then 2x2 box means down to height
+    ``MIN_H`` (the levels of envwin.pack_env_planes)."""
+    cur = pack_env(env, env_base)
+    levels, rows, off = [], [], 0
+    while True:
+        h, w = cur.shape[:2]
+        levels.append(cur.reshape(-1, 3))
+        rows.append((off, h, w))
+        off += h * w
+        if h <= MIN_H:
+            break
+        cur = cur.reshape(h // 2, 2, w // 2, 2, 3).mean(axis=(1, 3)).astype(np.float32)
+    return np.concatenate(levels, axis=0), np.asarray(rows, np.int32)
 
 
 def pack_env(env: np.ndarray, env_base: int = 1024) -> np.ndarray:

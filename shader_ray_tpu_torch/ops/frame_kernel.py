@@ -22,25 +22,19 @@ reference stats row) ``[1+3p]`` node pops, ``[2+3p]`` leaf visits,
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from shader_ray_tpu_torch.ops import _build
+from shader_ray_tpu_torch.ops._build import LAUNCHES  # noqa: F401  (the counts, re-exported)
 from shader_ray_tpu_torch.ops.envmap import sample_env
-from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, WIDE, PackedWide
+from shader_ray_tpu_torch.ops.pack_wide import WIDE, PackedWide
+from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
 
-INFINITELY_FAR = 1.0e7   # fs:115
-RANGE_T1 = 1.0e8         # fs:463,491
-MAX_STACK = 128          # per-thread stack slots in the kernel
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
 
 # uniform table layout (kernel_mega.py:43-54; ops/engine_frame.pack_uniforms)
@@ -54,18 +48,6 @@ UNI_CAM_ORIGIN = 39      # (3,) world camera position
 UNI_CAM_NORMAL = 42      # [:3,:3] row-major camera normal matrix
 UNI_IPW = 51             # () image plane width = 2*tan(fov/2)
 UNI_SIZE = 52
-
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "frame_kernel.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
-
-# launches per kernel wrapper, process-wide: a run sets a count to 0,
-# drives the main path, and reads how often the kernel really ran
-LAUNCHES: collections.Counter = collections.Counter()
 
 
 class FrameSettings(NamedTuple):
@@ -83,157 +65,6 @@ class FrameSettings(NamedTuple):
     def phases(self) -> int:
         shadows = self.cast_shadows and self.enable_diffuse
         return self.bounce_count * (2 if shadows else 1)
-
-
-class WalkResult(NamedTuple):
-    t: torch.Tensor        # (R,) f32; INFINITELY_FAR = miss, 0 = any-hit found
-    normal: torch.Tensor   # (R, 3) f32 interpolated object-space normal
-    which: torch.Tensor    # (R,) i64 BVH-order triangle id, -1 = none
-    bad: torch.Tensor      # (R,) bool: stack or step budget exceeded
-    steps: torch.Tensor    # (R,) i64 node pops
-    leafs: torch.Tensor    # (R,) i64 leaf visits
-    tris: torch.Tensor     # (R,) i64 triangle tests
-
-
-def safe_inv(d: torch.Tensor) -> torch.Tensor:
-    """Finite 1/d for slab math: a zero component maps to 1/1e-30.  With
-    IEEE inf the slab terms turn NaN and the walk dies after the root
-    pop — which silently un-shadowed axis-aligned lights on the TPU
-    (kernel_body.py:48-59)."""
-    return 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
-
-
-def walk_plain(
-    packed: PackedWide,
-    P: torch.Tensor,
-    D: torch.Tensor,
-    active: torch.Tensor,
-    any_hit: bool,
-    mt_eps: float = 1.0e-7,
-    max_steps: int = 0,
-) -> WalkResult:
-    """Per-ray 8-wide short-stack walk, vectorized over rays: each step
-    every open ray pops one node, slab-tests its 8 children in its
-    octant's near-to-far order, Woop-tests the hit leaves near-to-far
-    and pushes the hit internal children far-to-near.  ``any_hit``
-    stops a ray at its first accepted triangle.  A ray that overflows
-    the stack or ``max_steps`` pops (0 = n_wide + 2) is bad.
-
-    Hits accept at ``d <= t`` in visit order, so among equal distances
-    the LAST tested triangle wins, exactly as the kernel's sequential
-    loop and the reference leaf tests (kernel_body.py:78-102)."""
-    R = P.shape[0]
-    dev = P.device
-    SD = packed.stack_depth
-    max_steps = max_steps or packed.n_wide + 2
-    MC = packed.max_count
-    inv = safe_inv(D)
-    octant = (D[:, 0] > 0).long() + 2 * (D[:, 1] > 0).long() + 4 * (D[:, 2] > 0).long()
-    t = torch.full((R,), INFINITELY_FAR, dtype=torch.float32, device=dev)
-    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    which = torch.full((R,), -1, dtype=torch.long, device=dev)
-    bad = torch.zeros(R, dtype=torch.bool, device=dev)
-    steps = torch.zeros(R, dtype=torch.long, device=dev)
-    leafs = torch.zeros(R, dtype=torch.long, device=dev)
-    tris = torch.zeros(R, dtype=torch.long, device=dev)
-    stack = torch.zeros((R, SD), dtype=torch.long, device=dev)  # root = 0
-    sp = active.long()
-    shifts = 3 * torch.arange(WIDE, device=dev)
-    slot_k = torch.arange(MC, device=dev)
-    pos = torch.arange(WIDE, device=dev)
-    node_meta = packed.node_meta.long()
-    big = WIDE * MC
-
-    idx = torch.nonzero(sp > 0).squeeze(1)
-    while idx.numel():
-        spi = sp[idx] - 1
-        node = stack[idx, spi]
-        steps[idx] += 1
-        Pi, Di, ti = P[idx], D[idx], t[idx]
-        order = node_meta[node, WIDE + octant[idx]]
-        ck = (order[:, None] >> shifts) & 7                 # (M, 8) near first
-        cm = node_meta[node[:, None], ck]                   # (M, 8)
-        box = packed.node_boxes[node[:, None], ck]          # (M, 8, 6)
-        ta = (box[..., 0:3] - Pi[:, None, :]) * inv[idx][:, None, :]
-        tb = (box[..., 3:6] - Pi[:, None, :]) * inv[idx][:, None, :]
-        lo = torch.minimum(ta, tb)
-        hi = torch.maximum(ta, tb)
-        t0 = torch.maximum(
-            torch.maximum(lo[..., 0], lo[..., 1]), torch.clamp(lo[..., 2], min=0.0)
-        )
-        t1 = torch.minimum(
-            torch.minimum(hi[..., 0], hi[..., 1]), torch.clamp(hi[..., 2], max=RANGE_T1)
-        )
-        hit = (cm != -1) & (t0 < t1) & (t0 < ti[:, None])
-        leaf_hit = hit & (cm >= (1 << COUNT_SHIFT))
-        push = hit & (cm >= 0) & (cm < (1 << COUNT_SHIFT))
-
-        # leaf triangles near-to-far, flattened as key = p * MC + k
-        cnt = torch.where(leaf_hit, cm >> COUNT_SHIFT, 0)
-        slot_ok = slot_k < cnt[:, :, None]                  # (M, 8, MC)
-        mi, pi, ki = torch.nonzero(slot_ok, as_tuple=True)
-        tri = (cm[mi, pi] & FIRST_MASK) + ki
-        key = pi * MC + ki
-        rec = packed.leaves[tri]
-        Ps, Ds = Pi[mi], Di[mi]
-        dz = rec[:, 0] * Ds[:, 0] + rec[:, 1] * Ds[:, 1] + rec[:, 2] * Ds[:, 2]
-        oz = rec[:, 0] * Ps[:, 0] + rec[:, 1] * Ps[:, 1] + rec[:, 2] * Ps[:, 2] + rec[:, 3]
-        ok = torch.abs(dz) >= mt_eps
-        d = oz * (-1.0 / dz)
-        ok &= (d <= ti[mi]) & (d >= 0.0)
-        u = (rec[:, 4] * Ps[:, 0] + rec[:, 5] * Ps[:, 1] + rec[:, 6] * Ps[:, 2] + rec[:, 7]) + d * (
-            rec[:, 4] * Ds[:, 0] + rec[:, 5] * Ds[:, 1] + rec[:, 6] * Ds[:, 2]
-        )
-        ok &= u >= 0.0
-        v = (rec[:, 8] * Ps[:, 0] + rec[:, 9] * Ps[:, 1] + rec[:, 10] * Ps[:, 2] + rec[:, 11]) + d * (
-            rec[:, 8] * Ds[:, 0] + rec[:, 9] * Ds[:, 1] + rec[:, 10] * Ds[:, 2]
-        )
-        ok &= (v >= 0.0) & (u + v <= 1.0)
-
-        M = idx.numel()
-        if any_hit:
-            first = torch.full((M,), big, dtype=torch.long, device=dev).scatter_reduce(
-                0, mi, torch.where(ok, key, big), "amin"
-            )
-            done = first < big
-            last_p = torch.where(done, first // MC, WIDE - 1)
-            leafs[idx] += (leaf_hit & (pos <= last_p[:, None])).sum(1)
-            tris[idx] += torch.zeros(M, dtype=torch.long, device=dev).scatter_add(
-                0, mi, (key <= first[mi]).long()
-            )
-            t[idx[done]] = 0.0
-        else:
-            done = torch.zeros(M, dtype=torch.bool, device=dev)
-            leafs[idx] += leaf_hit.sum(1)
-            tris[idx] += slot_ok.sum((1, 2))
-            best = torch.full((M,), float("inf"), device=dev).scatter_reduce(
-                0, mi, torch.where(ok, d, float("inf")), "amin"
-            )
-            win = ok & (d == best[mi])
-            wkey = torch.full((M,), -1, dtype=torch.long, device=dev).scatter_reduce(
-                0, mi, torch.where(win, key, -1), "amax"
-            )
-            sel = win & (key == wkey[mi])
-            rows = idx[mi[sel]]
-            t[rows] = d[sel]
-            which[rows] = tri[sel]
-            us, vs, rs = u[sel, None], v[sel, None], rec[sel]
-            normal[rows] = rs[:, 12:15] + us * rs[:, 15:18] + vs * rs[:, 18:21]
-
-        # push hit internal children far-to-near (nearest on top)
-        for p in range(WIDE - 1, -1, -1):
-            want = push[:, p] & ~done
-            fits = want & (spi < SD)
-            bad[idx[want & ~fits]] = True
-            stack[idx[fits], spi[fits]] = cm[fits, p]
-            spi = spi + fits.long()
-        spi = torch.where(done, 0, spi)
-        overflow = (steps[idx] >= max_steps) & (spi > 0)
-        bad[idx[overflow]] = True
-        spi = torch.where(overflow, 0, spi)
-        sp[idx] = spi
-        idx = idx[spi > 0]
-    return WalkResult(t, normal, which, bad, steps, leafs, tris)
 
 
 def frame_plain(
@@ -389,29 +220,9 @@ def _raygen_scalars(W: int, H: int) -> tuple[float, float, float]:
 
 
 @functools.cache
-def _library() -> tuple[ctypes.CDLL, str]:
-    """Build (once per source hash) and load the kernel library.
-    Returns (library, the compiler's resource report)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"frame_kernel-{tag}.so"
-    log_path = so.with_suffix(".log")
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the frame kernel builds with the CUDA toolkit")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.srt_frame_kernel
+def _entry():
+    """The library's entry point with its C signature set."""
+    fn = _build.library("frame_kernel")[0].srt_frame_kernel
     P = ctypes.c_void_p
     I = ctypes.c_int
     F = ctypes.c_float
@@ -423,22 +234,12 @@ def _library() -> tuple[ctypes.CDLL, str]:
         P, P, P,                   # out, counters, stream
     ]
     fn.restype = I
-    return lib, log_path.read_text() if log_path.exists() else ""
+    return fn
 
 
 def build_report() -> str:
     """Build the kernel if needed; return nvcc's register/spill report."""
-    return _library()[1]
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    if x.dtype != dtype or not x.is_contiguous() or x.dim() != len(shape) or any(
-        s is not None and s != n for s, n in zip(shape, x.shape)
-    ):
-        raise ValueError(
-            f"frame_kernel: {name} must be contiguous {dtype} of shape {shape}, "
-            f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
-        )
+    return _build.library("frame_kernel")[1]
 
 
 def frame_kernel(
@@ -454,21 +255,17 @@ def frame_kernel(
         node_boxes=packed.node_boxes, node_meta=packed.node_meta,
         leaves=packed.leaves, env=packed.env, uni=uni, jitters=jitters,
     )
-    devices = {x.device for x in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"frame_kernel: tensors on several devices {devices}")
-    (device,) = devices
+    device = _build.one_device("frame_kernel", tensors)
     if device.type == "cpu":
         return frame_plain(packed, uni, jitters, fs)
-    if device.type != "cuda":
-        raise ValueError(f"frame_kernel: unsupported device {device}")
     Nw = packed.n_wide
-    _check("node_boxes", packed.node_boxes, torch.float32, (Nw, WIDE, 6))
-    _check("node_meta", packed.node_meta, torch.int32, (Nw, 2 * WIDE))
-    _check("leaves", packed.leaves, torch.float32, (None, 21))
-    _check("env", packed.env, torch.float32, (None, None, 3))
-    _check("uni", uni, torch.float32, (UNI_SIZE,))
-    _check("jitters", jitters, torch.float32, (None, 2))
+    check = functools.partial(_build.check, "frame_kernel")
+    check("node_boxes", packed.node_boxes, torch.float32, (Nw, WIDE, 6))
+    check("node_meta", packed.node_meta, torch.int32, (Nw, 2 * WIDE))
+    check("leaves", packed.leaves, torch.float32, (None, 21))
+    check("env", packed.env, torch.float32, (None, None, 3))
+    check("uni", uni, torch.float32, (UNI_SIZE,))
+    check("jitters", jitters, torch.float32, (None, 2))
     K = jitters.shape[0]
     if K < 1 or fs.width < 1 or fs.height < 1:
         raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
@@ -477,13 +274,13 @@ def frame_kernel(
     if fs.phases() > MAX_PHASES:
         raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
 
+    fn = _entry()
     out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
     counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
     inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
-    lib, _ = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.srt_frame_kernel(
+        err = fn(
             packed.node_boxes.data_ptr(), packed.node_meta.data_ptr(),
             packed.leaves.data_ptr(), packed.env.data_ptr(),
             packed.env.shape[0], packed.env.shape[1],
@@ -494,7 +291,5 @@ def frame_kernel(
             packed.stack_depth,
             out.data_ptr(), counters.data_ptr(), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"frame_kernel launch failed: CUDA error {err}")
-    LAUNCHES["frame_kernel"] += 1
+    _build.launched("frame_kernel", err)
     return out, counters

@@ -32,7 +32,7 @@ import torch
 
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
-from shader_ray_tpu_torch.ops.envmap import pack_env
+from shader_ray_tpu_torch.ops.envmap import EnvPyramid
 
 WIDE = 8            # children per wide node
 TINY_LEAF_MAX = 4   # leaf size classes of the collapse cost model
@@ -56,17 +56,22 @@ class PackedWide:
     node_boxes: torch.Tensor  # (Nw, 8, 6) f32
     node_meta: torch.Tensor   # (Nw, 16) i32
     leaves: torch.Tensor      # (T, 21) f32
-    env: torch.Tensor         # (H0, W0, 3) f32
+    env_pyramid: EnvPyramid   # level 0 (the frame kernel's env) + mips
     n_wide: int
     stack_depth: int
     max_count: int            # largest leaf count after the cap
+
+    @property
+    def env(self) -> torch.Tensor:
+        """(H0, W0, 3) f32 env level 0, a view of the pyramid."""
+        return self.env_pyramid.level0
 
     def to(self, device) -> "PackedWide":
         return PackedWide(
             node_boxes=self.node_boxes.to(device),
             node_meta=self.node_meta.to(device),
             leaves=self.leaves.to(device),
-            env=self.env.to(device),
+            env_pyramid=self.env_pyramid.to(device),
             n_wide=self.n_wide,
             stack_depth=self.stack_depth,
             max_count=self.max_count,
@@ -214,7 +219,7 @@ def _collapse_sah(data: SceneData, c_node: float = 1.0,
 def pack_scene_wide(
     data: SceneData, env: np.ndarray, config: Config | None = None
 ) -> PackedWide:
-    """Wide node table, Woop leaf records and the env level 0, as CPU
+    """Wide node table, Woop leaf records and the env pyramid, as CPU
     tensors (``PackedWide.to(device)`` moves them)."""
     cfg = (config or Config()).validate()
     wide_children, wid_of_binary, depth_of, is_leaf = _collapse_sah(data)
@@ -258,7 +263,7 @@ def pack_scene_wide(
         node_boxes=torch.from_numpy(boxes),
         node_meta=torch.from_numpy(meta.astype(np.int32)),
         leaves=torch.from_numpy(woop_records(data.tri_positions, data.tri_normals)),
-        env=torch.from_numpy(pack_env(env, cfg.env_base)),
+        env_pyramid=EnvPyramid.pack(env, cfg.env_base),
         n_wide=Nw,
         # each pop pushes <= 7 net entries per level (pack_wide.py:427)
         stack_depth=(WIDE - 1) * (max(depth_of) + 1) + 8,

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of shader_ray_tpu_torch
 (and chip_smoke.py) loads no jax and nothing of shader_ray_tpu; the
 Renderer refuses to fall back to the CPU on its own; and, on a host
-with a CUDA card and nvcc, the hand-written frame kernel agrees with its
-plain PyTorch version."""
+with a CUDA card and nvcc, each hand-written kernel (frame, wide trace,
+binary trace, env sampler) agrees with its plain PyTorch version.  This
+file imports no jax, so its card tests run where jax is not installed."""
 
 import ast
 import os
@@ -75,6 +76,75 @@ def test_renderer_needs_the_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Renderer(None, None)
     assert pick_device("cpu") == torch.device("cpu")
+    from shader_ray_tpu_torch.config import Config
+
+    for cfg in (Config(packet_fused=False), Config(packet_kernel="binary")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Renderer(None, None, cfg)
+
+
+def test_wrappers_do_not_fall_back_when_the_kernel_cannot_build(monkeypatch):
+    """A wrapper takes the plain version only for CPU tensors.  With the
+    tensors' device reported as the card and no compiler to build the
+    kernel, every wrapper raises instead of answering from its plain
+    version, and counts no launch."""
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky, uv_sphere
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops import _build, env_kernel, frame_kernel, trace_kernel
+    from shader_ray_tpu_torch.ops.pack import pack_scene
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "one_device", lambda where, tensors: torch.device("cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "absent")
+    pos, nrm = uv_sphere(lat=4, lon=6)
+    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    wide, binary = pack_scene_wide(data, procedural_sky(32)), pack_scene(data, procedural_sky(32))
+    P = torch.zeros((8, 3))
+    D = torch.ones((8, 3))
+    before = dict(_build.LAUNCHES)
+    calls = [
+        lambda: trace_kernel.trace_wide(wide, P, D),
+        lambda: trace_kernel.trace_binary(binary, P, D, any_hit=True),
+        lambda: env_kernel.env_sample(wide.env_pyramid, D),
+        lambda: env_kernel.env_sample(binary.env_pyramid, D, D, D, grad=True, aniso=4),
+        lambda: frame_kernel.frame_kernel(wide, torch.zeros(52), torch.zeros((1, 2)),
+                                          frame_kernel.FrameSettings(width=4, height=4)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+    assert dict(_build.LAUNCHES) == before
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launched("env_sample", 1)
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_build_tag_covers_included_headers(tmp_path, monkeypatch):
+    """The cache tag hashes every source a library includes, so an edit
+    of the shared walk header rebuilds both libraries that include it."""
+    from shader_ray_tpu_torch.ops import _build
+
+    names = {p.name for p in _build.sources_of("frame_kernel")}
+    assert names == {"frame_kernel.cu", "walk.cuh"}
+    assert {p.name for p in _build.sources_of("trace_kernel")} == {"trace_kernel.cu", "walk.cuh"}
+    assert {p.name for p in _build.sources_of("env_kernel")} == {"env_kernel.cu"}
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._paths(n)[0].name for n in ("frame_kernel", "trace_kernel", "env_kernel")}
+    with open(csrc / "walk.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._paths(n)[0].name for n in before}
+    assert after["frame_kernel"] != before["frame_kernel"]
+    assert after["trace_kernel"] != before["trace_kernel"]
+    assert after["env_kernel"] == before["env_kernel"]
 
 
 def test_frame_kernel_rejects_mixed_devices():
@@ -95,7 +165,7 @@ def test_frame_kernel_rejects_mixed_devices():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc: the frame kernel has no CPU mode")
+        pytest.skip("needs a CUDA card and nvcc: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -133,3 +203,79 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
     assert float((kc - pc).abs().mean()) <= 1e-4
     assert abs(int(kn[0]) - int(pn[0])) <= 1e-4 * int(pn[0]) + 1
     assert np.asarray(kc.shape).tolist() == [64, 64, 3]
+
+
+def _card_scene(device, kernel: str):
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops.pack import pack_scene
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    pos, nrm = bunny_class_scene(5000)
+    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    pack = pack_scene_wide if kernel == "wide" else pack_scene
+    return pack(data, procedural_sky(64)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wide", "binary"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_kernel_matches_plain_on_card(cuda_device, kernel, any_hit):
+    """Kernel vs plain version on the same card inputs (4096 seeded
+    rays).  nvcc contracts multiply-adds into FMAs, so a grazing ray may
+    flip: hit flags differ on <= 0.1% of rays, t agrees at rtol 1e-4
+    where both hit, ids are equal except at ties (|dt| < 1e-6)."""
+    from shader_ray_tpu_torch.ops import trace_kernel as tk
+
+    packed = _card_scene(cuda_device, kernel)
+    rng = np.random.default_rng(31)
+    P = torch.from_numpy(rng.uniform(-1.6, 1.6, (4096, 3)).astype(np.float32)).to(cuda_device)
+    D = rng.normal(size=(4096, 3)).astype(np.float32)
+    D[:64] = [0.0, 0.0, 1.0]
+    D = torch.from_numpy(D).to(cuda_device)
+    active = torch.from_numpy(rng.uniform(size=4096) < 0.8).to(cuda_device)
+    name = f"trace_{kernel}"
+    before = tk._build.LAUNCHES[name]
+    got = tk.trace(packed, P, D, active, any_hit=any_hit, with_stats=True)
+    assert tk._build.LAUNCHES[name] == before + 1
+    plain = tk.walk_plain if kernel == "wide" else tk.walk_binary_plain
+    want = tk.packet_hit(plain(packed, P, D, active, any_hit), True)
+    torch.cuda.synchronize()
+    hit, hit_w = got.t < tk.INFINITELY_FAR, want.t < tk.INFINITELY_FAR
+    assert float((hit != hit_w).float().mean()) <= 1e-3
+    both = hit & hit_w
+    torch.testing.assert_close(got.t[both], want.t[both], rtol=1e-4, atol=1e-6)
+    differ = both & (got.which != want.which)
+    assert ((got.t - want.t)[differ].abs() < 1e-6).all()
+    assert torch.equal(got.bad, want.bad) and not hit[~active].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad,aniso", [(False, 1), (True, 1), (True, 4)])
+def test_env_kernel_matches_plain_on_card(cuda_device, grad, aniso):
+    """Kernel vs plain version on the same card inputs: both call the
+    card's atan2f/acosf/log2f, so they agree to the rounding of the
+    blend, rtol 1e-4 / atol 1e-4 (the sky's sun reaches ~50)."""
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.env_kernel import env_sample, env_sample_plain
+    from shader_ray_tpu_torch.ops.envmap import EnvPyramid
+
+    pyr = EnvPyramid.pack(procedural_sky(1024)).to(cuda_device)
+    rng = np.random.default_rng(46)
+    n = 20000
+    D = rng.normal(size=(n, 3)).astype(np.float32)
+    D[:4] = [[-1, 0, 1e-7], [-1, 0, -1e-7], [0.02, 0.9998, 0.0], [0.0, -0.9998, 0.02]]
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    scale = (10.0 ** rng.uniform(-4.0, -0.5, size=(n, 1))).astype(np.float32)
+    gx = rng.normal(size=(n, 3)).astype(np.float32) * scale
+    gy = rng.normal(size=(n, 3)).astype(np.float32) * scale * 0.3
+    D, gx, gy = (torch.from_numpy(x).to(cuda_device) for x in (D, gx, gy))
+    before = _build.LAUNCHES["env_sample"]
+    got = env_sample(pyr, D, gx, gy, grad=grad, aniso=aniso)
+    assert _build.LAUNCHES["env_sample"] == before + 1
+    want = env_sample_plain(pyr, D, gx, gy, grad=grad, aniso=aniso)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
