@@ -43,15 +43,19 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_which0.npy")
 GOLDEN5 = os.path.join(ROOT, "tests", "golden", "bench_which5_oracle.npy")
 KERNEL_SOURCES = ("frame_kernel", "trace_kernel", "trace_binary_kernel", "env_kernel")
 
-# bound model (ops a kernel executes, f32, FMA = 2): a slab test of one box
-# is ~26 ops, so a wide node pop (8 children) ~208 and a binary step ~28
-# with its link select; a Woop triangle test is ~47 ops, a full
-# Moller-Trumbore test ~62; an env lookup is ~40 ops of (u, v) math, ~40
-# more of derivatives and lod in grad mode, and ~30 per bilinear fetch
-OPS_PER_POP = 8 * 26
-OPS_PER_TRI = 47
-OPS_PER_STEP = 28
-OPS_PER_MT = 62
+# bound model (ops a sequential walk with early exits executes on this
+# run's rays, f32, FMA = 2; counted by the plain versions).  A slab test
+# of one box is ~26 ops and only non-empty children are tested; a binary
+# step adds ~2 for its link select.  A Woop triangle test is ~17 ops up
+# to its distance test, ~14 more up to u >= 0, ~16 more to the end (47 in
+# full); a Moller-Trumbore test ~46, ~7, ~9 (62 in full).  An env lookup
+# is ~40 ops of (u, v) math, ~40 more of derivatives and lod in grad mode,
+# and ~30 per bilinear fetch.  Bytes: rays in, results out, tables once,
+# and of the env only the texels these rays read.
+OPS_PER_SLAB = 26
+OPS_WOOP = (17, 14, 16)
+OPS_PER_LINK = 2
+OPS_MT = (46, 7, 9)
 OPS_ENV_COORDS = 40
 OPS_ENV_GRAD = 40
 OPS_PER_FETCH = 30
@@ -139,6 +143,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def walk_ops(walks, per_link: int, per_tri: tuple[int, int, int]) -> tuple[int, str]:
+    """Operations of the plain walks' counted work (the bound model
+    above) and the counts as text."""
+    slabs, tris, tris_u, tris_v = (
+        sum(int(getattr(w, f).sum()) for w in walks) for f in ("slabs", "tris", "tris_u", "tris_v"))
+    ops = (slabs * (OPS_PER_SLAB + per_link)
+           + tris * per_tri[0] + tris_u * per_tri[1] + tris_v * per_tri[2])
+    return ops, (f"{slabs} slab tests, {tris} triangle tests ({tris_u} past the distance test, "
+                 f"{tris_v} past u)")
+
+
 def bound(ops: float, moved: int) -> tuple[float, str]:
     """(bound ms, "operations" or "bytes"): the larger of ops over the
     f32 peak and bytes over the memory rate."""
@@ -180,7 +195,7 @@ def main() -> int:
     import numpy as np
 
     from shader_ray_tpu_torch.config import Config
-    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
     from shader_ray_tpu_torch.ops import _build
@@ -188,6 +203,8 @@ def main() -> int:
     from shader_ray_tpu_torch.ops import frame_kernel as fk
     from shader_ray_tpu_torch.ops import trace_kernel as tk
     from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+    from shader_ray_tpu_torch.ops.pack import pack_scene
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
     from shader_ray_tpu_torch.ops.render import RenderStatics, default_frame_params, generate_rays
     from shader_ray_tpu_torch.ops.vecmath import dot, normalize
     from shader_ray_tpu_torch.utils import mat4
@@ -243,11 +260,11 @@ def main() -> int:
     errs = dict.fromkeys(("frame_kernel", "trace_wide", "trace_binary", "env_sample"), 0.0)
 
     # 4. each kernel vs its plain version on the card
-    def compare(w: int, h: int, jit: torch.Tensor):
+    def compare(w: int, h: int, jit: torch.Tensor, probe: dict | None = None):
         k = jit.shape[0]
         fs = fk.FrameSettings(width=w, height=h)
         kc, kn = fk.frame_kernel(packed, uni, jit, fs)
-        pc, pn = fk.frame_plain(packed, uni, jit, fs)
+        pc, pn = fk.frame_plain(packed, uni, jit, fs, probe)
         torch.cuda.synchronize()
         diff = (kc - pc).abs()
         errs["frame_kernel"] = max(errs["frame_kernel"], float(diff.max()))
@@ -261,7 +278,6 @@ def main() -> int:
             raise AssertionError("kernel produced non-finite colour")
         if float(diff.mean()) > 1e-4 or cast_rel > 1e-4:
             raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k}")
-        return pn
 
     compare(*SMALL, torch.from_numpy(halton_jitters(1)).cuda())
     compare(*SMALL, torch.from_numpy(halton_jitters(4)).cuda())
@@ -288,12 +304,16 @@ def main() -> int:
         hit flags flip on <= 0.1% of rays; where both versions hit, t
         agrees to 1e-4 * max(1, t) and ids are equal or tied
         (|dt| < 1e-6 * max(1, t)) on all but 0.01% of rays, and the mean
-        |dt| is <= 1e-5; bad flags are equal.  Returns the plain version's result and its
-        device time (one call)."""
+        |dt| is <= 1e-5; bad flags are equal; the kernel's own step, leaf
+        and triangle-test totals are within 1e-3 of the plain walk's; on
+        closest hits with equal ids the interpolated normals (length ~1)
+        agree to 1e-5 mean abs.
+        Returns the plain walk's result and its device time (one call)."""
         got = kernel(tables, P, D, active, any_hit=any_hit, with_stats=True)
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        want = tk.packet_hit(plain(tables, P, D, active, any_hit), True)
+        walk = plain(tables, P, D, active, any_hit)
+        want = tk.packet_hit(walk, True)
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
@@ -308,15 +328,28 @@ def main() -> int:
         ids = float((both & (got.which != want.which) & (dt >= 1e-6 * scale)).float().mean())
         bad_equal = bool(torch.equal(got.bad, want.bad))
         errs[name] = max(errs[name], t_err)
+        stats = got.stats.sum(0).tolist()
+        counted = [int(walk.steps.sum()), int(walk.leafs.sum()), int(walk.tris.sum())]
+        stats_rel = max(abs(a - b) / max(b, 1) for a, b in zip(stats, counted))
+        n_mean = n_max = 0.0
+        if not any_hit:
+            same = both & (got.which == want.which)
+            if same.any():  # a convex scene's shadow rays hit next to nothing
+                dn = (got.normal - want.normal)[same].abs()
+                n_mean, n_max = float(dn.mean()), float(dn.max())
+                errs[name] = max(errs[name], n_max)
         print(f"{name} vs plain, {what} ({P.shape[0]} rays, {int(active.sum())} active, "
               f"{int(hit.sum())} hit): t mean abs {t_mean:.3e} (limit 1e-5), max abs {t_err:.3e}, "
               f"rays off by > 1e-4 {t_off:.2e} (limit 1e-4), hit flips {flips:.2e} (limit 1e-3), "
-              f"id mismatches outside ties {ids:.2e} (limit 1e-4), bad equal {bad_equal}")
-        if t_mean > 1e-5 or t_off > 1e-4 or flips > 1e-3 or ids > 1e-4 or not bad_equal:
+              f"id mismatches outside ties {ids:.2e} (limit 1e-4), bad equal {bad_equal}, "
+              f"walk counters max rel diff {stats_rel:.2e} (limit 1e-3)"
+              + ("" if any_hit else f", normal mean abs {n_mean:.3e} (limit 1e-5), max abs {n_max:.3e}"))
+        if (t_mean > 1e-5 or t_off > 1e-4 or flips > 1e-3 or ids > 1e-4 or not bad_equal
+                or stats_rel > 1e-3 or n_mean > 1e-5):
             raise AssertionError(f"{name} disagrees with its plain version on {what}")
         if (got.t[~active] != FAR).any() or (got.which[~active] != -1).any():
             raise AssertionError(f"{name}: an inactive ray did not return a miss")
-        return want, plain_ms
+        return walk, plain_ms
 
     def compare_env(D, gx, gy, grad, aniso, what):
         """Mean abs <= 1e-5 and max abs <= 1e-2 on radiance that reaches
@@ -334,6 +367,13 @@ def main() -> int:
         if float(diff.max()) > 1e-2 or float(diff.mean()) > 1e-5:
             raise AssertionError(f"env_sample disagrees with its plain version on {what}")
 
+    def env_bytes(D, gx, gy, grad, aniso) -> int:
+        """Bytes of the distinct pyramid texels the lookup of these rays
+        reads (marked by the plain version)."""
+        touched = torch.zeros(pyramid.texels.shape[0], dtype=torch.bool, device="cuda")
+        ek.env_sample_plain(pyramid, D, gx, gy, grad=grad, aniso=aniso, touched=touched)
+        return int(touched.sum()) * 12
+
     rays_s, P_s, D_s, sP_s, sD_s, sact_s = rays_at(*SMALL)
     all_s = torch.ones_like(sact_s)
     size = f"{SMALL[0]}x{SMALL[1]}"
@@ -345,6 +385,19 @@ def main() -> int:
         compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, True, f"any-hit, primaries {size}")
         compare_trace(name, kernel, plain, tables, sP_s, sD_s, sact_s, False, f"closest, shadow rays {size}")
         compare_trace(name, kernel, plain, tables, sP_s, sD_s, sact_s, True, f"any-hit, shadow rays {size}")
+    # the bench scene is flat-shaded (one normal a triangle), so the normal
+    # interpolation is held to the plain versions on a smooth unit sphere
+    spos, snrm = uv_sphere(lat=64, lon=128)
+    sdata = get_shader_data(make_world(TriangleSet.from_arrays(spos, snrm)))
+    for name, kernel, plain, tables in (
+        ("trace_wide", tk.trace_wide, tk.walk_plain, pack_scene_wide(sdata, procedural_sky(32)).to("cuda")),
+        ("trace_binary", tk.trace_binary, tk.walk_binary_plain, pack_scene(sdata, procedural_sky(32)).to("cuda")),
+    ):
+        walk, _ = compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, False,
+                                f"closest, smooth sphere, primaries {size}")
+        inside = (walk.t < FAR) & ((walk.normal.norm(dim=1) - 1.0).abs() > 1e-4)
+        if int(inside.sum()) < 1000:
+            raise AssertionError(f"{name}: the smooth sphere gave no interpolated normals to compare")
     # primaries with their differentials, plus seeded directions over the
     # whole sphere (seam and poles included) with wide footprints
     rng = np.random.default_rng(7)
@@ -461,12 +514,12 @@ def main() -> int:
     frame = renderer.make_fn(statics)
     e2e_t = host_times(lambda: frame(params), TIMED)
     e2e_ms = float(np.median(e2e_t))
-    pn = compare(W, H, one)  # the main path's frame: its counts give the bound
-    pops = int(sum(pn[1::3]))
-    tris = int(sum(pn[3::3]))
-    ops = pops * OPS_PER_POP + tris * OPS_PER_TRI
+    probe = {}
+    compare(W, H, one, probe)  # the main path's frame: its counted work gives the bound
+    ops, work = walk_ops(probe["walks"], 0, OPS_WOOP)
     wide_tables = nbytes(packed.node_boxes, packed.node_meta, packed.leaves)
-    moved = wide_tables + nbytes(packed.env, uni) + W * H * 3 * 4
+    moved = wide_tables + env_bytes(probe["env_D"], None, None, False, 1) + nbytes(uni) + W * H * 3 * 4
+    del probe
     bound_ms, bound_by = bound(ops, moved)
     potential = W * H * 6
     ms_batch = float(np.median(batch_t))
@@ -477,7 +530,7 @@ def main() -> int:
     print(f"  frame_kernel {W}x{H} K={BATCH_K}: per sample {summary(batch_t)}; "
           f"{potential / ms_batch / 1e3:.1f} Mrays/s potential")
     print(f"  frame_plain {W}x{H} K=1: {summary(plain_t)}")
-    print(f"  bound: {pops} node pops, {tris} triangle tests -> {ops:.4g} ops "
+    print(f"  bound: {work} -> {ops:.4g} ops "
           f"({ops / PEAK_F32 * 1e3:.4f} ms), {moved} bytes "
           f"({moved / PEAK_BYTES * 1e3:.4f} ms): {bound_ms:.4f} ms, by {bound_by}")
     table = [{
@@ -494,24 +547,23 @@ def main() -> int:
     rays_f, P_f, D_f, _, _, _ = rays_at(W, H)
     all_f = torch.ones(P_f.shape[0], dtype=torch.bool, device="cuda")
     ray_io = P_f.shape[0] * (12 + 12 + 1 + 4 + 4 + 12 + 1)
-    for name, kernel, plain, tables, tbytes, source, replaces, per_step, per_test in (
+    for name, kernel, plain, tables, tbytes, source, replaces, per_link, per_tri in (
         ("trace_wide", tk.trace_wide, tk.walk_plain, packed, wide_tables,
-         "trace_kernel.cu", "kernel_wide.py:784", OPS_PER_POP, OPS_PER_TRI),
+         "trace_kernel.cu", "kernel_wide.py:784", 0, OPS_WOOP),
         ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b,
          nbytes(packed_b.links, packed_b.boxes, packed_b.leaf, packed_b.tris),
-         "trace_binary_kernel.cu", "kernel_body.py:244", OPS_PER_STEP, OPS_PER_MT),
+         "trace_binary_kernel.cu", "kernel_body.py:244", OPS_PER_LINK, OPS_MT),
     ):
         out = {}
         for any_hit in (False, True):
             mode = "any-hit" if any_hit else "closest"
             t_k = cuda_times(lambda: kernel(tables, P_f, D_f, all_f, any_hit=any_hit), TIMED)
-            want, p_ms = compare_trace(name, kernel, plain, tables, P_f, D_f, all_f, any_hit,
+            walk, p_ms = compare_trace(name, kernel, plain, tables, P_f, D_f, all_f, any_hit,
                                        f"{mode}, primaries {W}x{H}")
-            steps, tests = int(want.stats[:, 0].sum()), int(want.stats[:, 2].sum())
-            ops = steps * per_step + tests * per_test
+            ops, work = walk_ops([walk], per_link, per_tri)
             b_ms, b_by = bound(ops, ray_io + tbytes)
             print(f"  {name} {mode}, {P_f.shape[0]} primaries (CUDA events): {summary(t_k)}; "
-                  f"plain {p_ms:.1f} ms, n=1; bound: {steps} steps, {tests} triangle tests -> "
+                  f"plain {p_ms:.1f} ms, n=1; bound: {work} -> "
                   f"{ops:.4g} ops ({ops / PEAK_F32 * 1e3:.4f} ms), {ray_io + tbytes} bytes "
                   f"({(ray_io + tbytes) / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
             out[any_hit] = (float(np.median(t_k)), p_ms, b_ms, b_by)
@@ -530,20 +582,29 @@ def main() -> int:
     R = D_f.shape[0]
     out = {}
     for what, grad, aniso in (("mode 0", False, 1), ("grad aniso=4", True, 4)):
-        t_k = cuda_times(lambda: ek.env_sample(pyramid, D_f, gx_f, gy_f, grad=grad, aniso=aniso), TIMED)
+        def launch():
+            return ek.env_sample(pyramid, D_f, gx_f, gy_f, grad=grad, aniso=aniso)
+
+        t_k = cuda_times(launch, TIMED)
         t_p = cuda_times(lambda: ek.env_sample_plain(pyramid, D_f, gx_f, gy_f, grad=grad, aniso=aniso), 5)
+        # a launch of tens of microseconds: events around one call time the
+        # host's launch gap too, so the entry's time is the kernel's own
+        # device time where the profiler gives it
+        parts = device_breakdown(launch, ("env_sample",), 20)
+        k_ms = parts["env_sample"][0] if parts else float(np.median(t_k))
         compare_env(D_f, gx_f, gy_f, grad, aniso, f"{what}, primaries {W}x{H}")
         fetches = 2 * 4 if grad else 1
         ops = R * (OPS_ENV_COORDS + (OPS_ENV_GRAD if grad else 0) + fetches * OPS_PER_FETCH)
-        # texels gathered: at most the levels the mode can read, at most
-        # 4 texels of 12 bytes per fetch
-        texels = min(nbytes(pyramid.texels if grad else pyramid.level0), R * fetches * 4 * 12)
+        texels = env_bytes(D_f, gx_f, gy_f, grad, aniso)
         moved = R * 12 * (4 if grad else 2) + texels
         b_ms, b_by = bound(ops, moved)
-        print(f"  env_sample {what}, {R} directions (CUDA events): {summary(t_k)}; "
+        print(f"  env_sample {what}, {R} directions: device time {k_ms:.4f} ms a launch "
+              f"({'torch.profiler, 20 launches' if parts else 'profiler saw none: the events median'}); "
+              f"CUDA events around one call {summary(t_k)}; "
               f"plain {summary(t_p)}; bound: {ops:.4g} ops ({ops / PEAK_F32 * 1e3:.4f} ms), "
-              f"{moved} bytes ({moved / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
-        out[grad] = (float(np.median(t_k)), float(np.median(t_p)), b_ms, b_by)
+              f"{moved} bytes of which {texels} of distinct texels "
+              f"({moved / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
+        out[grad] = (k_ms, float(np.median(t_p)), b_ms, b_by)
     k_ms, p_ms, b_ms, b_by = out[False]
     table.append({
         "name": "env_sample", "route": "cuda",

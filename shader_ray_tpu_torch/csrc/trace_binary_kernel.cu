@@ -25,17 +25,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "walk.cuh"
+
 namespace {
+
+using srt::INFINITELY_FAR;
+using srt::safe_inv;
+using srt::slab;
 
 constexpr int BLOCK = 128;
 constexpr int TRI = 18;                   // v0 v1 v2 n0 n1 n2
-constexpr float INFINITELY_FAR = 1.0e7f;  // fs:115
-constexpr float RANGE_T1 = 1.0e8f;        // fs:463,491
-
-// finite 1/d: IEEE inf NaN-kills slab terms (kernel_body.py:48-59)
-__device__ __forceinline__ float safe_inv(float d) {
-    return 1.0f / (d == 0.0f ? 1e-30f : d);
-}
 
 __global__ void __launch_bounds__(BLOCK)
 trace_binary(const int* __restrict__ links, const float* __restrict__ boxes,
@@ -59,17 +58,8 @@ trace_binary(const int* __restrict__ links, const float* __restrict__ boxes,
         int g = root;
         while (g >= 0) {
             ++steps;
-            const float* b = boxes + (size_t)g * 6;
-            const float tax = (__ldg(b + 0) - Px) * ix;
-            const float tay = (__ldg(b + 1) - Py) * iy;
-            const float taz = (__ldg(b + 2) - Pz) * iz;
-            const float tbx = (__ldg(b + 3) - Px) * ix;
-            const float tby = (__ldg(b + 4) - Py) * iy;
-            const float tbz = (__ldg(b + 5) - Pz) * iz;
-            const float t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)),
-                                   fmaxf(fminf(taz, tbz), 0.0f));
-            const float t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)),
-                                   fminf(fmaxf(taz, tbz), RANGE_T1));
+            float t0, t1;
+            slab(boxes + (size_t)g * 6, Px, Py, Pz, ix, iy, iz, t0, t1);
             const bool boxhit = t0 < t1 && t0 < t;
             const int cnt = __ldg(leaf + 2 * (size_t)g + 1);
             if (boxhit && cnt > 0) {

@@ -2,7 +2,8 @@
 // kernel (frame_kernel.cu) and the trace-only kernel (trace_kernel.cu),
 // so both paths visit the same nodes in the same order and accept the
 // same hits.  Node table and Woop leaf records as ops/pack_wide.py
-// lays them out.
+// lays them out.  The binary-tree kernel (trace_binary_kernel.cu) takes
+// the constants, safe_inv and the slab test from here.
 
 #pragma once
 
@@ -41,6 +42,22 @@ __device__ __forceinline__ float safe_inv(float d) {
     return 1.0f / (d == 0.0f ? 1e-30f : d);
 }
 
+// slab test of the box b (lo.xyz, hi.xyz): the ray's entry and exit
+// distances, clipped to [0, RANGE_T1]; the box is hit where t0 < t1
+__device__ __forceinline__ void slab(const float* __restrict__ b,
+                                     float Px, float Py, float Pz,
+                                     float ix, float iy, float iz,
+                                     float& t0, float& t1) {
+    const float tax = (__ldg(b + 0) - Px) * ix;
+    const float tay = (__ldg(b + 1) - Py) * iy;
+    const float taz = (__ldg(b + 2) - Pz) * iz;
+    const float tbx = (__ldg(b + 3) - Px) * ix;
+    const float tby = (__ldg(b + 4) - Py) * iy;
+    const float tbz = (__ldg(b + 5) - Pz) * iz;
+    t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fmaxf(fminf(taz, tbz), 0.0f));
+    t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fminf(fmaxf(taz, tbz), RANGE_T1));
+}
+
 // One ray's short-stack walk: pop a node, slab-test its 8 children in
 // the octant's near-to-far order, Woop-test hit leaves near-to-far
 // (accept d <= t: the last of equal distances wins), push hit internal
@@ -74,17 +91,8 @@ __device__ Walk walk(const Scene& s, float Px, float Py, float Pz,
             const int cm = __ldg(nm + ck);
             cms[p] = cm;
             if (cm == -1) continue;
-            const float* b = nb + ck * 6;
-            const float tax = (__ldg(b + 0) - Px) * ix;
-            const float tay = (__ldg(b + 1) - Py) * iy;
-            const float taz = (__ldg(b + 2) - Pz) * iz;
-            const float tbx = (__ldg(b + 3) - Px) * ix;
-            const float tby = (__ldg(b + 4) - Py) * iy;
-            const float tbz = (__ldg(b + 5) - Pz) * iz;
-            const float t0 = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)),
-                                   fmaxf(fminf(taz, tbz), 0.0f));
-            const float t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)),
-                                   fminf(fmaxf(taz, tbz), RANGE_T1));
+            float t0, t1;
+            slab(nb + ck * 6, Px, Py, Pz, ix, iy, iz, t0, t1);
             if (t0 < t1 && t0 < o.t) hits |= 1u << p;
         }
 #pragma unroll

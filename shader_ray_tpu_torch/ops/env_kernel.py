@@ -41,12 +41,16 @@ def env_sample_plain(
     dDdy: torch.Tensor | None = None,
     grad: bool = False,
     aniso: int = 1,
+    touched: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``env_sample`` in plain PyTorch (envwin.py:664-701 for the lod,
-    envmap.py:145-176 of the reference for the per-ray trilinear)."""
+    envmap.py:145-176 of the reference for the per-ray trilinear).
+    ``touched``, a bool tensor over ``env.texels``' rows, gets True at
+    every texel these rays read (the bytes a bound charges)."""
     u, v = env_coords(D)
     if not grad:
-        return bilinear_level(env.texels, env.table, torch.zeros_like(u, dtype=torch.long), u, v)
+        return bilinear_level(env.texels, env.table, torch.zeros_like(u, dtype=torch.long), u, v,
+                              touched)
     dudx, dvdx, dudy, dvdy = env_derivatives(D, dDdx, dDdy)
     h0, w0 = (float(x) for x in env.base)
     rho_x = torch.sqrt((dudx * w0) ** 2 + (dvdx * h0) ** 2)
@@ -58,8 +62,8 @@ def env_sample_plain(
         l0 = torch.floor(lod)
         frac = (lod - l0)[..., None]
         l0 = l0.long()
-        c0 = bilinear_level(env.texels, env.table, l0, ui, vi)
-        c1 = bilinear_level(env.texels, env.table, torch.clamp(l0 + 1, max=top), ui, vi)
+        c0 = bilinear_level(env.texels, env.table, l0, ui, vi, touched)
+        c1 = bilinear_level(env.texels, env.table, torch.clamp(l0 + 1, max=top), ui, vi, touched)
         return c0 * (1 - frac) + c1 * frac
 
     if aniso <= 1:

@@ -106,10 +106,11 @@ def aniso_lod_and_probes(rho_x, rho_y, dudx, dvdx, dudy, dvdy, aniso: int):
 
 def bilinear_level(
     pyramid: torch.Tensor, table: torch.Tensor, level: torch.Tensor,
-    u: torch.Tensor, v: torch.Tensor,
+    u: torch.Tensor, v: torch.Tensor, touched: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Bilinear REPEAT-wrapped fetch at a per-ray pyramid level
-    (``level`` int64, same shape as u) -> (..., 3)."""
+    (``level`` int64, same shape as u) -> (..., 3).  ``touched``, a bool
+    tensor over the pyramid's texels, gets True at every texel read."""
     tbl = table.long()[level]
     off, h, w = tbl[..., 0], tbl[..., 1], tbl[..., 2]
     x = u * w.float() - 0.5
@@ -122,10 +123,11 @@ def bilinear_level(
     xi1 = torch.remainder((x0 + 1.0).long(), w)
     yi0 = torch.remainder(y0.long(), h)
     yi1 = torch.remainder((y0 + 1.0).long(), h)
-    c00 = pyramid[off + yi0 * w + xi0]
-    c10 = pyramid[off + yi0 * w + xi1]
-    c01 = pyramid[off + yi1 * w + xi0]
-    c11 = pyramid[off + yi1 * w + xi1]
+    taps = [off + yi0 * w + xi0, off + yi0 * w + xi1, off + yi1 * w + xi0, off + yi1 * w + xi1]
+    if touched is not None:
+        for i in taps:
+            touched[i] = True
+    c00, c10, c01, c11 = (pyramid[i] for i in taps)
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx
     return top * (1 - fy) + bot * fy

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from shader_ray_tpu_torch.ops import _build
-from shader_ray_tpu_torch.ops._build import LAUNCHES  # noqa: F401  (the counts, re-exported)
 from shader_ray_tpu_torch.ops.envmap import sample_env
 from shader_ray_tpu_torch.ops.pack_wide import WIDE, PackedWide
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
@@ -72,12 +71,16 @@ def frame_plain(
     uni: torch.Tensor,
     jitters: torch.Tensor,
     fs: FrameSettings,
+    probe: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frame kernel's function in plain PyTorch, vectorized over all
     K * H * W sample rays (ray r = k * H * W + pixel): returns the
     (H, W, 3) linear colour mean over the K jitters and the counter
     row (module docstring).  Arithmetic follows the kernel op by op
-    (kernel_mega.py:174-367 with which = 0)."""
+    (kernel_mega.py:174-367 with which = 0).  A ``probe`` dict receives
+    what an operation and byte count of the frame needs: ``"walks"``,
+    each walk phase's ``WalkResult`` in order, and ``"env_D"``, the
+    (K * H * W, 3) directions of the env lookup."""
     W, H = fs.width, fs.height
     K = jitters.shape[0]
     HW = W * H
@@ -132,6 +135,8 @@ def frame_plain(
         counters[2 + 3 * phase] += w.leafs.sum()
         counters[3 + 3 * phase] += w.tris.sum()
         phase += 1
+        if probe is not None:
+            probe.setdefault("walks", []).append(w)
 
     for _ in range(fs.bounce_count):
         counters[0] += act.sum()
@@ -203,7 +208,10 @@ def frame_plain(
         Dz = torch.where(hit_ok, rDz, Dz)
         act = hit_ok
 
-    env = sample_env(packed.env, torch.stack([Dx, Dy, Dz], dim=1))
+    env_D = torch.stack([Dx, Dy, Dz], dim=1)
+    if probe is not None:
+        probe["env_D"] = env_D
+    env = sample_env(packed.env, env_D)
     col = torch.stack([a + mo * env[:, c] for c, (a, mo) in enumerate(zip(acc, mod))], dim=1)
     red = torch.tensor([1.0, 0.0, 0.0], device=dev)
     col = torch.where(badv[:, None], red, col).reshape(K, HW, 3)
@@ -235,11 +243,6 @@ def _entry():
     ]
     fn.restype = I
     return fn
-
-
-def build_report() -> str:
-    """Build the kernel if needed; return nvcc's register/spill report."""
-    return _build.library("frame_kernel")[1]
 
 
 def frame_kernel(

@@ -53,6 +53,11 @@ class WalkResult(NamedTuple):
     steps: torch.Tensor    # (R,) i64 node pops
     leafs: torch.Tensor    # (R,) i64 leaf visits
     tris: torch.Tensor     # (R,) i64 triangle tests
+    # the work a sequential walk with early exits does on these rays
+    # (what an operation bound charges):
+    slabs: torch.Tensor    # (R,) i64 box slab tests (non-empty children only; binary: = steps)
+    tris_u: torch.Tensor   # (R,) i64 triangle tests that passed the distance test
+    tris_v: torch.Tensor   # (R,) i64 ... and then passed u >= 0
 
 
 def safe_inv(d: torch.Tensor) -> torch.Tensor:
@@ -96,6 +101,9 @@ def walk_plain(
     steps = torch.zeros(R, dtype=torch.long, device=dev)
     leafs = torch.zeros(R, dtype=torch.long, device=dev)
     tris = torch.zeros(R, dtype=torch.long, device=dev)
+    slabs = torch.zeros(R, dtype=torch.long, device=dev)
+    tris_u = torch.zeros(R, dtype=torch.long, device=dev)
+    tris_v = torch.zeros(R, dtype=torch.long, device=dev)
     stack = torch.zeros((R, SD), dtype=torch.long, device=dev)  # root = 0
     sp = active.long()
     shifts = 3 * torch.arange(WIDE, device=dev)
@@ -124,6 +132,7 @@ def walk_plain(
         t1 = torch.minimum(
             torch.minimum(hi[..., 0], hi[..., 1]), torch.clamp(hi[..., 2], max=RANGE_T1)
         )
+        slabs[idx] += (cm != -1).sum(1)
         hit = (cm != -1) & (t0 < t1) & (t0 < ti[:, None])
         leaf_hit = hit & (cm >= (1 << COUNT_SHIFT))
         push = hit & (cm >= 0) & (cm < (1 << COUNT_SHIFT))
@@ -141,31 +150,40 @@ def walk_plain(
         ok = torch.abs(dz) >= mt_eps
         d = oz * (-1.0 / dz)
         ok &= (d <= ti[mi]) & (d >= 0.0)
+        got_u = ok.clone()
         u = (rec[:, 4] * Ps[:, 0] + rec[:, 5] * Ps[:, 1] + rec[:, 6] * Ps[:, 2] + rec[:, 7]) + d * (
             rec[:, 4] * Ds[:, 0] + rec[:, 5] * Ds[:, 1] + rec[:, 6] * Ds[:, 2]
         )
         ok &= u >= 0.0
+        got_v = ok.clone()
         v = (rec[:, 8] * Ps[:, 0] + rec[:, 9] * Ps[:, 1] + rec[:, 10] * Ps[:, 2] + rec[:, 11]) + d * (
             rec[:, 8] * Ds[:, 0] + rec[:, 9] * Ds[:, 1] + rec[:, 10] * Ds[:, 2]
         )
         ok &= (v >= 0.0) & (u + v <= 1.0)
 
         M = idx.numel()
+
+        def per_ray(mask):
+            return torch.zeros(M, dtype=torch.long, device=dev).scatter_add(0, mi, mask.long())
+
         if any_hit:
             first = torch.full((M,), big, dtype=torch.long, device=dev).scatter_reduce(
                 0, mi, torch.where(ok, key, big), "amin"
             )
+            tested = key <= first[mi]
             done = first < big
             last_p = torch.where(done, first // MC, WIDE - 1)
             leafs[idx] += (leaf_hit & (pos <= last_p[:, None])).sum(1)
-            tris[idx] += torch.zeros(M, dtype=torch.long, device=dev).scatter_add(
-                0, mi, (key <= first[mi]).long()
-            )
+            tris[idx] += per_ray(tested)
+            tris_u[idx] += per_ray(tested & got_u)
+            tris_v[idx] += per_ray(tested & got_v)
             t[idx[done]] = 0.0
         else:
             done = torch.zeros(M, dtype=torch.bool, device=dev)
             leafs[idx] += leaf_hit.sum(1)
             tris[idx] += slot_ok.sum((1, 2))
+            tris_u[idx] += per_ray(got_u)
+            tris_v[idx] += per_ray(got_v)
             best = torch.full((M,), float("inf"), device=dev).scatter_reduce(
                 0, mi, torch.where(ok, d, float("inf")), "amin"
             )
@@ -193,7 +211,7 @@ def walk_plain(
         spi = torch.where(overflow, 0, spi)
         sp[idx] = spi
         idx = idx[spi > 0]
-    return WalkResult(t, normal, which, bad, steps, leafs, tris)
+    return WalkResult(t, normal, which, bad, steps, leafs, tris, slabs, tris_u, tris_v)
 
 
 def walk_binary_plain(
@@ -225,6 +243,8 @@ def walk_binary_plain(
     steps = torch.zeros(R, dtype=torch.long, device=dev)
     leafs = torch.zeros(R, dtype=torch.long, device=dev)
     tris = torch.zeros(R, dtype=torch.long, device=dev)
+    tris_u = torch.zeros(R, dtype=torch.long, device=dev)
+    tris_v = torch.zeros(R, dtype=torch.long, device=dev)
     g = torch.where(active, packed.root, -1).long()
     links = packed.links.long()
     leaf = packed.leaf.long()
@@ -275,8 +295,10 @@ def walk_binary_plain(
             ], dim=1)
             d = (e1[:, 0] * Q[:, 0] + e1[:, 1] * Q[:, 1] + e1[:, 2] * Q[:, 2]) * minv_det
             ok &= (d <= t[rows]) & (d >= t0[sel]) & (d <= t1[sel])
+            tris_u[rows] += ok.long()
             u = (T[:, 0] * M[:, 0] + T[:, 1] * M[:, 1] + T[:, 2] * M[:, 2]) * inv_det
             ok &= u >= 0.0
+            tris_v[rows] += ok.long()
             v = (Ds[:, 0] * Q[:, 0] + Ds[:, 1] * Q[:, 1] + Ds[:, 2] * Q[:, 2]) * inv_det
             ok &= (v >= 0.0) & (u + v <= 1.0)
             hit_rows = rows[ok]
@@ -297,7 +319,7 @@ def walk_binary_plain(
         nxt = torch.where(overflow, -1, nxt)
         g[idx] = nxt
         idx = idx[nxt >= 0]
-    return WalkResult(t, normal, which, bad, steps, leafs, tris)
+    return WalkResult(t, normal, which, bad, steps, leafs, tris, steps, tris_u, tris_v)
 
 
 def packet_hit(w: WalkResult, with_stats: bool) -> PacketHit:

@@ -168,3 +168,27 @@ def test_grad_mode_needs_differentials(sky):
         env_sample(pyr, D.to("meta"))
     with pytest.raises(ValueError, match="aniso"):
         env_sample(pyr, D, D, D, grad=True, aniso=0)
+
+
+@pytest.mark.parametrize("grad,aniso", [(False, 1), (True, 1), (True, 4)])
+def test_plain_sampler_marks_the_texels_it_reads(sky, grad, aniso):
+    """``touched`` holds exactly the texels the lookup depends on: the
+    result is unchanged (bit for bit) when every other texel is
+    overwritten, mode 0 touches level 0 only, and one direction touches
+    at most 4 texels per fetch."""
+    from shader_ray_tpu_torch.ops.env_kernel import env_sample_plain
+
+    pyr = envmap.EnvPyramid.pack(sky)
+    D, gx, gy = (torch.from_numpy(x) for x in _rays(47, 500))
+    touched = torch.zeros(pyr.texels.shape[0], dtype=torch.bool)
+    want = env_sample_plain(pyr, D, gx, gy, grad=grad, aniso=aniso, touched=touched)
+    assert touched.any() and not touched.all()
+    if not grad:
+        h, w = pyr.base
+        assert not touched[h * w:].any()
+    scrambled = envmap.EnvPyramid(torch.where(touched[:, None], pyr.texels, -7.0), pyr.table, pyr.base)
+    assert torch.equal(env_sample_plain(scrambled, D, gx, gy, grad=grad, aniso=aniso), want)
+    one = torch.zeros_like(touched)
+    env_sample_plain(pyr, D[:1], gx[:1], gy[:1], grad=grad, aniso=aniso, touched=one)
+    fetches = (2 * (envmap.ANISO_PROBES if aniso > 1 else 1)) if grad else 1
+    assert 1 <= int(one.sum()) <= 4 * fetches

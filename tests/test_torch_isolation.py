@@ -132,6 +132,8 @@ def test_build_tag_covers_included_headers(tmp_path, monkeypatch):
     names = {p.name for p in _build.sources_of("frame_kernel")}
     assert names == {"frame_kernel.cu", "walk.cuh"}
     assert {p.name for p in _build.sources_of("trace_kernel")} == {"trace_kernel.cu", "walk.cuh"}
+    assert {p.name for p in _build.sources_of("trace_binary_kernel")} == \
+        {"trace_binary_kernel.cu", "walk.cuh"}
     assert {p.name for p in _build.sources_of("env_kernel")} == {"env_kernel.cu"}
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -194,9 +196,9 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
     uni = pack_uniforms(params)
     jit = torch.from_numpy(halton_jitters(2)).to(cuda_device)
     fs = fk.FrameSettings(width=64, height=64)
-    before = fk.LAUNCHES["frame_kernel"]
+    before = fk._build.LAUNCHES["frame_kernel"]
     kc, kn = fk.frame_kernel(packed, uni, jit, fs)
-    assert fk.LAUNCHES["frame_kernel"] == before + 1
+    assert fk._build.LAUNCHES["frame_kernel"] == before + 1
     pc, pn = fk.frame_plain(packed, uni, jit, fs)
     torch.cuda.synchronize()
     assert torch.isfinite(kc).all()
@@ -206,14 +208,21 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
 
 
 def _card_scene(device, kernel: str):
-    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    """5000 flat-shaded triangles plus a unit sphere with smooth normals
+    (so the normal interpolation shows)."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
     from shader_ray_tpu_torch.ops.pack import pack_scene
     from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 
-    pos, nrm = bunny_class_scene(5000)
-    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    pos, _ = bunny_class_scene(5000)
+    spos, snrm = uv_sphere(lat=24, lon=32, radius=0.7, center=(0.8, 0.8, 0.8))
+    pos = np.asarray(pos, np.float32).reshape(-1, 3, 3)
+    flat = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    flat /= np.maximum(np.linalg.norm(flat, axis=1, keepdims=True), 1e-30)
+    nrm = np.concatenate([np.repeat(flat[:, None], 3, axis=1), snrm]).astype(np.float32)
+    data = get_shader_data(make_world(TriangleSet.from_arrays(np.concatenate([pos, spos]), nrm)))
     pack = pack_scene_wide if kernel == "wide" else pack_scene
     return pack(data, procedural_sky(64)).to(device)
 
@@ -225,7 +234,9 @@ def test_trace_kernel_matches_plain_on_card(cuda_device, kernel, any_hit):
     """Kernel vs plain version on the same card inputs (4096 seeded
     rays).  nvcc contracts multiply-adds into FMAs, so a grazing ray may
     flip: hit flags differ on <= 0.1% of rays, t agrees at rtol 1e-4
-    where both hit, ids are equal except at ties (|dt| < 1e-6)."""
+    where both hit, ids are equal except at ties (|dt| < 1e-6), and on
+    closest hits with equal ids the interpolated normals agree to 1e-5
+    mean abs (1e-3 max: a grazing hit amplifies the rounding of d)."""
     from shader_ray_tpu_torch.ops import trace_kernel as tk
 
     packed = _card_scene(cuda_device, kernel)
@@ -249,6 +260,12 @@ def test_trace_kernel_matches_plain_on_card(cuda_device, kernel, any_hit):
     differ = both & (got.which != want.which)
     assert ((got.t - want.t)[differ].abs() < 1e-6).all()
     assert torch.equal(got.bad, want.bad) and not hit[~active].any()
+    if not any_hit:
+        same = both & (got.which == want.which)
+        dn = (got.normal - want.normal)[same].abs()
+        assert same.sum() > 100 and float(dn.mean()) <= 1e-5 and float(dn.max()) <= 1e-3
+        smooth = same & (got.which >= 0) & ((got.normal.norm(dim=1) - 1.0).abs() > 1e-4)
+        assert smooth.sum() > 20   # interpolated inside a smooth triangle, not a flat one
 
 
 @pytest.mark.cuda

@@ -219,3 +219,27 @@ def test_trace_rejects_mixed_devices(scene):
         trace_wide(scene["wide"], torch.from_numpy(P).to("meta"), torch.from_numpy(D))
     with pytest.raises(ValueError, match="contiguous"):
         trace_binary(scene["binary"], torch.from_numpy(P).double(), torch.from_numpy(D))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["wide", "binary"])
+def test_plain_walks_count_the_work_of_a_sequential_walk(scene, kernel, any_hit):
+    """The counts an operation bound charges: a binary step is one slab
+    test, a wide pop tests at most 8 (only its non-empty children), and
+    a triangle test reaches u only past its distance test and v only
+    past u.  Exact integer relations, no tolerance."""
+    from shader_ray_tpu_torch.ops.trace_kernel import walk_binary_plain, walk_plain
+
+    P, D, active = (torch.from_numpy(x) for x in _rays(25))
+    plain = walk_plain if kernel == "wide" else walk_binary_plain
+    w = plain(scene[kernel], P, D, active, any_hit)
+    assert (w.tris_v <= w.tris_u).all() and (w.tris_u <= w.tris).all()
+    assert (w.slabs[~active] == 0).all() and (w.tris[~active] == 0).all()
+    hit = (w.t < INFINITELY_FAR) & ~w.bad
+    assert hit.any() and (w.tris_v[hit] >= 1).all()   # an accepted hit went all the way
+    assert w.tris_v.sum() < w.tris_u.sum() < w.tris.sum()  # some tests end at each stage
+    if kernel == "binary":
+        assert torch.equal(w.slabs, w.steps)
+    else:
+        assert (w.slabs <= 8 * w.steps).all() and (w.slabs[active] >= 1).all()
+        assert w.slabs.sum() < 8 * w.steps.sum()      # empty child slots are not charged

@@ -223,3 +223,32 @@ def test_budget_overflow_paints_red_on_the_unfused_route(sphere):
     assert painted.all()  # one step never finishes a walk of more than one node
     ok = engine_frame.render_frame(packed, tp, linear)
     assert not (ok == red).all(dim=-1).any()
+
+
+def test_frame_plain_probe_reports_walks_and_env_directions(sphere):
+    """The probe hands out what a bound of the frame counts: one
+    ``WalkResult`` per walk phase whose sums are the counter row (exact),
+    and the directions of the env lookup (rays that missed keep their
+    unit primary direction); the frame is unchanged."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    _, _, tp, renderers = sphere
+    packed = renderers["fused"].packed
+    uni = engine_frame.pack_uniforms(tp)
+    jit = torch.zeros((1, 2))
+    fs = fk.FrameSettings(width=32, height=32)
+    probe = {}
+    col, counters = fk.frame_plain(packed, uni, jit, fs, probe)
+    plain, _ = fk.frame_plain(packed, uni, jit, fs)
+    assert torch.equal(col, plain)
+    assert len(probe["walks"]) == fs.phases() == 6
+    for p, w in enumerate(probe["walks"]):
+        assert int(w.steps.sum()) == int(counters[1 + 3 * p])
+        assert int(w.tris.sum()) == int(counters[3 + 3 * p])
+        assert 0 < int(w.slabs.sum()) <= 8 * int(w.steps.sum())
+    assert probe["env_D"].shape == (32 * 32, 3)
+    assert torch.isfinite(probe["env_D"]).all()
+    missed = probe["walks"][0].t >= fk.INFINITELY_FAR
+    assert missed.any() and not missed.all()
+    torch.testing.assert_close(probe["env_D"][missed].norm(dim=1),
+                               torch.ones(int(missed.sum())), rtol=1e-5, atol=1e-5)
