@@ -14,10 +14,14 @@ port's two paths through the Renderer's entry points:
   at which=0 (held to the fused frame and the same golden), which=5
   (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3.
 
-Each path runs with the launch counts set to 0 just before it and read
-just after.  Then it times every kernel with CUDA events at the main
-path's shapes beside its bound and its plain version, and prints one
-JSON line with the kernel table plus a final status line.
+The frame kernel is also held to its plain version on the control-flow
+cases of its wave compaction (FRAME_CASES), and its launch resources
+(registers, shared memory, blocks an SM) are printed.  Each path runs
+with the launch counts set to 0 just before it and read just after.
+Then it times every kernel with CUDA events at the main path's shapes
+beside its bound and its plain version, the frame kernel also beside
+the same frame's six walks as separate trace_wide launches, and prints
+one JSON line with the kernel table plus a final status line.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one NVIDIA GPU
 
@@ -27,6 +31,7 @@ a checkout of the repository.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -179,6 +184,135 @@ def golden_gate(img, path: str, what: str) -> None:
     if mean_err > 0.005 or off_share > 0.01:
         raise AssertionError(f"golden gate failed: {what} against {path}")
 
+# cases of the frame kernel's control flow (wave compaction, ragged
+# tiles, early exits), held to frame_plain here and in
+# tests/test_torch_isolation.py
+FRAME_CASES = ("all-miss", "all-hit", "bad", "bounces0", "bounces1-noshadow",
+               "nodiffuse", "k3-ragged")
+
+
+@functools.cache
+def _case_tables(inside: bool):
+    """The cases' packed tables on the CPU: a closed sphere, or a
+    5000-triangle bunny-class scene."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    pos, nrm = uv_sphere(lat=12, lon=16) if inside else bunny_class_scene(5000)
+    return pack_scene_wide(get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm))),
+                           procedural_sky(256))
+
+
+def frame_case(name: str, device):
+    """(packed tables, uniforms, jitters, FrameSettings) of one control
+    flow case on ``device``: a 5000-triangle bench-like scene (the inside
+    of a closed sphere for "all-hit")."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+    from shader_ray_tpu_torch.ops.frame_kernel import FrameSettings
+    from shader_ray_tpu_torch.ops.render import default_frame_params
+    from shader_ray_tpu_torch.utils import mat4
+
+    inside = name == "all-hit"
+    packed = _case_tables(inside)
+    if name == "bad":
+        packed = dataclasses.replace(packed, stack_depth=2)
+    params = default_frame_params()._replace(
+        camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, 0.0 if inside else 3.8)),
+        light_dir=torch.tensor([0.36, 0.48, 0.8]),
+        diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
+        specular_color=torch.tensor([0.3, 0.3, 0.3]),
+    )
+    if name == "all-miss":  # the camera turned away from the scene
+        params = params._replace(camera_normal_matrix=torch.from_numpy(
+            mat4.make_rotation(np.pi, 0.0, 1.0, 0.0)))
+    fs = FrameSettings(width=64, height=48)
+    k = 1
+    if name == "bounces0":
+        fs = fs._replace(bounce_count=0)
+    elif name == "bounces1-noshadow":
+        fs = fs._replace(bounce_count=1, cast_shadows=False)
+    elif name == "nodiffuse":
+        fs = fs._replace(enable_diffuse=False)
+    elif name == "k3-ragged":
+        fs = fs._replace(width=37, height=29)
+        k = 3
+    jit = torch.from_numpy(halton_jitters(k)).to(device)
+    return packed.to(device), pack_uniforms(params).to(device), jit, fs
+
+
+def case_unmet(name: str, fs, colour, counters) -> str | None:
+    """What a case's plain frame fails to show of the path it is for,
+    or None."""
+    import torch
+
+    k = 3 if name == "k3-ragged" else 1
+    primaries = k * fs.width * fs.height
+    cast = int(counters[0])
+    painted = int((colour == torch.tensor([1.0, 0.0, 0.0], device=colour.device)).all(-1).sum())
+    unmet = {
+        "all-miss": cast != primaries,
+        "all-hit": cast < fs.bounce_count * primaries or painted != 0,
+        "bad": painted == 0,
+        "bounces0": cast != 0 or counters.numel() != 1,
+        "bounces1-noshadow": cast != primaries or counters.numel() != 4,
+        "nodiffuse": counters.numel() != 1 + 3 * fs.bounce_count,
+        "k3-ragged": tuple(colour.shape) != (fs.height, fs.width, 3),
+    }[name]
+    return f"case {name}: cast {cast}, {painted} red pixels, counters {counters.tolist()}" \
+        if unmet else None
+
+
+def frame_disagreement(kc, kn, pc, pn) -> str | None:
+    """Why the kernel's (colour, counters) disagree with the plain
+    version's, or None.  nvcc contracts multiply-adds into FMAs and the
+    plain version does not, so a grazing ray may flip: mean abs colour
+    <= 1e-4, rays cast within 1e-4 (one ray on a small frame), the same
+    counter row length and finite colour."""
+    import torch
+
+    cast_k, cast_p = int(kn[0]), int(pn[0])
+    if kc.shape != pc.shape or kn.shape != pn.shape:
+        return f"shapes {tuple(kc.shape)} {tuple(kn.shape)} vs {tuple(pc.shape)} {tuple(pn.shape)}"
+    if not torch.isfinite(kc).all():
+        return "non-finite colour"
+    if float((kc - pc).abs().mean()) > 1e-4:
+        return f"mean abs colour {float((kc - pc).abs().mean()):.3e} > 1e-4"
+    if abs(cast_k - cast_p) > max(1e-4 * cast_p, 1):
+        return f"cast {cast_k} vs {cast_p}"
+    return None
+
+
+def bench_inputs():
+    """The bench configuration (bench.py:289-331): the 69k-triangle
+    bunny-class scene, procedural_sky(2048) and the bench camera, as
+    (SceneData, sky, FrameParams on the CPU)."""
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops.render import default_frame_params
+    from shader_ray_tpu_torch.utils import mat4
+
+    pos, nrm = bunny_class_scene(69000)
+    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    fov = np.deg2rad(40.0)
+    zoom = 2.6 / 2.0 / np.sin(fov / 2.0)
+    params = default_frame_params(fov=fov)._replace(
+        camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, zoom)),
+        diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
+        specular_color=torch.tensor([0.05, 0.05, 0.05]),
+    )
+    return data, procedural_sky(2048), params
+
 
 def main() -> int:
     import torch
@@ -195,7 +329,7 @@ def main() -> int:
     import numpy as np
 
     from shader_ray_tpu_torch.config import Config
-    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
     from shader_ray_tpu_torch.ops import _build
@@ -205,9 +339,8 @@ def main() -> int:
     from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
     from shader_ray_tpu_torch.ops.pack import pack_scene
     from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
-    from shader_ray_tpu_torch.ops.render import RenderStatics, default_frame_params, generate_rays
+    from shader_ray_tpu_torch.ops.render import RenderStatics, generate_rays
     from shader_ray_tpu_torch.ops.vecmath import dot, normalize
-    from shader_ray_tpu_torch.utils import mat4
 
     FAR = tk.INFINITELY_FAR
 
@@ -230,11 +363,9 @@ def main() -> int:
     # 3. scene: the bench configuration (bench.py:322-331), packed three
     # ways: wide tables for the fused and the unfused route, binary tables
     t0 = time.perf_counter()
-    pos, nrm = bunny_class_scene(69000)
-    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    data, sky, params = bench_inputs()
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sky = procedural_sky(2048)
     renderer = Renderer(data, sky)
     unfused = Renderer(data, sky, Config(packet_fused=False))
     binary = Renderer(data, sky, Config(packet_kernel="binary"))
@@ -246,13 +377,11 @@ def main() -> int:
           f"{packed.n_wide} wide nodes, stack {packed.stack_depth}, "
           f"{pyramid.n_levels} env levels from {pyramid.base}; "
           f"build {t_build:.2f} s, 3 packs+uploads {t_pack:.2f} s")
-    fov = np.deg2rad(40.0)
-    zoom = 2.6 / 2.0 / np.sin(fov / 2.0)
-    params = default_frame_params(fov=fov)._replace(
-        camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, zoom)),
-        diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
-        specular_color=torch.tensor([0.05, 0.05, 0.05]),
-    )
+    info = fk.launch_info(packed.stack_depth)
+    print(f"frame_kernel launch at stack {packed.stack_depth}: {info['registers']} registers, "
+          f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static + "
+          f"{info['dynamic_smem']} B stack a block, {info['threads']} threads a block "
+          f"({info['tile_w']}x{info['tile_h']} tile), {info['blocks_per_sm']} blocks an SM")
     params_cuda = type(params)(*[x.cuda() for x in params])
     uni = pack_uniforms(params).cuda()
     statics = RenderStatics(width=W, height=H)
@@ -274,13 +403,27 @@ def main() -> int:
         print(f"frame_kernel vs plain {w}x{h} K={k}: max abs {float(diff.max()):.3e}, "
               f"mean abs {float(diff.mean()):.3e}; cast {int(kn[0])} vs {int(pn[0])} "
               f"(rel {cast_rel:.2e}); walk counters max rel diff {walk_rel:.2e}")
-        if not torch.isfinite(kc).all():
-            raise AssertionError("kernel produced non-finite colour")
-        if float(diff.mean()) > 1e-4 or cast_rel > 1e-4:
-            raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k}")
+        why = frame_disagreement(kc, torch.from_numpy(kn), pc, torch.from_numpy(pn))
+        if why:
+            raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k}: {why}")
 
     compare(*SMALL, torch.from_numpy(halton_jitters(1)).cuda())
     compare(*SMALL, torch.from_numpy(halton_jitters(4)).cuda())
+    red = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    for name in FRAME_CASES:
+        c_packed, c_uni, c_jit, c_fs = frame_case(name, torch.device("cuda"))
+        kc, kn = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs)
+        pc, pn = fk.frame_plain(c_packed, c_uni, c_jit, c_fs)
+        torch.cuda.synchronize()
+        painted = int((kc == red).all(-1).sum()), int((pc == red).all(-1).sum())
+        print(f"frame_kernel vs plain, case {name} ({c_fs.width}x{c_fs.height} K={c_jit.shape[0]}, "
+              f"{c_fs.bounce_count} bounces, shadows {c_fs.cast_shadows}, diffuse "
+              f"{c_fs.enable_diffuse}): mean abs {float((kc - pc).abs().mean()):.3e}, cast "
+              f"{int(kn[0])} vs {int(pn[0])}, walk counters {kn[1:].sum().item()} vs "
+              f"{pn[1:].sum().item()}, bad-painted pixels {painted[0]} vs {painted[1]}")
+        why = frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) or case_unmet(name, c_fs, pc, pn.cpu())
+        if why or abs(painted[0] - painted[1]) > max(1e-4 * kc[..., 0].numel(), 1):
+            raise AssertionError(f"frame_kernel disagrees with frame_plain on case {name}: {why}")
 
     def rays_at(w: int, h: int):
         """Object-space primary rays of the bench camera (the object
@@ -517,7 +660,7 @@ def main() -> int:
     probe = {}
     compare(W, H, one, probe)  # the main path's frame: its counted work gives the bound
     ops, work = walk_ops(probe["walks"], 0, OPS_WOOP)
-    wide_tables = nbytes(packed.node_boxes, packed.node_meta, packed.leaves)
+    wide_tables = nbytes(packed.nodes, packed.leaves)
     moved = wide_tables + env_bytes(probe["env_D"], None, None, False, 1) + nbytes(uni) + W * H * 3 * 4
     del probe
     bound_ms, bound_by = bound(ops, moved)
@@ -532,7 +675,37 @@ def main() -> int:
     print(f"  frame_plain {W}x{H} K=1: {summary(plain_t)}")
     print(f"  bound: {work} -> {ops:.4g} ops "
           f"({ops / PEAK_F32 * 1e3:.4f} ms), {moved} bytes "
-          f"({moved / PEAK_BYTES * 1e3:.4f} ms): {bound_ms:.4f} ms, by {bound_by}")
+          f"({moved / PEAK_BYTES * 1e3:.4f} ms): {bound_ms:.4f} ms, by {bound_by}; "
+          f"{bound_ms / ms:.2%} of the kernel's median")
+
+    # A/B: the same frame's six walks as six separate trace_wide launches
+    # (the unfused engine's calls, recorded from one frame and replayed)
+    from shader_ray_tpu_torch.ops import engine_trace
+
+    recorded = []
+
+    def record(tables, P, D, active, **kw):
+        recorded.append((P, D, active, kw))
+        return tk.trace(tables, P, D, active, **kw)
+
+    engine_trace.trace = record
+    try:
+        unfused.make_fn(statics)(params)
+    finally:
+        engine_trace.trace = tk.trace
+    torch.cuda.synchronize()
+
+    def six_walks():
+        for P, D, active, kw in recorded:
+            tk.trace_wide(unfused.packed, P, D, active, **kw)
+
+    ab = {"fused": [], "walks": []}
+    fns = {"fused": lambda: fk.frame_kernel(packed, uni, one, fs), "walks": six_walks}
+    for which in ("fused", "walks", "walks", "fused"):  # in turns on one card
+        ab[which] += cuda_times(fns[which], TIMED // 2)
+    print(f"  A/B on {card}: frame_kernel {W}x{H} K=1 {summary(ab['fused'])}; the same "
+          f"frame's {len(recorded)} walks as separate trace_wide launches (rays cast "
+          f"{sum(int(a.sum()) for _, _, a, _ in recorded)}) {summary(ab['walks'])}")
     table = [{
         "name": "frame_kernel", "route": "cuda",
         "source": "shader_ray_tpu_torch/csrc/frame_kernel.cu",

@@ -14,8 +14,9 @@
 // What bounds it here: operations and latency of dependent loads, as
 // for the frame kernel; per ray it moves 25 bytes in and 21 out, which
 // at the bench frame is ~36 MB a launch, small beside the walk.  The
-// design is the frame kernel's: one thread, one ray, a short stack in
-// local memory, nodes and records through the read-only cache.
+// design is the simple one: one thread, one ray, the whole stack in
+// local memory, nodes and records through the read-only cache in
+// 16-byte loads (walk.cuh).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.  Entry point: srt_trace_wide (C ABI).
@@ -39,7 +40,7 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
            int* __restrict__ stats_out) {
     const long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
     if (r >= n) return;
-    int stack[MAX_STACK];
+    LocalStack stack;
     Walk w;
     w.t = INFINITELY_FAR;
     w.nx = w.ny = w.nz = 0.0f;
@@ -47,9 +48,10 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
     w.bad = false;
     w.steps = w.leafs = w.tris = 0;
     if (active[r]) {
-        w = walk<true>(s, __ldg(P + 3 * r), __ldg(P + 3 * r + 1), __ldg(P + 3 * r + 2),
-                       __ldg(D + 3 * r), __ldg(D + 3 * r + 1), __ldg(D + 3 * r + 2),
-                       any_hit, stack);
+        const float Px = __ldg(P + 3 * r), Py = __ldg(P + 3 * r + 1), Pz = __ldg(P + 3 * r + 2);
+        const float Dx = __ldg(D + 3 * r), Dy = __ldg(D + 3 * r + 1), Dz = __ldg(D + 3 * r + 2);
+        w = any_hit ? walk<true, true>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
+                    : walk<true, false>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
     }
     t_out[r] = w.bad ? -1.0f : w.t;
     which_out[r] = w.bad ? -1 : w.which;
@@ -67,14 +69,15 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
 }  // namespace
 
 extern "C" int srt_trace_wide(
-    const float* boxes, const int* meta, const float* leaves,
+    const float* nodes, const float* leaves,
     const float* P, const float* D, const uint8_t* active, long long n,
     int any_hit, float mt_eps, int max_steps, int stack_depth,
     float* t_out, int* which_out, float* n_out, uint8_t* bad_out,
     int* stats_out, void* stream) {
     if (n < 1 || stack_depth < 1 || stack_depth > MAX_STACK || max_steps < 1)
         return (int)cudaErrorInvalidValue;
-    Scene s{boxes, meta, leaves, stack_depth, max_steps, mt_eps};
+    Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
+            stack_depth, max_steps, mt_eps};
     const unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
     trace_wide<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
         s, P, D, active, n, any_hit != 0, t_out, which_out, n_out, bad_out,

@@ -31,7 +31,7 @@ import torch
 
 from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.envmap import sample_env
-from shader_ray_tpu_torch.ops.pack_wide import WIDE, PackedWide
+from shader_ray_tpu_torch.ops.pack_wide import LEAF_STRIDE, WIDE, PackedWide
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
 
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
@@ -235,7 +235,7 @@ def _entry():
     I = ctypes.c_int
     F = ctypes.c_float
     fn.argtypes = [
-        P, P, P, P, I, I,          # boxes, meta, leaves, env, env_h, env_w
+        P, P, P, I, I,             # nodes, leaves, env, env_h, env_w
         P, P, I, I, I,             # uni, jitters, K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
         I, I, I, F, F, I, I,       # bounces, shadows, diffuse, fudge, eps, max_steps, stack
@@ -243,6 +243,26 @@ def _entry():
     ]
     fn.restype = I
     return fn
+
+
+INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
+             "threads", "tile_w", "tile_h")
+
+
+def launch_info(stack_depth: int, lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """The frame kernel's launch on the current card for a scene's stack
+    bound: registers a thread, static and dynamic (stack) shared bytes a
+    block, local bytes a thread, resident blocks an SM, threads a block
+    and the tile.  ``lib`` is a build of csrc/frame_kernel.cu (default:
+    the package's)."""
+    fn = (lib or _build.library("frame_kernel")[0]).srt_frame_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = fn(stack_depth, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"frame_kernel launch info failed: CUDA error {err}")
+    return dict(zip(INFO_KEYS, info))
 
 
 def frame_kernel(
@@ -255,17 +275,15 @@ def frame_kernel(
     colour mean and the int64 counter row.  CPU tensors run
     ``frame_plain``; CUDA tensors launch the CUDA kernel."""
     tensors = dict(
-        node_boxes=packed.node_boxes, node_meta=packed.node_meta,
-        leaves=packed.leaves, env=packed.env, uni=uni, jitters=jitters,
+        nodes=packed.nodes, leaves=packed.leaves, env=packed.env, uni=uni, jitters=jitters,
     )
     device = _build.one_device("frame_kernel", tensors)
     if device.type == "cpu":
         return frame_plain(packed, uni, jitters, fs)
     Nw = packed.n_wide
     check = functools.partial(_build.check, "frame_kernel")
-    check("node_boxes", packed.node_boxes, torch.float32, (Nw, WIDE, 6))
-    check("node_meta", packed.node_meta, torch.int32, (Nw, 2 * WIDE))
-    check("leaves", packed.leaves, torch.float32, (None, 21))
+    check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
+    check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
     check("env", packed.env, torch.float32, (None, None, 3))
     check("uni", uni, torch.float32, (UNI_SIZE,))
     check("jitters", jitters, torch.float32, (None, 2))
@@ -284,8 +302,7 @@ def frame_kernel(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            packed.node_boxes.data_ptr(), packed.node_meta.data_ptr(),
-            packed.leaves.data_ptr(), packed.env.data_ptr(),
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.env.data_ptr(),
             packed.env.shape[0], packed.env.shape[1],
             uni.data_ptr(), jitters.data_ptr(), K, fs.width, fs.height,
             inv_w, inv_h, aspect,

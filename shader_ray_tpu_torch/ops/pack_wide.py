@@ -4,20 +4,26 @@ shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's Woop records).
 The binary SAH tree is collapsed into 8-wide nodes by the same SAH
 dynamic program (``_collapse_sah``), with the same per-octant
 near-to-far child orders and stack bound, so both packages walk the
-same wide tree.  The layout is the one a thread walking one ray wants:
+same wide tree.  The layout is the one a thread walking one ray wants,
+read with 16-byte loads:
 
-  node_boxes (Nw, 8, 6) f32   child k: lo.xyz, hi.xyz (exact f32 — the
+  nodes   (Nw, 8, 8) f32      child k of a node as two float4s:
+                              (lo.x, lo.y, lo.z, meta) and (hi.x, hi.y,
+                              hi.z, order of octant k); meta and order
+                              are int32 bits.  Boxes are exact f32 (the
                               16-bit quantisation existed for the TPU's
-                              scalar memory)
-  node_meta  (Nw, 16) i32     [0:8] child meta: leaf count<<26 | first
-                              triangle; internal: wide node index;
-                              empty: -1.  [8:16] per-octant child order,
+                              scalar memory).  Meta: leaf count<<26 |
+                              first triangle; internal: wide node index;
+                              empty: -1.  Order: the octant's child order,
                               8 x 3-bit slots, nearest first (empties
-                              last)
-  leaves     (T, 21) f32      one Woop record per triangle in BVH order
-                              (layout at WOOP_RECORD); the record index
-                              is the triangle id
+                              last).  256 bytes a node.
+  leaves  (T, 24) f32         one Woop record per triangle in BVH order
+                              (layout at WOOP_RECORD, padded with zeros
+                              to 6 float4s); the record index is the
+                              triangle id
 
+``PackedWide.child_boxes``, ``child_meta`` and ``orders`` read the node
+table back per child.
 Leaf counts are capped at ``max_leaf_tests`` (the reference's
 10-triangle leaf budget, raytracer.es.fs:382).
 """
@@ -49,17 +55,32 @@ FIRST_MASK = (1 << COUNT_SHIFT) - 1
 #   11    -r1.v0
 #   12-20 n0.xyz (n1-n0).xyz (n2-n0).xyz
 WOOP_RECORD = 21
+LEAF_STRIDE = 24    # floats a record takes in the leaf table
 
 
 @dataclass
 class PackedWide:
-    node_boxes: torch.Tensor  # (Nw, 8, 6) f32
-    node_meta: torch.Tensor   # (Nw, 16) i32
-    leaves: torch.Tensor      # (T, 21) f32
+    nodes: torch.Tensor       # (Nw, 8, 8) f32 (meta and orders as int32 bits)
+    leaves: torch.Tensor      # (T, 24) f32
     env_pyramid: EnvPyramid   # level 0 (the frame kernel's env) + mips
     n_wide: int
     stack_depth: int
     max_count: int            # largest leaf count after the cap
+
+    @property
+    def child_boxes(self) -> torch.Tensor:
+        """(Nw, 8, 6) f32 child boxes lo.xyz, hi.xyz."""
+        return torch.cat([self.nodes[..., 0:3], self.nodes[..., 4:7]], dim=-1)
+
+    @property
+    def child_meta(self) -> torch.Tensor:
+        """(Nw, 8) i32 child meta, a view of the node table."""
+        return self.nodes.view(torch.int32)[..., 3]
+
+    @property
+    def orders(self) -> torch.Tensor:
+        """(Nw, 8) i32 child order of each octant, a view of the node table."""
+        return self.nodes.view(torch.int32)[..., 7]
 
     @property
     def env(self) -> torch.Tensor:
@@ -68,8 +89,7 @@ class PackedWide:
 
     def to(self, device) -> "PackedWide":
         return PackedWide(
-            node_boxes=self.node_boxes.to(device),
-            node_meta=self.node_meta.to(device),
+            nodes=self.nodes.to(device),
             leaves=self.leaves.to(device),
             env_pyramid=self.env_pyramid.to(device),
             n_wide=self.n_wide,
@@ -258,11 +278,19 @@ def pack_scene_wide(
         packed_order |= order[:, :, p].T << (3 * p)
     meta[:, WIDE:] = packed_order
 
+    nodes = np.zeros((Nw, WIDE, 8), np.float32)
+    nodes[:, :, 0:3] = boxes[:, :, 0:3]
+    nodes[:, :, 4:7] = boxes[:, :, 3:6]
+    bits = nodes.view(np.int32)
+    bits[:, :, 3] = meta[:, :WIDE]
+    bits[:, :, 7] = meta[:, WIDE:]
+    records = woop_records(data.tri_positions, data.tri_normals)
+    leaves = np.zeros((len(records), LEAF_STRIDE), np.float32)
+    leaves[:, :WOOP_RECORD] = records
     leaf_counts = counts[is_leaf]
     return PackedWide(
-        node_boxes=torch.from_numpy(boxes),
-        node_meta=torch.from_numpy(meta.astype(np.int32)),
-        leaves=torch.from_numpy(woop_records(data.tri_positions, data.tri_normals)),
+        nodes=torch.from_numpy(nodes),
+        leaves=torch.from_numpy(leaves),
         env_pyramid=EnvPyramid.pack(env, cfg.env_base),
         n_wide=Nw,
         # each pop pushes <= 7 net entries per level (pack_wide.py:427)

@@ -30,7 +30,7 @@ import torch
 
 from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.pack import PackedBinary
-from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, WIDE, PackedWide
+from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, LEAF_STRIDE, WIDE, PackedWide
 
 INFINITELY_FAR = 1.0e7   # fs:115
 RANGE_T1 = 1.0e8         # fs:463,491
@@ -109,7 +109,7 @@ def walk_plain(
     shifts = 3 * torch.arange(WIDE, device=dev)
     slot_k = torch.arange(MC, device=dev)
     pos = torch.arange(WIDE, device=dev)
-    node_meta = packed.node_meta.long()
+    node_bits = packed.nodes.view(torch.int32)
     big = WIDE * MC
 
     idx = torch.nonzero(sp > 0).squeeze(1)
@@ -118,12 +118,12 @@ def walk_plain(
         node = stack[idx, spi]
         steps[idx] += 1
         Pi, Di, ti = P[idx], D[idx], t[idx]
-        order = node_meta[node, WIDE + octant[idx]]
+        order = node_bits[node, octant[idx], 7].long()
         ck = (order[:, None] >> shifts) & 7                 # (M, 8) near first
-        cm = node_meta[node[:, None], ck]                   # (M, 8)
-        box = packed.node_boxes[node[:, None], ck]          # (M, 8, 6)
+        cm = node_bits[node[:, None], ck, 3].long()         # (M, 8)
+        box = packed.nodes[node[:, None], ck]               # (M, 8, 8)
         ta = (box[..., 0:3] - Pi[:, None, :]) * inv[idx][:, None, :]
-        tb = (box[..., 3:6] - Pi[:, None, :]) * inv[idx][:, None, :]
+        tb = (box[..., 4:7] - Pi[:, None, :]) * inv[idx][:, None, :]
         lo = torch.minimum(ta, tb)
         hi = torch.maximum(ta, tb)
         t0 = torch.maximum(
@@ -360,7 +360,7 @@ def _wide_entry():
     fn = _build.library("trace_kernel")[0].srt_trace_wide
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn.argtypes = [
-        P, P, P,                   # boxes, meta, leaves
+        P, P,                      # nodes, leaves
         P, P, P, L,                # P, D, active, R
         I, F, I, I,                # any_hit, eps, max_steps, stack
         P, P, P, P, P, P,          # t, which, normal, bad, stats, stream
@@ -396,16 +396,14 @@ def trace_wide(
     """Trace (R, 3) f32 object-space rays through the 8-wide tree.
     ``max_steps`` is the budget in node pops (0 = n_wide + 2).  CPU
     tensors run ``walk_plain``; CUDA tensors launch the CUDA kernel."""
-    tables = dict(node_boxes=packed.node_boxes, node_meta=packed.node_meta,
-                  leaves=packed.leaves)
+    tables = dict(nodes=packed.nodes, leaves=packed.leaves)
     device, active = _ray_args("trace_wide", tables, P, D, active)
     if device.type == "cpu":
         return packet_hit(walk_plain(packed, P, D, active, any_hit, mt_eps, max_steps),
                            with_stats)
     Nw = packed.n_wide
-    _build.check("trace_wide", "node_boxes", packed.node_boxes, torch.float32, (Nw, WIDE, 6))
-    _build.check("trace_wide", "node_meta", packed.node_meta, torch.int32, (Nw, 2 * WIDE))
-    _build.check("trace_wide", "leaves", packed.leaves, torch.float32, (None, 21))
+    _build.check("trace_wide", "nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
+    _build.check("trace_wide", "leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
     if not 1 <= packed.stack_depth <= MAX_STACK:
         raise ValueError(f"trace_wide: stack depth {packed.stack_depth} > {MAX_STACK}")
     fn = _wide_entry()
@@ -415,7 +413,7 @@ def trace_wide(
         return PacketHit(t, which, normal, bad, stats)
     with torch.cuda.device(device):
         err = fn(
-            packed.node_boxes.data_ptr(), packed.node_meta.data_ptr(), packed.leaves.data_ptr(),
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(),
             P.data_ptr(), D.data_ptr(), active.data_ptr(), R,
             int(any_hit), mt_eps, max_steps or Nw + 2, packed.stack_depth,
             t.data_ptr(), which.data_ptr(), normal.data_ptr(), bad.data_ptr(),

@@ -19,6 +19,7 @@ from shader_ray_tpu.ops.scene import upload_scene
 from shader_ray_tpu.models.world import SceneData as RefSceneData
 from shader_ray_tpu_torch.models.fixtures import procedural_sky
 from shader_ray_tpu_torch.ops import envmap
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _directions(rng):

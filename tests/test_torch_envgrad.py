@@ -29,6 +29,7 @@ from shader_ray_tpu.ops.scene import upload_scene
 from shader_ray_tpu_torch.models.fixtures import procedural_sky
 from shader_ray_tpu_torch.ops import envmap
 from shader_ray_tpu_torch.ops.env_kernel import env_sample
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SKY_W = 256  # 128 x 256: levels 128, 64, 32, 16
 

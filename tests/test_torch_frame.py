@@ -34,6 +34,7 @@ from shader_ray_tpu_torch.engine import Renderer
 from shader_ray_tpu_torch.ops.engine_frame import halton_jitters
 from shader_ray_tpu_torch.ops.render import RenderStatics
 from shader_ray_tpu_torch.ops.shading import filmic
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "sphere_gold_64.npy")
 N = 64
@@ -72,9 +73,23 @@ def bench_like():
     return upload_scene(ref, env), jp, renderer, tp, data, env
 
 
-def test_frame_matches_wavefront_engine(bench_like):
-    scene, jp, renderer, tp, _, _ = bench_like
-    want = np.asarray(ref_render_frame(scene, jp, RefStatics(width=N, height=N, tile_size=N * N)))
+@pytest.fixture(scope="module")
+def wavefront(bench_like):
+    """The reference wavefront engine's N x N frame (``render_frame``
+    under one ``jax.jit``: eager, it dispatches its while-loops op by op
+    for ~20 s) and its cast-ray count (``trace_rays(with_counts=True)``,
+    jitted as well)."""
+    scene, jp, _, _, _, _ = bench_like
+    statics = RefStatics(width=N, height=N, tile_size=N * N)
+    frame = jax.jit(lambda s, p: ref_render_frame(s, p, statics))(scene, jp)
+    rays = ref_generate_rays(statics, jp)[0]
+    _, cast = jax.jit(lambda s, p: ref_trace_rays(s, rays, p, statics, with_counts=True))(scene, jp)
+    return np.asarray(frame), int(cast)
+
+
+def test_frame_matches_wavefront_engine(bench_like, wavefront):
+    _, _, renderer, tp, _, _ = bench_like
+    want = wavefront[0]
     got = renderer.make_fn(RenderStatics(width=N, height=N))(tp).numpy()
     assert got.shape == (N, N, 3) and np.isfinite(got).all()
     assert_frame_close(got, want)
@@ -82,14 +97,12 @@ def test_frame_matches_wavefront_engine(bench_like):
     assert float(checksum) == pytest.approx(float(got.sum()), rel=1e-6)
 
 
-def test_cast_count_matches_reference(bench_like):
-    scene, jp, renderer, tp, _, _ = bench_like
-    statics = RefStatics(width=N, height=N, tile_size=N * N)
-    rays = ref_generate_rays(statics, jp)[0]
-    _, cast = jax.jit(lambda s, p: ref_trace_rays(s, rays, p, statics, with_counts=True))(scene, jp)
+def test_cast_count_matches_reference(bench_like, wavefront):
+    _, _, renderer, tp, _, _ = bench_like
+    cast = wavefront[1]
     got = renderer.make_count_fn(RenderStatics(width=N, height=N))(tp)
     assert N * N <= got <= 6 * N * N
-    assert abs(got - int(cast)) <= 0.005 * int(cast), (got, int(cast))
+    assert abs(got - cast) <= 0.005 * cast, (got, cast)
 
 
 def test_frame_matches_sphere_golden():

@@ -21,6 +21,7 @@ from shader_ray_tpu_torch.convert import frame_params_from_numpy
 from shader_ray_tpu_torch.ops import shading, vecmath
 from shader_ray_tpu_torch.ops.engine_frame import pack_uniforms
 from shader_ray_tpu_torch.ops.render import RenderStatics, default_frame_params, generate_rays, rays_for_pixels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-6
 

@@ -2,8 +2,11 @@
 (and chip_smoke.py) loads no jax and nothing of shader_ray_tpu; the
 Renderer refuses to fall back to the CPU on its own; and, on a host
 with a CUDA card and nvcc, each hand-written kernel (frame, wide trace,
-binary trace, env sampler) agrees with its plain PyTorch version.  This
-file imports no jax, so its card tests run where jax is not installed."""
+binary trace, env sampler) agrees with its plain PyTorch version — the
+frame kernel also on the control-flow cases of its wave compaction
+(chip_smoke.FRAME_CASES), whose plain frames are checked here on the CPU
+to show the path each case is for.  This file imports no jax, so its
+card tests run where jax is not installed."""
 
 import ast
 import os
@@ -15,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import shader_ray_tpu_torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "shader_ray_tpu_torch")
@@ -296,3 +301,39 @@ def test_env_kernel_matches_plain_on_card(cuda_device, grad, aniso):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
+def test_frame_cases_show_their_paths(name):
+    """Each control-flow case, rendered by frame_plain on the CPU, shows
+    the path it is for: no hit at all, every ray hitting through all its
+    bounces, bad rays painted, no bounce, one bounce without shadows, no
+    diffuse, three samples on a frame that is no whole number of tiles."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    packed, uni, jit, fs = chip_smoke.frame_case(name, torch.device("cpu"))
+    colour, counters = fk.frame_plain(packed, uni, jit, fs)
+    assert chip_smoke.case_unmet(name, fs, colour, counters) is None
+    assert chip_smoke.frame_disagreement(colour, counters, colour, counters) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
+def test_frame_kernel_control_flow_on_card(cuda_device, name):
+    """The frame kernel against frame_plain on the paths its compaction
+    creates (empty queues, full queues, bad rays, no or one bounce,
+    shadows or diffuse off, K=3 on a ragged frame), with chip_smoke's
+    limits: mean abs colour <= 1e-4, rays cast within 1e-4 (one ray on a
+    small frame), and the same bad-painted pixels up to one."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    packed, uni, jit, fs = chip_smoke.frame_case(name, cuda_device)
+    before = fk._build.LAUNCHES["frame_kernel"]
+    kc, kn = fk.frame_kernel(packed, uni, jit, fs)
+    assert fk._build.LAUNCHES["frame_kernel"] == before + 1
+    pc, pn = fk.frame_plain(packed, uni, jit, fs)
+    torch.cuda.synchronize()
+    assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None
+    assert chip_smoke.case_unmet(name, fs, kc, kn.cpu()) is None
+    red = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
+    assert int(((kc == red).all(-1) != (pc == red).all(-1)).sum()) <= 1

@@ -3,7 +3,9 @@
 collapse="sah") on the same scene: same wide-node count and stack
 bound, same child sets per node, same octant orders, each dequantised
 16-bit reference box contains the port's exact f32 box, and the Woop
-records match pack._woop_records."""
+records match pack._woop_records.  The port's node table packs a
+child's box, meta and one octant's order into two float4s; the tests
+read it back through ``child_boxes``, ``child_meta`` and ``orders``."""
 
 import numpy as np
 import pytest
@@ -40,7 +42,8 @@ def test_node_count_stack_and_orders(packs):
     assert port.stack_depth == ref.stack_depth
     assert port.max_count == ref.max_count
     ref_order = np.asarray(ref.order_smem).reshape(ref.n_wide, 8)
-    np.testing.assert_array_equal(port.node_meta[:, 8:].numpy(), ref_order)
+    np.testing.assert_array_equal(port.orders.numpy(), ref_order)
+    assert port.nodes.shape == (ref.n_wide, 8, 8) and port.nodes.is_contiguous()
 
 
 def test_child_sets_and_boxes(packs):
@@ -48,7 +51,7 @@ def test_child_sets_and_boxes(packs):
     Nw = ref.n_wide
     ref_meta = np.asarray(ref.cmeta_smem).reshape(Nw, 8)
     tribase = np.asarray(ref.tribase_smem)
-    meta = port.node_meta[:, :8].numpy()
+    meta = port.child_meta.numpy()
     # the same child in each slot: the reference's leaf row maps to its
     # first triangle through the tribase table
     for w in range(Nw):
@@ -68,7 +71,8 @@ def test_child_sets_and_boxes(packs):
     scale = np.array(ref.box_quant[3:])
     lo = (q >> 16) * scale + off
     hi = (q & 0xFFFF) * scale + off
-    boxes = port.node_boxes.numpy().astype(np.float64)
+    boxes = port.child_boxes.numpy().astype(np.float64)
+    np.testing.assert_array_equal(port.nodes[..., 0:3].numpy(), port.child_boxes[..., 0:3].numpy())
     filled = meta != -1
     slack = 1e-9 * np.abs(off).max() + 1e-9
     assert (lo[filled] <= boxes[..., 0:3][filled] + slack).all()
@@ -80,7 +84,8 @@ def test_woop_records(packs):
     data, ref, port = packs
     want = ref_woop_records(data.tri_positions, data.tri_normals)
     np.testing.assert_allclose(woop_records(data.tri_positions, data.tri_normals), want, atol=1e-6, rtol=0)
-    np.testing.assert_allclose(port.leaves.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(port.leaves.numpy()[:, :21], want, atol=1e-6, rtol=0)
+    assert port.leaves.shape == (len(want), 24) and not port.leaves[:, 21:].any()
     # and record by record against the reference's leaf-group layout
     leaves = np.asarray(ref.leaves)
     tribase = np.asarray(ref.tribase_smem)
@@ -90,4 +95,4 @@ def test_woop_records(packs):
         grp, sub = divmod(row, WOOP_LEAVES_PER_GROUP)
         c0 = sub * WOOP_LEAF_RECORD
         block = leaves[grp * GROUP_ROWS : grp * GROUP_ROWS + cnt, c0 : c0 + WOOP_LEAF_RECORD]
-        np.testing.assert_allclose(port.leaves.numpy()[tb : tb + cnt], block, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(port.leaves.numpy()[tb : tb + cnt, :21], block, atol=1e-6, rtol=0)

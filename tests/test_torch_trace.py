@@ -37,6 +37,7 @@ from shader_ray_tpu_torch.convert import packed_from_numpy
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.models.world import get_shader_data, make_world
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, trace, trace_binary, trace_wide
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = {
     "bunny1k": lambda: bunny_class_scene(1000),

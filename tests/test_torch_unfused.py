@@ -52,6 +52,7 @@ from shader_ray_tpu_torch.ops import engine_frame
 from shader_ray_tpu_torch.ops.pack import PackedBinary
 from shader_ray_tpu_torch.ops.pack_wide import PackedWide
 from shader_ray_tpu_torch.ops.render import RenderStatics
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 64
 CONFIGS = {
@@ -98,8 +99,9 @@ def wavefront_frame(sphere):
     def frame(**kw):
         key = tuple(sorted(kw.items()))
         if key not in frames:
+            # jitted: eager, render_frame dispatches its while-loops op by op
             statics = RefStatics(tile_size=kw["width"] * kw["height"], **kw)
-            frames[key] = np.asarray(ref_render_frame(scene, jp, statics))
+            frames[key] = np.asarray(jax.jit(lambda s, p: ref_render_frame(s, p, statics))(scene, jp))
         return frames[key]
 
     return frame

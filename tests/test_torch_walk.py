@@ -27,6 +27,7 @@ from shader_ray_tpu.ops.traversal import traverse
 from shader_ray_tpu_torch.convert import scene_data_from_numpy
 from shader_ray_tpu_torch.ops.frame_kernel import INFINITELY_FAR, walk_plain
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = {
     "bunny1k": lambda: bunny_class_scene(1000),
