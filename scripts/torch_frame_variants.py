@@ -3,13 +3,12 @@
 one card.
 
 Builds ``shader_ray_tpu_torch/csrc/frame_kernel.cu`` once per tile
-and slots a thread (``-D FRAME_TILE_W/H``, ``FRAME_SLOTS_PER_THREAD``,
-VARIANTS below; one nvcc each, all started together) and, with ``--old DIR``, the frame and wide-trace kernels of
+(``-D FRAME_TILE_W/H``, VARIANTS below; one nvcc each, all started
+together) and, with ``--old DIR``, the frame and wide-trace kernels of
 another checkout of the repository (``DIR/shader_ray_tpu_torch/csrc/``:
 the one-thread-a-pixel frame kernel and the trace kernel before the
 16-byte node layout, whose entry points take child boxes and metas as
-two tables and 21-float records) and, with ``--base DIR``, the frame
-kernel of a checkout with this tree's layout.  Renders the bench frame
+two tables and 21-float records).  Renders the bench frame
 (chip_smoke.bench_inputs) with each frame kernel, holds each against
 ``frame_plain``, and times them in turns (A B ... B A) at K=1 and per
 sample at K=64; with ``--old`` also the two wide-trace kernels on the
@@ -33,9 +32,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# name: {macro: value} for FRAME_TILE_W and FRAME_TILE_H (pixels of a
-# block's tile, default 16x16) and FRAME_SLOTS_PER_THREAD (tile pixels a
-# thread owns, default 1)
+# name: {macro: value} for FRAME_TILE_W and FRAME_TILE_H (default 16x16)
 VARIANTS = {
     "16x16": {},
     "16x8": {"FRAME_TILE_H": 8},
@@ -43,20 +40,14 @@ VARIANTS = {
     "32x8": {"FRAME_TILE_W": 32, "FRAME_TILE_H": 8},
     "32x16": {"FRAME_TILE_W": 32},
     "16x32": {"FRAME_TILE_H": 32},
-    "16x16-2slots": {"FRAME_SLOTS_PER_THREAD": 2},
-    "32x16-2slots": {"FRAME_TILE_W": 32, "FRAME_SLOTS_PER_THREAD": 2},
-    "16x32-2slots": {"FRAME_TILE_H": 32, "FRAME_SLOTS_PER_THREAD": 2},
-    "32x16-4slots": {"FRAME_TILE_W": 32, "FRAME_SLOTS_PER_THREAD": 4},
 }
 OLD = "one-thread-a-pixel"
 OLD_TRACE = "trace-old"
-BASE = "base"
 TIMED = 40      # K=1 calls per series
 TIMED_K64 = 3   # K=64 calls per series
 
 
-def build_all(variants: dict, old: str | None, base: str | None,
-              out_dir: str) -> dict[str, tuple[str, str]]:
+def build_all(variants: dict, old: str | None, out_dir: str) -> dict[str, tuple[str, str]]:
     """{name: (library path, nvcc's output)}, one nvcc each, all started
     together."""
     from shader_ray_tpu_torch.ops import _build
@@ -68,10 +59,6 @@ def build_all(variants: dict, old: str | None, base: str | None,
         so = os.path.join(out_dir, f"frame-{name}.so")
         flags = [f"-D{k}={v}" for k, v in macros.items()]
         jobs[name] = (so, [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", so, src])
-    if base:
-        so = os.path.join(out_dir, "frame-base.so")
-        jobs[BASE] = (so, [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                           os.path.join(base, "shader_ray_tpu_torch", "csrc", "frame_kernel.cu")])
     if old:
         for name, src_name in ((OLD, "frame_kernel.cu"), (OLD_TRACE, "trace_kernel.cu")):
             so = os.path.join(out_dir, f"{src_name[:-3]}-old.so")
@@ -160,7 +147,6 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", help="a checkout whose frame kernel takes the two-table layout")
-    ap.add_argument("--base", help="a checkout whose frame kernel takes this tree's layout")
     ap.add_argument("--only", nargs="*", help="variant names (default: all)")
     args = ap.parse_args()
     variants = {k: v for k, v in VARIANTS.items() if not args.only or k in args.only}
@@ -168,7 +154,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    built = build_all(variants, args.old, args.base,
+    built = build_all(variants, args.old,
                       os.path.join(ROOT, "shader_ray_tpu_torch", "build", "variants"))
     print(f"build: nvcc x{len(built)} in parallel {time.perf_counter() - t0:.2f} s")
 

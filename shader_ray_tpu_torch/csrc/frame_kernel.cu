@@ -64,9 +64,6 @@
 #ifndef FRAME_TILE_H
 #define FRAME_TILE_H 16
 #endif
-#ifndef FRAME_SLOTS_PER_THREAD
-#define FRAME_SLOTS_PER_THREAD 1
-#endif
 
 namespace {
 
@@ -74,13 +71,11 @@ using namespace srt;  // Scene, Walk, walk(), the table constants (walk.cuh)
 
 constexpr int TILE_W = FRAME_TILE_W;
 constexpr int TILE_H = FRAME_TILE_H;
-constexpr int SLOTS = TILE_W * TILE_H;       // a ray slot per pixel of the tile
-constexpr int SPT = FRAME_SLOTS_PER_THREAD;  // slots a thread owns
-constexpr int BLOCK = SLOTS / SPT;
+constexpr int BLOCK = TILE_W * TILE_H;  // one thread a pixel of the tile
 constexpr int WARPS = BLOCK / 32;
 constexpr int MAX_PHASES = 16;
 constexpr int N_COUNTERS = 1 + 3 * MAX_PHASES;
-static_assert(SLOTS % SPT == 0 && BLOCK % 32 == 0 && SLOTS <= 1024, "a block is whole warps");
+static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "a tile is whole warps");
 
 // the reference's pi, kept verbatim (fs:116), rounded to f32 once
 constexpr float PI_REF = (float)3.14159265259;
@@ -110,47 +105,23 @@ struct BlockStack {
     __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = v; }
 };
 
-// The flagged slots (flag[j] is slot j * BLOCK + tid's) in slot order
-// into q[0..n); returns n and resets the queue head.  Every thread of
-// the block calls it.
-__device__ __forceinline__ int compact(const bool (&flag)[SPT], short* q, int* wcount, int* head) {
+// The owners of the flagged slots, in slot order, into q[0..n); returns
+// n.  Every thread of the block calls it.
+__device__ __forceinline__ int compact(bool flag, short* q, int* wcount) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    unsigned m[SPT];
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-        m[j] = __ballot_sync(0xffffffffu, flag[j]);
-        if (lane == 0) wcount[j * WARPS + warp] = __popc(m[j]);
-    }
+    const unsigned m = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) wcount[warp] = __popc(m);
     __syncthreads();
-    if (tid == 0) *head = 0;
-    int total = 0;
+    int off = 0, total = 0;
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-        int off = total;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-            const int c = wcount[j * WARPS + w];
-            off += w < warp ? c : 0;
-            total += c;
-        }
-        if (flag[j]) q[off + __popc(m[j] & ((1u << lane) - 1u))] = (short)(j * BLOCK + tid);
+    for (int w = 0; w < WARPS; ++w) {
+        const int c = wcount[w];
+        off += w < warp ? c : 0;
+        total += c;
     }
+    if (flag) q[off + __popc(m & ((1u << lane) - 1u))] = (short)tid;
     __syncthreads();
     return total;
-}
-
-// f(i) for every queue entry i < n: a warp takes the next 32 entries
-// until none are left, so warps that finish early take more
-template <class F>
-__device__ __forceinline__ void for_queue(int n, int* head, F f) {
-    const int lane = threadIdx.x & 31;
-    for (;;) {
-        int base = 0;
-        if (lane == 0) base = atomicAdd(head, 32);
-        base = __shfl_sync(0xffffffffu, base, 0);
-        if (base >= n) return;
-        if (base + lane < n) f(base + lane);
-    }
 }
 
 // one walk's counts into the block's per-phase counters (ph = node
@@ -182,13 +153,12 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
       float* __restrict__ out, unsigned long long* __restrict__ counters) {
     __shared__ float u[UNI_SIZE];
     __shared__ unsigned long long cnt[N_COUNTERS];
-    // ray state of the tile's slots (slot = pixel of the tile)
-    __shared__ float sP[3][SLOTS], sD[3][SLOTS], sAcc[3][SLOTS], sMod[3][SLOTS];
-    __shared__ float sMd[3][SLOTS], sLcos[SLOTS];  // pending diffuse: mod * diffuse, lcos
-    __shared__ unsigned char sFlag[SLOTS], sBad[SLOTS];
-    __shared__ short q[SLOTS];
-    __shared__ int wcount[SPT * WARPS];
-    __shared__ int head;
+    // ray state of the tile's slots (slot = owner thread = pixel)
+    __shared__ float sP[3][BLOCK], sD[3][BLOCK], sAcc[3][BLOCK], sMod[3][BLOCK];
+    __shared__ float sMd[3][BLOCK], sLcos[BLOCK];  // pending diffuse: mod * diffuse, lcos
+    __shared__ unsigned char sFlag[BLOCK], sBad[BLOCK];
+    __shared__ short q[BLOCK];
+    __shared__ int wcount[WARPS];
     extern __shared__ int stack_sh[];  // (stack_depth, BLOCK)
 
     const int tid = threadIdx.x;
@@ -210,202 +180,182 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
     const float oLz = nm[6] * Lx + nm[7] * Ly + nm[8] * Lz;
     const int phase_stride = shadows ? 2 : 1;
 
-    // this thread's slots j * BLOCK + tid and their pixels
-    const int x0 = (blockIdx.x % tiles_x) * TILE_W, y0 = (blockIdx.x / tiles_x) * TILE_H;
-    bool valid[SPT];
-    float sum[SPT][3];
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-        const int slot = j * BLOCK + tid;
-        valid[j] = x0 + slot % TILE_W < W && y0 + slot / TILE_W < H;
-        sum[j][0] = sum[j][1] = sum[j][2] = 0.0f;
-    }
-
-    for (int k = 0; k < K; ++k) {
-        bool live[SPT];  // the slot's ray still bounces
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-            const int slot = j * BLOCK + tid;
-            live[j] = valid[j];
-            sBad[slot] = 0;
-            if (!valid[j]) continue;
-            // pinhole raygen (kernel_mega.py:203-220), two normalisations
-            const float iif = (float)(x0 + slot % TILE_W), jf = (float)(y0 + slot / TILE_W);
-            const float uu = (iif + 0.5f + __ldg(jit + 2 * k)) * inv_w;
-            const float vv = 1.0f - (jf + 0.5f + __ldg(jit + 2 * k + 1)) * inv_h;
-            const float ex = ipw * (uu - 0.5f);
-            const float ey = (ipw * aspect) * (vv - 0.5f);
-            const float inv_e = 1.0f / sqrtf(ex * ex + ey * ey + 1.0f);
-            const float dex = ex * inv_e, dey = ey * inv_e, dez = -inv_e;
-            const float Dx = cmx[0] * dex + cmx[1] * dey + cmx[2] * dez;
-            const float Dy = cmx[3] * dex + cmx[4] * dey + cmx[5] * dez;
-            const float Dz = cmx[6] * dex + cmx[7] * dey + cmx[8] * dez;
-            const float inv_d = 1.0f / sqrtf(Dx * Dx + Dy * Dy + Dz * Dz);
-            sD[0][slot] = Dx * inv_d;
-            sD[1][slot] = Dy * inv_d;
-            sD[2][slot] = Dz * inv_d;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                sP[c][slot] = u[UNI_CAM_ORIGIN + c];
-                sAcc[c][slot] = 0.0f;
-                sMod[c][slot] = 1.0f;
-            }
-        }
-
-        for (int b = 0; b < bounces; ++b) {
-            // closest-hit phase over the live rays, shading after each walk
-            const int n = compact(live, q, wcount, &head);
-            if (n == 0) break;
-            const int ph = 1 + 3 * (phase_stride * b);
-            if (tid == 0) cnt[0] += (unsigned long long)n;
-            unsigned st = 0, lf = 0, tr = 0;
-            for_queue(n, &head, [&](int i) {
-                const int r = q[i];
-                const float Px = sP[0][r], Py = sP[1][r], Pz = sP[2][r];
-                const float Dx = sD[0][r], Dy = sD[1][r], Dz = sD[2][r];
-                const float oPx = m[0] * Px + m[1] * Py + m[2] * Pz + m[3];
-                const float oPy = m[4] * Px + m[5] * Py + m[6] * Pz + m[7];
-                const float oPz = m[8] * Px + m[9] * Py + m[10] * Pz + m[11];
-                const float oDx = nm[0] * Dx + nm[1] * Dy + nm[2] * Dz;
-                const float oDy = nm[3] * Dx + nm[4] * Dy + nm[5] * Dz;
-                const float oDz = nm[6] * Dx + nm[7] * Dy + nm[8] * Dz;
-                const Walk w = walk<false, false>(s, oPx, oPy, oPz, oDx, oDy, oDz, stack);
-                st += w.steps;
-                lf += w.leafs;
-                tr += w.tris;
-                unsigned char flag = 0;
-                if (w.bad) {
-                    sBad[r] = 1;
-                } else if (w.t < INFINITELY_FAR) {
-                    const float t = w.t;
-                    // object -> world normal, flipped against the incoming ray
-                    float wnx = ni[0] * w.nx + ni[1] * w.ny + ni[2] * w.nz;
-                    float wny = ni[3] * w.nx + ni[4] * w.ny + ni[5] * w.nz;
-                    float wnz = ni[6] * w.nx + ni[7] * w.ny + ni[8] * w.nz;
-                    const float flip = (wnx * Dx + wny * Dy + wnz * Dz > 0.0f) ? -1.0f : 1.0f;
-                    wnx *= flip;
-                    wny *= flip;
-                    wnz *= flip;
-
-                    // transfer + fudged reflect (fs:65-96)
-                    sP[0][r] = Px + t * Dx + wnx * fudge;
-                    sP[1][r] = Py + t * Dy + wny * fudge;
-                    sP[2][r] = Pz + t * Dz + wnz * fudge;
-                    const float ddn = Dx * wnx + Dy * wny + Dz * wnz;
-                    const float rDx = Dx - 2.0f * ddn * wnx;
-                    const float rDy = Dy - 2.0f * ddn * wny;
-                    const float rDz = Dz - 2.0f * ddn * wnz;
-
-                    // Schlick in (view . reflected) half-angle form (fs:479-482)
-                    const float h = (Dx * rDx + Dy * rDy + Dz * rDz) * 0.5f + 0.5f;
-                    const float h2 = h * h;
-                    const float fres = h2 * h2 * h;
-                    sD[0][r] = rDx;
-                    sD[1][r] = rDy;
-                    sD[2][r] = rDz;
-
-                    flag = ALIVE;
-                    if (diffuse) {
-                        const float lcos = fmaxf(wnx * Lx + wny * Ly + wnz * Lz, 0.0f);
-                        if (shadows && lcos > 0.0f) {
-                            // irr = lcos unless the shadow walk finds a hit
-                            flag |= SHADOW;
-                            sLcos[r] = lcos;
-#pragma unroll
-                            for (int c = 0; c < 3; ++c) sMd[c][r] = sMod[c][r] * u[UNI_DIFFUSE + c];
-                        } else {
-#pragma unroll
-                            for (int c = 0; c < 3; ++c)
-                                sAcc[c][r] = sAcc[c][r] + sMod[c][r] * u[UNI_DIFFUSE + c] * lcos;
-                        }
-                    }
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) {
-                        const float sc = u[UNI_SPECULAR + c];
-                        sMod[c][r] = sMod[c][r] * (sc + (1.0f - sc) * fres);
-                    }
-                }
-                sFlag[r] = flag;
-            });
-            count(cnt, ph, st, lf, tr);
-            __syncthreads();
-            bool cast[SPT];
-#pragma unroll
-            for (int j = 0; j < SPT; ++j) {
-                const unsigned char flag = sFlag[j * BLOCK + tid];
-                live[j] = live[j] && (flag & ALIVE);
-                cast[j] = live[j] && (flag & SHADOW);
-            }
-            if (!shadows) continue;
-
-            // any-hit phase over the light-facing hits
-            const int ns = compact(cast, q, wcount, &head);
-            if (ns == 0) continue;
-            if (tid == 0) cnt[0] += (unsigned long long)ns;
-            st = lf = tr = 0;
-            for_queue(ns, &head, [&](int i) {
-                const int r = q[i];
-                const float Px = sP[0][r], Py = sP[1][r], Pz = sP[2][r];
-                const float sPx = m[0] * Px + m[1] * Py + m[2] * Pz + m[3];
-                const float sPy = m[4] * Px + m[5] * Py + m[6] * Pz + m[7];
-                const float sPz = m[8] * Px + m[9] * Py + m[10] * Pz + m[11];
-                const Walk sw = walk<false, true>(s, sPx, sPy, sPz, oLx, oLy, oLz, stack);
-                st += sw.steps;
-                lf += sw.leafs;
-                tr += sw.tris;
-                if (sw.bad) sBad[r] = 1;
-                const float irr = sLcos[r] * (sw.t >= INFINITELY_FAR ? 1.0f : 0.0f);
-#pragma unroll
-                for (int c = 0; c < 3; ++c) sAcc[c][r] = sAcc[c][r] + sMd[c][r] * irr;
-            });
-            count(cnt, ph + 3, st, lf, tr);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-            const int slot = j * BLOCK + tid;
-            if (!valid[j]) continue;
-            float col0 = 1.0f, col1 = 0.0f, col2 = 0.0f;  // bad-ray paint
-            if (!sBad[slot]) {
-                const float Dx = sD[0][slot], Dy = sD[1][slot], Dz = sD[2][slot];
-                // env term: u = 1 + atan2(-z, x)/tau, v = 1 - acos(y)/pi
-                // (envmap.py:36-41), level-0 bilinear, REPEAT wrap
-                const float eu = 1.0f + atan2f(-Dz, Dx) / TAU_REF;
-                const float ev = 1.0f - acosf(fminf(fmaxf(Dy, -1.0f), 1.0f)) / PI_REF;
-                const float x = eu * (float)ew - 0.5f;
-                const float y = (1.0f - ev) * (float)eh - 0.5f;
-                const float fx0 = floorf(x), fy0 = floorf(y);
-                const float fx = x - fx0, fy = y - fy0;
-                int xi0 = (int)fx0 % ew; if (xi0 < 0) xi0 += ew;
-                int yi0 = (int)fy0 % eh; if (yi0 < 0) yi0 += eh;
-                const int xi1 = xi0 + 1 == ew ? 0 : xi0 + 1;
-                const int yi1 = yi0 + 1 == eh ? 0 : yi0 + 1;
-                const float* r0 = env + (size_t)yi0 * ew * 3;
-                const float* r1 = env + (size_t)yi1 * ew * 3;
-                float e[3];
+    {
+        const int tile = blockIdx.x;
+        const int px = (tile % tiles_x) * TILE_W + tid % TILE_W;
+        const int py = (tile / tiles_x) * TILE_H + tid / TILE_W;
+        const bool valid = px < W && py < H;
+        const float iif = (float)px, jf = (float)py;
+        float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f;
+        for (int k = 0; k < K; ++k) {
+            if (valid) {
+                // pinhole raygen (kernel_mega.py:203-220), two normalisations
+                const float uu = (iif + 0.5f + __ldg(jit + 2 * k)) * inv_w;
+                const float vv = 1.0f - (jf + 0.5f + __ldg(jit + 2 * k + 1)) * inv_h;
+                const float ex = ipw * (uu - 0.5f);
+                const float ey = (ipw * aspect) * (vv - 0.5f);
+                const float inv_e = 1.0f / sqrtf(ex * ex + ey * ey + 1.0f);
+                const float dex = ex * inv_e, dey = ey * inv_e, dez = -inv_e;
+                float Dx = cmx[0] * dex + cmx[1] * dey + cmx[2] * dez;
+                float Dy = cmx[3] * dex + cmx[4] * dey + cmx[5] * dez;
+                float Dz = cmx[6] * dex + cmx[7] * dey + cmx[8] * dez;
+                const float inv_d = 1.0f / sqrtf(Dx * Dx + Dy * Dy + Dz * Dz);
+                sD[0][tid] = Dx * inv_d;
+                sD[1][tid] = Dy * inv_d;
+                sD[2][tid] = Dz * inv_d;
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
-                    const float top = __ldg(r0 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r0 + xi1 * 3 + c) * fx;
-                    const float bot = __ldg(r1 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r1 + xi1 * 3 + c) * fx;
-                    e[c] = top * (1.0f - fy) + bot * fy;
+                    sP[c][tid] = u[UNI_CAM_ORIGIN + c];
+                    sAcc[c][tid] = 0.0f;
+                    sMod[c][tid] = 1.0f;
                 }
-                col0 = sAcc[0][slot] + sMod[0][slot] * e[0];
-                col1 = sAcc[1][slot] + sMod[1][slot] * e[1];
-                col2 = sAcc[2][slot] + sMod[2][slot] * e[2];
             }
-            sum[j][0] += col0;
-            sum[j][1] += col1;
-            sum[j][2] += col2;
-        }
-    }
+            sBad[tid] = 0;
+            bool live = valid;  // this slot's ray still bounces
+
+            for (int b = 0; b < bounces; ++b) {
+                // closest-hit phase over the live rays, shading after each walk
+                const int n = compact(live, q, wcount);
+                if (n == 0) break;
+                const int ph = 1 + 3 * (phase_stride * b);
+                if (tid == 0) cnt[0] += (unsigned long long)n;
+                unsigned st = 0, lf = 0, tr = 0;
+                if (tid < n) {
+                    const int r = q[tid];
+                    const float Px = sP[0][r], Py = sP[1][r], Pz = sP[2][r];
+                    const float Dx = sD[0][r], Dy = sD[1][r], Dz = sD[2][r];
+                    const float oPx = m[0] * Px + m[1] * Py + m[2] * Pz + m[3];
+                    const float oPy = m[4] * Px + m[5] * Py + m[6] * Pz + m[7];
+                    const float oPz = m[8] * Px + m[9] * Py + m[10] * Pz + m[11];
+                    const float oDx = nm[0] * Dx + nm[1] * Dy + nm[2] * Dz;
+                    const float oDy = nm[3] * Dx + nm[4] * Dy + nm[5] * Dz;
+                    const float oDz = nm[6] * Dx + nm[7] * Dy + nm[8] * Dz;
+                    const Walk w = walk<false, false>(s, oPx, oPy, oPz, oDx, oDy, oDz, stack);
+                    st = w.steps;
+                    lf = w.leafs;
+                    tr = w.tris;
+                    unsigned char flag = 0;
+                    if (w.bad) {
+                        sBad[r] = 1;
+                    } else if (w.t < INFINITELY_FAR) {
+                        const float t = w.t;
+                        // object -> world normal, flipped against the incoming ray
+                        float wnx = ni[0] * w.nx + ni[1] * w.ny + ni[2] * w.nz;
+                        float wny = ni[3] * w.nx + ni[4] * w.ny + ni[5] * w.nz;
+                        float wnz = ni[6] * w.nx + ni[7] * w.ny + ni[8] * w.nz;
+                        const float flip = (wnx * Dx + wny * Dy + wnz * Dz > 0.0f) ? -1.0f : 1.0f;
+                        wnx *= flip;
+                        wny *= flip;
+                        wnz *= flip;
+
+                        // transfer + fudged reflect (fs:65-96)
+                        sP[0][r] = Px + t * Dx + wnx * fudge;
+                        sP[1][r] = Py + t * Dy + wny * fudge;
+                        sP[2][r] = Pz + t * Dz + wnz * fudge;
+                        const float ddn = Dx * wnx + Dy * wny + Dz * wnz;
+                        const float rDx = Dx - 2.0f * ddn * wnx;
+                        const float rDy = Dy - 2.0f * ddn * wny;
+                        const float rDz = Dz - 2.0f * ddn * wnz;
+
+                        // Schlick in (view . reflected) half-angle form (fs:479-482)
+                        const float h = (Dx * rDx + Dy * rDy + Dz * rDz) * 0.5f + 0.5f;
+                        const float h2 = h * h;
+                        const float fres = h2 * h2 * h;
+                        sD[0][r] = rDx;
+                        sD[1][r] = rDy;
+                        sD[2][r] = rDz;
+
+                        flag = ALIVE;
+                        if (diffuse) {
+                            const float lcos = fmaxf(wnx * Lx + wny * Ly + wnz * Lz, 0.0f);
+                            if (shadows && lcos > 0.0f) {
+                                // irr = lcos unless the shadow walk finds a hit
+                                flag |= SHADOW;
+                                sLcos[r] = lcos;
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-        const int slot = j * BLOCK + tid;
-        if (!valid[j]) continue;
-        float* o = out + ((size_t)(y0 + slot / TILE_W) * W + x0 + slot % TILE_W) * 3;
-        o[0] = sum[j][0] / (float)K;
-        o[1] = sum[j][1] / (float)K;
-        o[2] = sum[j][2] / (float)K;
+                                for (int c = 0; c < 3; ++c) sMd[c][r] = sMod[c][r] * u[UNI_DIFFUSE + c];
+                            } else {
+#pragma unroll
+                                for (int c = 0; c < 3; ++c)
+                                    sAcc[c][r] = sAcc[c][r] + sMod[c][r] * u[UNI_DIFFUSE + c] * lcos;
+                            }
+                        }
+#pragma unroll
+                        for (int c = 0; c < 3; ++c) {
+                            const float sc = u[UNI_SPECULAR + c];
+                            sMod[c][r] = sMod[c][r] * (sc + (1.0f - sc) * fres);
+                        }
+                    }
+                    sFlag[r] = flag;
+                }
+                count(cnt, ph, st, lf, tr);
+                __syncthreads();
+                live = live && (sFlag[tid] & ALIVE);
+                if (!shadows) continue;
+
+                // any-hit phase over the light-facing hits
+                const int ns = compact(live && (sFlag[tid] & SHADOW), q, wcount);
+                if (ns == 0) continue;
+                if (tid == 0) cnt[0] += (unsigned long long)ns;
+                st = lf = tr = 0;
+                if (tid < ns) {
+                    const int r = q[tid];
+                    const float Px = sP[0][r], Py = sP[1][r], Pz = sP[2][r];
+                    const float sPx = m[0] * Px + m[1] * Py + m[2] * Pz + m[3];
+                    const float sPy = m[4] * Px + m[5] * Py + m[6] * Pz + m[7];
+                    const float sPz = m[8] * Px + m[9] * Py + m[10] * Pz + m[11];
+                    const Walk sw = walk<false, true>(s, sPx, sPy, sPz, oLx, oLy, oLz, stack);
+                    st = sw.steps;
+                    lf = sw.leafs;
+                    tr = sw.tris;
+                    if (sw.bad) sBad[r] = 1;
+                    const float irr = sLcos[r] * (sw.t >= INFINITELY_FAR ? 1.0f : 0.0f);
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) sAcc[c][r] = sAcc[c][r] + sMd[c][r] * irr;
+                }
+                count(cnt, ph + 3, st, lf, tr);
+            }
+            __syncthreads();
+            if (valid) {
+                float col0 = 1.0f, col1 = 0.0f, col2 = 0.0f;  // bad-ray paint
+                if (!sBad[tid]) {
+                    const float Dx = sD[0][tid], Dy = sD[1][tid], Dz = sD[2][tid];
+                    // env term: u = 1 + atan2(-z, x)/tau, v = 1 - acos(y)/pi
+                    // (envmap.py:36-41), level-0 bilinear, REPEAT wrap
+                    const float eu = 1.0f + atan2f(-Dz, Dx) / TAU_REF;
+                    const float ev = 1.0f - acosf(fminf(fmaxf(Dy, -1.0f), 1.0f)) / PI_REF;
+                    const float x = eu * (float)ew - 0.5f;
+                    const float y = (1.0f - ev) * (float)eh - 0.5f;
+                    const float x0 = floorf(x), y0 = floorf(y);
+                    const float fx = x - x0, fy = y - y0;
+                    int xi0 = (int)x0 % ew; if (xi0 < 0) xi0 += ew;
+                    int yi0 = (int)y0 % eh; if (yi0 < 0) yi0 += eh;
+                    const int xi1 = xi0 + 1 == ew ? 0 : xi0 + 1;
+                    const int yi1 = yi0 + 1 == eh ? 0 : yi0 + 1;
+                    const float* r0 = env + (size_t)yi0 * ew * 3;
+                    const float* r1 = env + (size_t)yi1 * ew * 3;
+                    float e[3];
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const float top = __ldg(r0 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r0 + xi1 * 3 + c) * fx;
+                        const float bot = __ldg(r1 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r1 + xi1 * 3 + c) * fx;
+                        e[c] = top * (1.0f - fy) + bot * fy;
+                    }
+                    col0 = sAcc[0][tid] + sMod[0][tid] * e[0];
+                    col1 = sAcc[1][tid] + sMod[1][tid] * e[1];
+                    col2 = sAcc[2][tid] + sMod[2][tid] * e[2];
+                }
+                sum0 += col0;
+                sum1 += col1;
+                sum2 += col2;
+            }
+        }
+        if (valid) {
+            float* o = out + ((size_t)py * W + px) * 3;
+            o[0] = sum0 / (float)K;
+            o[1] = sum1 / (float)K;
+            o[2] = sum2 / (float)K;
+        }
     }
 
     // counters: one 64-bit atomic per counter and block

@@ -24,6 +24,7 @@ read with 16-byte loads:
 
 ``PackedWide.child_boxes``, ``child_meta`` and ``orders`` read the node
 table back per child.
+
 Leaf counts are capped at ``max_leaf_tests`` (the reference's
 10-triangle leaf budget, raytracer.es.fs:382).
 """
