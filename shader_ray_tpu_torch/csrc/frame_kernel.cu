@@ -19,7 +19,7 @@
 // in local memory) took 2.64 ms a bench frame where six separate trace
 // launches of the same rays took 1.14: a warp waited for its slowest
 // pixel through every bounce, and the counter array and the stack
-// spilled.  This design (1.08 ms; PERF.md):
+// spilled.  This design (1.06 ms; PERF.md):
 //   * bounces in waves: a block owns a 16x16 tile of pixels (one thread
 //     a pixel) for all K samples.  Each walk phase compacts the tile's
 //     live rays into a dense queue in shared memory (warp ballot + a
