@@ -317,6 +317,55 @@ def test_frame_cases_show_their_paths(name):
     assert chip_smoke.frame_disagreement(colour, counters, colour, counters) is None
 
 
+@pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
+def test_case_check_refuses_a_frame_off_its_path(name):
+    """Each case's check refuses a frame that did not take the case's
+    path, so a kernel that skips the path fails on the card."""
+    _, _, jit, fs = chip_smoke.frame_case(name, torch.device("cpu"))
+    primaries = jit.shape[0] * fs.width * fs.height
+    colour = torch.zeros((fs.height, fs.width, 3))
+    counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long)
+    counters[0] = primaries
+    if name == "all-miss":
+        counters[0] = primaries + 1                 # a primary hit, bounced on
+    elif name == "all-hit":
+        colour[0, 0] = torch.tensor([1.0, 0.0, 0.0])  # a bad ray
+        counters[0] = 2 * fs.bounce_count * primaries
+    elif name == "bounces0":
+        counters = torch.tensor([1])                # a ray was cast
+    elif name in ("bounces1-noshadow", "nodiffuse"):
+        counters = torch.zeros(1 + 6 * fs.bounce_count, dtype=torch.long)  # shadow phases
+        counters[0] = primaries
+    elif name == "k3-ragged":
+        colour = torch.zeros((32, 48, 3))            # whole tiles, not the frame
+    # "bad": no pixel painted red
+    assert chip_smoke.case_unmet(name, fs, colour, counters) is not None
+
+
+@pytest.mark.parametrize("fault", ["shape", "counter-row", "non-finite", "colour", "cast"])
+def test_frame_gate_refuses_each_fault(fault):
+    """chip_smoke's gate of a kernel frame against its plain version
+    passes differences inside its limits (mean abs colour 1e-4, one ray
+    cast on a small frame) and refuses each kind beyond them."""
+    colour = torch.full((6, 8, 3), 0.5)
+    counters = torch.tensor([1000, 50, 20, 80])
+    near_c, near_n = colour + 5e-5, counters.clone()
+    near_n[0] += 1
+    assert chip_smoke.frame_disagreement(near_c, near_n, colour, counters) is None
+    kc, kn = colour.clone(), counters.clone()
+    if fault == "shape":
+        kc = kc[:, :7]
+    elif fault == "counter-row":
+        kn = kn[:1]
+    elif fault == "non-finite":
+        kc[2, 3, 1] = float("nan")
+    elif fault == "colour":
+        kc += 2e-4
+    else:
+        kn[0] += 2
+    assert chip_smoke.frame_disagreement(kc, kn, colour, counters) is not None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
 def test_frame_kernel_control_flow_on_card(cuda_device, name):
