@@ -269,12 +269,33 @@ def case_unmet(name: str, fs, colour, counters) -> str | None:
         if unmet else None
 
 
+WALK_COUNTERS = ("node pops", "leaf visits", "triangle tests")
+
+
+def walk_counter_excess(kn, pn) -> tuple[float, int]:
+    """The largest ratio of a walk counter's difference (kernel vs plain,
+    counter rows [1:]) to its limit, and that counter's index.  Limit:
+    1e-3 of the plain count, or 1e-4 of the frame's whole walk count if
+    that is more (a ray that flips changes every later walk of its pixel,
+    which on a small phase is more than 1e-3), at least 1."""
+    import torch
+
+    kw, pw = kn[1:].double(), pn[1:].double()
+    if pw.numel() == 0:
+        return 0.0, 0
+    limit = torch.clamp(1e-3 * pw, min=max(1e-4 * float(pw.sum()), 1.0))
+    ratio = (kw - pw).abs() / limit
+    i = int(ratio.argmax())
+    return float(ratio[i]), i + 1
+
+
 def frame_disagreement(kc, kn, pc, pn) -> str | None:
     """Why the kernel's (colour, counters) disagree with the plain
     version's, or None.  nvcc contracts multiply-adds into FMAs and the
     plain version does not, so a grazing ray may flip: mean abs colour
-    <= 1e-4, rays cast within 1e-4 (one ray on a small frame), the same
-    counter row length and finite colour."""
+    <= 1e-4, rays cast within 1e-4 (one ray on a small frame), each walk
+    counter within its limit (walk_counter_excess), the same counter row
+    length and finite colour."""
     import torch
 
     cast_k, cast_p = int(kn[0]), int(pn[0])
@@ -286,6 +307,10 @@ def frame_disagreement(kc, kn, pc, pn) -> str | None:
         return f"mean abs colour {float((kc - pc).abs().mean()):.3e} > 1e-4"
     if abs(cast_k - cast_p) > max(1e-4 * cast_p, 1):
         return f"cast {cast_k} vs {cast_p}"
+    excess, i = walk_counter_excess(kn, pn)
+    if excess > 1.0:
+        return (f"walk phase {(i - 1) // 3} {WALK_COUNTERS[(i - 1) % 3]}: {int(kn[i])} vs "
+                f"{int(pn[i])}, {excess:.2f}x its limit")
     return None
 
 
@@ -397,13 +422,14 @@ def main() -> int:
         torch.cuda.synchronize()
         diff = (kc - pc).abs()
         errs["frame_kernel"] = max(errs["frame_kernel"], float(diff.max()))
-        kn, pn = kn.cpu().numpy(), pn.cpu().numpy()
+        kn, pn = kn.cpu(), pn.cpu()
         cast_rel = abs(int(kn[0]) - int(pn[0])) / max(int(pn[0]), 1)
-        walk_rel = np.abs(kn[1:] - pn[1:]).max() / max(pn[1:].max(), 1)
+        excess, i = walk_counter_excess(kn, pn)
         print(f"frame_kernel vs plain {w}x{h} K={k}: max abs {float(diff.max()):.3e}, "
               f"mean abs {float(diff.mean()):.3e}; cast {int(kn[0])} vs {int(pn[0])} "
-              f"(rel {cast_rel:.2e}); walk counters max rel diff {walk_rel:.2e}")
-        why = frame_disagreement(kc, torch.from_numpy(kn), pc, torch.from_numpy(pn))
+              f"(rel {cast_rel:.2e}); walk counters: worst {int(kn[i])} vs {int(pn[i])} "
+              f"(counter {i}), {excess:.3f} of its limit")
+        why = frame_disagreement(kc, kn, pc, pn)
         if why:
             raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k}: {why}")
 
@@ -420,7 +446,8 @@ def main() -> int:
               f"{c_fs.bounce_count} bounces, shadows {c_fs.cast_shadows}, diffuse "
               f"{c_fs.enable_diffuse}): mean abs {float((kc - pc).abs().mean()):.3e}, cast "
               f"{int(kn[0])} vs {int(pn[0])}, walk counters {kn[1:].sum().item()} vs "
-              f"{pn[1:].sum().item()}, bad-painted pixels {painted[0]} vs {painted[1]}")
+              f"{pn[1:].sum().item()} (worst {walk_counter_excess(kn.cpu(), pn.cpu())[0]:.3f} "
+              f"of its limit), bad-painted pixels {painted[0]} vs {painted[1]}")
         why = frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) or case_unmet(name, c_fs, pc, pn.cpu())
         if why or abs(painted[0] - painted[1]) > max(1e-4 * kc[..., 0].numel(), 1):
             raise AssertionError(f"frame_kernel disagrees with frame_plain on case {name}: {why}")

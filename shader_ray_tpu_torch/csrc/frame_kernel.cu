@@ -40,8 +40,7 @@
 // (16 warps) an SM, and a block waits at each phase's barrier for its
 // slowest walk.  Tiles of 16x8, 16x4, 32x8, 32x16 and 16x32, part of
 // the stack in local memory, fewer registers and persistent blocks were
-// all slower or no faster (scripts/torch_frame_variants.py; the tile is
-// FRAME_TILE_W x FRAME_TILE_H at compile time).
+// all slower or no faster (PERF.md section 6).
 //
 // Sums are deterministic: a pixel's owner thread adds its samples in
 // order k = 0..K-1 and writes their mean (no atomics on colour).
@@ -56,21 +55,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"
+#include <atomic>
 
-#ifndef FRAME_TILE_W
-#define FRAME_TILE_W 16
-#endif
-#ifndef FRAME_TILE_H
-#define FRAME_TILE_H 16
-#endif
+#include "walk.cuh"
 
 namespace {
 
 using namespace srt;  // Scene, Walk, walk(), the table constants (walk.cuh)
 
-constexpr int TILE_W = FRAME_TILE_W;
-constexpr int TILE_H = FRAME_TILE_H;
+constexpr int TILE_W = 16, TILE_H = 16;
 constexpr int BLOCK = TILE_W * TILE_H;  // one thread a pixel of the tile
 constexpr int WARPS = BLOCK / 32;
 constexpr int MAX_PHASES = 16;
@@ -365,6 +358,22 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
     }
 }
 
+// The stack's dynamic shared memory is above the 48 KB a launch gets
+// without asking: raise the kernel's limit to what MAX_STACK entries
+// take, once a device (a launch still asks only for its scene's depth).
+cudaError_t allow_stack_smem() {
+    static std::atomic<unsigned long long> raised{0};  // bit d: device d
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (raised.load() & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_STACK * BLOCK * (int)sizeof(int));
+    if (err == cudaSuccess) raised.fetch_or(bit);
+    return err;
+}
+
 }  // namespace
 
 extern "C" int srt_frame_kernel(
@@ -380,11 +389,9 @@ extern "C" int srt_frame_kernel(
     if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
         stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || env_w < 1)
         return (int)cudaErrorInvalidValue;
-    // the stack takes stack_depth * BLOCK ints: up to 128 KB, above the
-    // 48 KB a launch gets without asking
+    // the stack takes stack_depth * BLOCK ints: up to 128 KB
     const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
-    cudaError_t err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     const int tiles_x = (W + TILE_W - 1) / TILE_W;
     const unsigned grid = (unsigned)tiles_x * (unsigned)((H + TILE_H - 1) / TILE_H);
@@ -404,8 +411,7 @@ extern "C" int srt_frame_kernel(
 extern "C" int srt_frame_kernel_info(int stack_depth, int* info) {
     if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
-    cudaError_t err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;
     if ((err = cudaFuncGetAttributes(&a, frame)) != cudaSuccess) return (int)err;

@@ -249,13 +249,12 @@ INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_
              "threads", "tile_w", "tile_h")
 
 
-def launch_info(stack_depth: int, lib: ctypes.CDLL | None = None) -> dict[str, int]:
+def launch_info(stack_depth: int) -> dict[str, int]:
     """The frame kernel's launch on the current card for a scene's stack
     bound: registers a thread, static and dynamic (stack) shared bytes a
     block, local bytes a thread, resident blocks an SM, threads a block
-    and the tile.  ``lib`` is a build of csrc/frame_kernel.cu (default:
-    the package's)."""
-    fn = (lib or _build.library("frame_kernel")[0]).srt_frame_kernel_info
+    and the tile."""
+    fn = _build.library("frame_kernel")[0].srt_frame_kernel_info
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * len(INFO_KEYS))()
