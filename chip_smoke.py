@@ -15,11 +15,15 @@ port's two paths through the Renderer's entry points:
   (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3.
 
 The frame kernel is also held to its plain version on the control-flow
-cases of its wave compaction (FRAME_CASES), and its launch resources
-(registers, shared memory, blocks an SM) are printed.  Each path runs
+cases of its wave compaction (FRAME_CASES), the two trace kernels on the
+cases of their active-ray compaction (TRACE_CASES), and the three walk
+kernels' launch resources (registers, shared memory, blocks an SM) are
+printed.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times every kernel with CUDA events at the main path's shapes
-beside its bound and its plain version, the frame kernel also beside
+beside its bound and its plain version (the trace kernels also beside
+the bytes their loads move through the caches, counted from the plain
+walks' work), the frame kernel also beside
 the same frame's six walks as separate trace_wide launches, and prints
 one JSON line with the kernel table plus a final status line.
 
@@ -146,6 +150,14 @@ def device_breakdown(fn, ours: tuple[str, ...], n: int) -> dict | None:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def binary_bytes(packed, D) -> int:
+    """Bytes of the binary tables that rays of directions D need: the
+    node banks of the octants among them, the triangle and normal
+    tables."""
+    octants = ((D[:, 0] > 0).long() + 2 * (D[:, 1] > 0).long() + 4 * (D[:, 2] > 0).long()).unique()
+    return octants.numel() * nbytes(packed.nodes[0]) + nbytes(packed.tris, packed.normals)
 
 
 def walk_ops(walks, per_link: int, per_tri: tuple[int, int, int]) -> tuple[int, str]:
@@ -314,6 +326,131 @@ def frame_disagreement(kc, kn, pc, pn) -> str | None:
     return None
 
 
+# cases of the trace kernels' active masks and ray layouts: none of a
+# block's rays active, all, one a block, every other warp, a seeded 3%, a
+# ray count that ends inside a block, and an image whose width and height
+# are no whole number of tiles (the kernels walk an image's rays in 2D
+# tiles); held to the plain versions here and in
+# tests/test_torch_isolation.py
+TRACE_CASES = ("none", "all", "one-a-block", "every-other-warp", "random-3pct", "ragged",
+               "tiles-ragged")
+TRACE_BLOCK = 128        # threads a block of both trace kernels
+RAGGED_IMAGE = (31, 23)  # width, height of the tiles-ragged case
+
+
+def trace_case(name: str, P, D):
+    """(P, D, active, width) of one case on the rays (P, D), whose count
+    is a multiple of TRACE_BLOCK and at least 31 x 23: a mask over the
+    rays as a list (width 0), all of a ray count that ends inside a
+    block, or all the rays of a 31 x 23 image."""
+    import numpy as np
+    import torch
+
+    R = P.shape[0]
+    r = torch.arange(R, device=P.device)
+    if name in ("ragged", "tiles-ragged"):
+        R, width = (R - TRACE_BLOCK // 2 - 13, 0) if name == "ragged" else (
+            RAGGED_IMAGE[0] * RAGGED_IMAGE[1], RAGGED_IMAGE[0])
+        return (P[:R].contiguous(), D[:R].contiguous(),
+                torch.ones(R, dtype=torch.bool, device=P.device), width)
+    if name == "random-3pct":
+        active = torch.from_numpy(np.random.default_rng(5).uniform(size=R) < 0.03).to(P.device)
+    else:
+        active = {"none": r < 0, "all": r >= 0, "one-a-block": r % TRACE_BLOCK == 77,
+                  "every-other-warp": (r // 32) % 2 == 0}[name]
+    return P, D, active, 0
+
+
+def trace_case_unmet(name: str, active, steps) -> str | None:
+    """What a case's walk (its active mask and per-ray node steps) fails
+    to show of the path it is for, or None.  Every active ray steps at
+    least once (the root), no inactive ray steps."""
+    import torch
+
+    R, n = active.shape[0], int(active.sum())
+    per = active.long()
+    unmet = bool(((steps > 0) != active).any()) or {
+        "none": n != 0,
+        "all": n != R or R % TRACE_BLOCK != 0,
+        "one-a-block": R % TRACE_BLOCK != 0 or bool((per.view(-1, TRACE_BLOCK).sum(1) != 1).any()),
+        "every-other-warp": R % 64 != 0 or not torch.equal(
+            per.view(-1, 2, 32).sum(2).cpu(), torch.tensor([[32, 0]]).expand(R // 64, 2)),
+        "random-3pct": not 0.01 * R < n < 0.05 * R,
+        "ragged": R % TRACE_BLOCK == 0 or n != R,
+        "tiles-ragged": R != RAGGED_IMAGE[0] * RAGGED_IMAGE[1] or n != R,
+    }[name]
+    return f"case {name}: {n} of {R} rays active, {int((steps > 0).sum())} walked" if unmet else None
+
+
+def trace_disagreement(got, want, active, any_hit: bool) -> tuple[dict, str | None]:
+    """A trace kernel's PacketHit (with stats) against its plain
+    version's on the same rays: the errors measured and why they are
+    beyond their limits, or None.  nvcc contracts multiply-adds into
+    FMAs, the plain version does not, so a grazing ray may take another
+    triangle or none.  Limits: hit flags flip on <= 0.1% of rays; where
+    both versions hit, t agrees to 1e-4 * max(1, t) and ids are equal or
+    tied (|dt| < 1e-6 * max(1, t)) on all but 0.01% of rays, and the mean
+    |dt| is <= 1e-5; bad flags are equal; the kernel's node step, leaf
+    visit and triangle test totals are each within 1e-3 of the plain
+    walk's; on closest hits with equal ids the interpolated normals
+    (length ~1) agree to 1e-5 mean abs; an inactive ray returns a miss,
+    no id, no normal, not bad and no work."""
+    import torch
+
+    FAR = 1.0e7
+    hit, hit_w = got.t < FAR, want.t < FAR
+    both = hit & hit_w
+    dt = (got.t - want.t).abs()
+    scale = want.t.abs().clamp_min(1.0)
+    R = max(got.t.shape[0], 1)
+    e = {
+        "flips": float((hit != hit_w).sum()) / R,
+        "t_max": float(dt[both].max()) if both.any() else 0.0,
+        "t_mean": float(dt[both].mean()) if both.any() else 0.0,
+        "t_off": float((both & (dt > 1e-4 * scale)).sum()) / R,
+        "ids": float((both & (got.which != want.which) & (dt >= 1e-6 * scale)).sum()) / R,
+        "bad_equal": bool(torch.equal(got.bad, want.bad)),
+        "stats_rel": max(abs(a - b) / max(b, 1) for a, b in zip(
+            got.stats.sum(0).tolist(), want.stats.sum(0).tolist())),
+        "n_mean": 0.0, "n_max": 0.0,
+    }
+    if not any_hit:
+        same = both & (got.which == want.which)
+        if same.any():  # a convex scene's shadow rays hit next to nothing
+            dn = (got.normal - want.normal)[same].abs()
+            e["n_mean"], e["n_max"] = float(dn.mean()), float(dn.max())
+    idle = ~active
+    idle_ok = bool((got.t[idle] == FAR).all() and (got.which[idle] == -1).all()
+                   and (got.normal[idle] == 0).all() and not got.bad[idle].any()
+                   and (got.stats[idle] == 0).all())
+    why = [k for k, bad in (
+        ("t mean", e["t_mean"] > 1e-5), ("t off", e["t_off"] > 1e-4),
+        ("hit flips", e["flips"] > 1e-3), ("ids", e["ids"] > 1e-4),
+        ("bad flags", not e["bad_equal"]), ("walk counters", e["stats_rel"] > 1e-3),
+        ("normals", e["n_mean"] > 1e-5), ("inactive rays", not idle_ok),
+    ) if bad]
+    return e, ", ".join(why) or None
+
+
+# loads a trace issues, in bytes through L1/L2, per unit of the plain
+# walks' counted work: (this tree's layout, the layout before it).  Wide:
+# a pop's 16 float4s (before: the order word, 8 child lo float4s, the hi
+# float4 of each non-empty child); a Woop test's rows 0-2 (before: row 0,
+# row 1 past the distance test, row 2 past u); 48 B of normals a hit ray.
+# Binary: a step's 32-byte record (before: box 24 B, count 4 B, link 4
+# B, first triangle 4 B a leaf visit); a test's 48 B (before: 36 B); the
+# normals, 48 B once a hit ray (before: 36 B at each accepted hit,
+# counted once a hit ray here, so a lower bound).
+def cache_bytes(kind: str, walk, hit_rays: int) -> tuple[int, int]:
+    steps, slabs, leafs, tris, tris_u, tris_v = (
+        int(getattr(walk, f).sum()) for f in ("steps", "slabs", "leafs", "tris", "tris_u", "tris_v"))
+    if kind == "wide":
+        return (steps * 256 + tris * 48 + hit_rays * 48,
+                steps * (4 + 128) + slabs * 16 + (tris + tris_u + tris_v) * 16 + hit_rays * 48)
+    return (steps * 32 + tris * 48 + hit_rays * 48,
+            steps * 32 + leafs * 4 + tris * 36 + hit_rays * 36)
+
+
 def bench_inputs():
     """The bench configuration (bench.py:289-331): the 69k-triangle
     bunny-class scene, procedural_sky(2048) and the bench camera, as
@@ -407,6 +544,12 @@ def main() -> int:
           f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static + "
           f"{info['dynamic_smem']} B stack a block, {info['threads']} threads a block "
           f"({info['tile_w']}x{info['tile_h']} tile), {info['blocks_per_sm']} blocks an SM")
+    for name in ("trace_wide", "trace_binary"):
+        info = tk.launch_info(name, packed.stack_depth)
+        print(f"{name} launch at stack {packed.stack_depth}: {info['registers']} registers, "
+              f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static + "
+              f"{info['dynamic_smem']} B stack a block, {info['threads']} threads a block, "
+              f"{info['blocks_per_sm']} blocks an SM")
     params_cuda = type(params)(*[x.cuda() for x in params])
     uni = pack_uniforms(params).cuda()
     statics = RenderStatics(width=W, height=H)
@@ -468,58 +611,31 @@ def main() -> int:
         sP = torch.where(sact[:, None], sP, P)
         return rays, P, D, sP, L.expand_as(P).contiguous(), sact
 
-    def compare_trace(name, kernel, plain, tables, P, D, active, any_hit, what):
-        """nvcc contracts multiply-adds into FMAs, the plain version does
-        not, so a grazing ray may take another triangle or none.  Limits:
-        hit flags flip on <= 0.1% of rays; where both versions hit, t
-        agrees to 1e-4 * max(1, t) and ids are equal or tied
-        (|dt| < 1e-6 * max(1, t)) on all but 0.01% of rays, and the mean
-        |dt| is <= 1e-5; bad flags are equal; the kernel's own step, leaf
-        and triangle-test totals are within 1e-3 of the plain walk's; on
-        closest hits with equal ids the interpolated normals (length ~1)
-        agree to 1e-5 mean abs.
-        Returns the plain walk's result and its device time (one call)."""
-        got = kernel(tables, P, D, active, any_hit=any_hit, with_stats=True)
+    def compare_trace(name, kernel, plain, tables, P, D, active, any_hit, what, width=0):
+        """The kernel against its plain version on the same rays (an
+        image of that width, or a list), under trace_disagreement's
+        limits.  Returns the plain walk's result and its device time (one
+        call)."""
+        got = kernel(tables, P, D, active, any_hit=any_hit, with_stats=True, width=width)
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         walk = plain(tables, P, D, active, any_hit)
         want = tk.packet_hit(walk, True)
         stop.record()
         torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(stop)
-        hit, hit_w = got.t < FAR, want.t < FAR
-        flips = float((hit != hit_w).float().mean())
-        both = hit & hit_w
-        dt = (got.t - want.t).abs()
-        scale = want.t.abs().clamp_min(1.0)
-        t_err = float(dt[both].max()) if both.any() else 0.0
-        t_mean = float(dt[both].mean()) if both.any() else 0.0
-        t_off = float((both & (dt > 1e-4 * scale)).float().mean())
-        ids = float((both & (got.which != want.which) & (dt >= 1e-6 * scale)).float().mean())
-        bad_equal = bool(torch.equal(got.bad, want.bad))
-        errs[name] = max(errs[name], t_err)
-        stats = got.stats.sum(0).tolist()
-        counted = [int(walk.steps.sum()), int(walk.leafs.sum()), int(walk.tris.sum())]
-        stats_rel = max(abs(a - b) / max(b, 1) for a, b in zip(stats, counted))
-        n_mean = n_max = 0.0
-        if not any_hit:
-            same = both & (got.which == want.which)
-            if same.any():  # a convex scene's shadow rays hit next to nothing
-                dn = (got.normal - want.normal)[same].abs()
-                n_mean, n_max = float(dn.mean()), float(dn.max())
-                errs[name] = max(errs[name], n_max)
+        e, why = trace_disagreement(got, want, active, any_hit)
+        errs[name] = max(errs[name], e["t_max"], e["n_max"])
         print(f"{name} vs plain, {what} ({P.shape[0]} rays, {int(active.sum())} active, "
-              f"{int(hit.sum())} hit): t mean abs {t_mean:.3e} (limit 1e-5), max abs {t_err:.3e}, "
-              f"rays off by > 1e-4 {t_off:.2e} (limit 1e-4), hit flips {flips:.2e} (limit 1e-3), "
-              f"id mismatches outside ties {ids:.2e} (limit 1e-4), bad equal {bad_equal}, "
-              f"walk counters max rel diff {stats_rel:.2e} (limit 1e-3)"
-              + ("" if any_hit else f", normal mean abs {n_mean:.3e} (limit 1e-5), max abs {n_max:.3e}"))
-        if (t_mean > 1e-5 or t_off > 1e-4 or flips > 1e-3 or ids > 1e-4 or not bad_equal
-                or stats_rel > 1e-3 or n_mean > 1e-5):
-            raise AssertionError(f"{name} disagrees with its plain version on {what}")
-        if (got.t[~active] != FAR).any() or (got.which[~active] != -1).any():
-            raise AssertionError(f"{name}: an inactive ray did not return a miss")
-        return walk, plain_ms
+              f"{int((got.t < FAR).sum())} hit): t mean abs {e['t_mean']:.3e} (limit 1e-5), max abs "
+              f"{e['t_max']:.3e}, rays off by > 1e-4 {e['t_off']:.2e} (limit 1e-4), hit flips "
+              f"{e['flips']:.2e} (limit 1e-3), id mismatches outside ties {e['ids']:.2e} (limit "
+              f"1e-4), bad equal {e['bad_equal']}, walk counters max rel diff {e['stats_rel']:.2e} "
+              f"(limit 1e-3)"
+              + ("" if any_hit else f", normal mean abs {e['n_mean']:.3e} (limit 1e-5), max abs "
+                 f"{e['n_max']:.3e}"))
+        if why:
+            raise AssertionError(f"{name} disagrees with its plain version on {what}: {why}")
+        return walk, start.elapsed_time(stop)
 
     def compare_env(D, gx, gy, grad, aniso, what):
         """Mean abs <= 1e-5 and max abs <= 1e-2 on radiance that reaches
@@ -551,10 +667,24 @@ def main() -> int:
         ("trace_wide", tk.trace_wide, tk.walk_plain, packed),
         ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b),
     ):
-        compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, False, f"closest, primaries {size}")
-        compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, True, f"any-hit, primaries {size}")
-        compare_trace(name, kernel, plain, tables, sP_s, sD_s, sact_s, False, f"closest, shadow rays {size}")
-        compare_trace(name, kernel, plain, tables, sP_s, sD_s, sact_s, True, f"any-hit, shadow rays {size}")
+        for what, Pr, Dr, act in (("primaries", P_s, D_s, all_s), ("shadow rays", sP_s, sD_s, sact_s)):
+            for any_hit in (False, True):
+                compare_trace(name, kernel, plain, tables, Pr, Dr, act, any_hit,
+                              f"{'any-hit' if any_hit else 'closest'}, {what} {size}", SMALL[0])
+    # the compaction's edges (TRACE_CASES) on the same primaries: each
+    # case's plain walks show its path, the kernels are held to them
+    for case in TRACE_CASES:
+        cP, cD, cact, cw = trace_case(case, P_s, D_s)
+        for name, kernel, plain, tables in (
+            ("trace_wide", tk.trace_wide, tk.walk_plain, packed),
+            ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b),
+        ):
+            for any_hit in (False, True):
+                walk, _ = compare_trace(name, kernel, plain, tables, cP, cD, cact, any_hit,
+                                        f"{'any-hit' if any_hit else 'closest'}, case {case}", cw)
+                why = trace_case_unmet(case, cact, walk.steps)
+                if why:
+                    raise AssertionError(f"{name}: {why}")
     # the bench scene is flat-shaded (one normal a triangle), so the normal
     # interpolation is held to the plain versions on a smooth unit sphere
     spos, snrm = uv_sphere(lat=64, lon=128)
@@ -564,7 +694,7 @@ def main() -> int:
         ("trace_binary", tk.trace_binary, tk.walk_binary_plain, pack_scene(sdata, procedural_sky(32)).to("cuda")),
     ):
         walk, _ = compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, False,
-                                f"closest, smooth sphere, primaries {size}")
+                                f"closest, smooth sphere, primaries {size}", SMALL[0])
         inside = (walk.t < FAR) & ((walk.normal.norm(dim=1) - 1.0).abs() > 1e-4)
         if int(inside.sum()) < 1000:
             raise AssertionError(f"{name}: the smooth sphere gave no interpolated normals to compare")
@@ -687,7 +817,7 @@ def main() -> int:
     probe = {}
     compare(W, H, one, probe)  # the main path's frame: its counted work gives the bound
     ops, work = walk_ops(probe["walks"], 0, OPS_WOOP)
-    wide_tables = nbytes(packed.nodes, packed.leaves)
+    wide_tables = nbytes(packed.nodes, packed.leaves, packed.normals)
     moved = wide_tables + env_bytes(probe["env_D"], None, None, False, 1) + nbytes(uni) + W * H * 3 * 4
     del probe
     bound_ms, bound_by = bound(ops, moved)
@@ -751,21 +881,25 @@ def main() -> int:
         ("trace_wide", tk.trace_wide, tk.walk_plain, packed, wide_tables,
          "trace_kernel.cu", "kernel_wide.py:784", 0, OPS_WOOP),
         ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b,
-         nbytes(packed_b.links, packed_b.boxes, packed_b.leaf, packed_b.tris),
-         "trace_binary_kernel.cu", "kernel_body.py:244", OPS_PER_LINK, OPS_MT),
+         binary_bytes(packed_b, D_f), "trace_binary_kernel.cu", "kernel_body.py:244",
+         OPS_PER_LINK, OPS_MT),
     ):
         out = {}
         for any_hit in (False, True):
             mode = "any-hit" if any_hit else "closest"
-            t_k = cuda_times(lambda: kernel(tables, P_f, D_f, all_f, any_hit=any_hit), TIMED)
+            t_k = cuda_times(lambda: kernel(tables, P_f, D_f, all_f, any_hit=any_hit, width=W), TIMED)
             walk, p_ms = compare_trace(name, kernel, plain, tables, P_f, D_f, all_f, any_hit,
-                                       f"{mode}, primaries {W}x{H}")
+                                       f"{mode}, primaries {W}x{H}", W)
             ops, work = walk_ops([walk], per_link, per_tri)
             b_ms, b_by = bound(ops, ray_io + tbytes)
             print(f"  {name} {mode}, {P_f.shape[0]} primaries (CUDA events): {summary(t_k)}; "
                   f"plain {p_ms:.1f} ms, n=1; bound: {work} -> "
                   f"{ops:.4g} ops ({ops / PEAK_F32 * 1e3:.4f} ms), {ray_io + tbytes} bytes "
                   f"({(ray_io + tbytes) / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
+            kind = name.removeprefix("trace_")
+            now, before = cache_bytes(kind, walk, 0 if any_hit else int((walk.which >= 0).sum()))
+            print(f"    loads through L1/L2, counted from the plain walk's work: {now} bytes "
+                  f"({before} bytes in the layout before)")
             out[any_hit] = (float(np.median(t_k)), p_ms, b_ms, b_by)
         k_ms, p_ms, b_ms, b_by = out[False]
         table.append({

@@ -55,8 +55,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "walk.cuh"
 
 namespace {
@@ -89,33 +87,6 @@ constexpr int UNI_SIZE = 52;
 // ray flags a walker leaves for the slot's owner
 constexpr unsigned char ALIVE = 1;   // hit: bounces on
 constexpr unsigned char SHADOW = 2;  // and casts a shadow ray first
-
-// A thread's stack in shared memory: entry i at sh[i * BLOCK], so the
-// lanes of a warp touch 32 different banks whatever their depths.
-struct BlockStack {
-    int* sh;
-    __device__ __forceinline__ int get(int i) const { return sh[i * BLOCK]; }
-    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = v; }
-};
-
-// The owners of the flagged slots, in slot order, into q[0..n); returns
-// n.  Every thread of the block calls it.
-__device__ __forceinline__ int compact(bool flag, short* q, int* wcount) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const unsigned m = __ballot_sync(0xffffffffu, flag);
-    if (lane == 0) wcount[warp] = __popc(m);
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-        const int c = wcount[w];
-        off += w < warp ? c : 0;
-        total += c;
-    }
-    if (flag) q[off + __popc(m & ((1u << lane) - 1u))] = (short)tid;
-    __syncthreads();
-    return total;
-}
 
 // one walk's counts into the block's per-phase counters (ph = node
 // pops, ph + 1 leaf visits, ph + 2 triangle tests)
@@ -152,14 +123,14 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
     __shared__ unsigned char sFlag[BLOCK], sBad[BLOCK];
     __shared__ short q[BLOCK];
     __shared__ int wcount[WARPS];
-    extern __shared__ int stack_sh[];  // (stack_depth, BLOCK)
+    extern __shared__ stack_entry stack_sh[];  // (stack_depth, BLOCK)
 
     const int tid = threadIdx.x;
     for (int i = tid; i < UNI_SIZE; i += BLOCK) u[i] = uni_g[i];
     for (int c = tid; c < N_COUNTERS; c += BLOCK) cnt[c] = 0;
     __syncthreads();
 
-    BlockStack stack;
+    BlockStack<BLOCK> stack;
     stack.sh = stack_sh + tid;
     const float* m = u + UNI_OBJECT_MATRIX;
     const float* nm = u + UNI_NORMAL_MATRIX;
@@ -208,7 +179,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
 
             for (int b = 0; b < bounces; ++b) {
                 // closest-hit phase over the live rays, shading after each walk
-                const int n = compact(live, q, wcount);
+                const int n = compact<BLOCK>(live, q, wcount);
                 if (n == 0) break;
                 const int ph = 1 + 3 * (phase_stride * b);
                 if (tid == 0) cnt[0] += (unsigned long long)n;
@@ -287,7 +258,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
                 if (!shadows) continue;
 
                 // any-hit phase over the light-facing hits
-                const int ns = compact(live && (sFlag[tid] & SHADOW), q, wcount);
+                const int ns = compact<BLOCK>(live && (sFlag[tid] & SHADOW), q, wcount);
                 if (ns == 0) continue;
                 if (tid == 0) cnt[0] += (unsigned long long)ns;
                 st = lf = tr = 0;
@@ -362,22 +333,14 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
 // without asking: raise the kernel's limit to what MAX_STACK entries
 // take, once a device (a launch still asks only for its scene's depth).
 cudaError_t allow_stack_smem() {
-    static std::atomic<unsigned long long> raised{0};  // bit d: device d
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-    if (raised.load() & bit) return cudaSuccess;
-    err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               MAX_STACK * BLOCK * (int)sizeof(int));
-    if (err == cudaSuccess) raised.fetch_or(bit);
-    return err;
+    static std::atomic<unsigned long long> raised{0};
+    return allow_smem(frame, (MAX_STACK + STACK_EXTRA) * BLOCK * (int)sizeof(stack_entry), raised);
 }
 
 }  // namespace
 
 extern "C" int srt_frame_kernel(
-    const float* nodes, const float* leaves,
+    const float* nodes, const float* leaves, const float* normals,
     const float* env, int env_h, int env_w,
     const float* uni, const float* jitters, int K, int W, int H,
     float inv_w, float inv_h, float aspect,
@@ -390,13 +353,13 @@ extern "C" int srt_frame_kernel(
         stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || env_w < 1)
         return (int)cudaErrorInvalidValue;
     // the stack takes stack_depth * BLOCK ints: up to 128 KB
-    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
+    const size_t smem = (size_t)(stack_depth + STACK_EXTRA) * BLOCK * sizeof(stack_entry);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     const int tiles_x = (W + TILE_W - 1) / TILE_W;
     const unsigned grid = (unsigned)tiles_x * (unsigned)((H + TILE_H - 1) / TILE_H);
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
-            stack_depth, max_steps, mt_eps};
+            reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
     frame<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
         s, env, env_h, env_w, uni, jitters, K, W, H, tiles_x,
         inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, 1 + 3 * phases,
@@ -410,7 +373,7 @@ extern "C" int srt_frame_kernel(
 // threads a block, tile width, tile height.
 extern "C" int srt_frame_kernel_info(int stack_depth, int* info) {
     if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
+    const size_t smem = (size_t)(stack_depth + STACK_EXTRA) * BLOCK * sizeof(stack_entry);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;

@@ -1,6 +1,6 @@
-// Trace-only kernel over the 8-wide tree for Hopper (sm_90a): one thread
-// per ray runs the short-stack walk of walk.cuh — closest hit or any
-// hit — and writes t, the triangle id, the interpolated object-space
+// Trace-only kernel over the 8-wide tree for Hopper (sm_90a): the
+// short-stack walk of walk.cuh — closest hit or any hit — for each
+// active ray, writing t, the triangle id, the interpolated object-space
 // normal and the bad flag; optionally its node pops, leaf visits and
 // triangle tests.
 //
@@ -11,15 +11,22 @@
 // the stack or the step budget t = -1, which = -1, bad; an any-hit walk
 // that finds a hit t = 0.
 //
-// What bounds it here: operations and latency of dependent loads, as
-// for the frame kernel; per ray it moves 25 bytes in and 21 out, which
-// at the bench frame is ~36 MB a launch, small beside the walk.  The
-// design is the simple one: one thread, one ray, the whole stack in
-// local memory, nodes and records through the read-only cache in
-// 16-byte loads (walk.cuh).
+// What bounds it here: the latency of the walk's dependent loads, as
+// for the frame kernel; per ray it moves 25 bytes in and 21 out, small
+// beside the walk.  The design:
+//   * a block of BLOCK rays compacts its active rays into a queue in
+//     shared memory (warp ballots + a prefix over the warps) and walks
+//     only the queue, so from the second bounce on, and in shadow
+//     traces, busy warps are full and the rest exit at once; inactive
+//     rays are written by their owner threads;
+//   * the whole stack is in dynamic shared memory at [entry][thread]
+//     (stack_depth * BLOCK * 4 bytes, 32 KB at the bench scene);
+//   * the walk (walk.cuh) issues a node's loads without waiting for its
+//     order word.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -shared -Xcompiler -fPIC.  Entry point: srt_trace_wide (C ABI).
+//        -shared -Xcompiler -fPIC.  Entry points: srt_trace_wide,
+//        srt_trace_wide_info (C ABI).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,29 +37,11 @@ namespace {
 
 using namespace srt;
 
-constexpr int BLOCK = 128;
+constexpr int BLOCK = TRACE_BLOCK;
 
-__global__ void __launch_bounds__(BLOCK)
-trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
-           const uint8_t* __restrict__ active, long long n, bool any_hit,
-           float* __restrict__ t_out, int* __restrict__ which_out,
-           float* __restrict__ n_out, uint8_t* __restrict__ bad_out,
-           int* __restrict__ stats_out) {
-    const long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    if (r >= n) return;
-    LocalStack stack;
-    Walk w;
-    w.t = INFINITELY_FAR;
-    w.nx = w.ny = w.nz = 0.0f;
-    w.which = -1;
-    w.bad = false;
-    w.steps = w.leafs = w.tris = 0;
-    if (active[r]) {
-        const float Px = __ldg(P + 3 * r), Py = __ldg(P + 3 * r + 1), Pz = __ldg(P + 3 * r + 2);
-        const float Dx = __ldg(D + 3 * r), Dy = __ldg(D + 3 * r + 1), Dz = __ldg(D + 3 * r + 2);
-        w = any_hit ? walk<true, true>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
-                    : walk<true, false>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
-    }
+__device__ __forceinline__ void store(long long r, const Walk& w, float* __restrict__ t_out,
+                                      int* __restrict__ which_out, float* __restrict__ n_out,
+                                      uint8_t* __restrict__ bad_out, int* __restrict__ stats_out) {
     t_out[r] = w.bad ? -1.0f : w.t;
     which_out[r] = w.bad ? -1 : w.which;
     n_out[3 * r] = w.nx;
@@ -66,21 +55,60 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
     }
 }
 
+__global__ void __launch_bounds__(BLOCK)
+trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
+           const uint8_t* __restrict__ active, long long n, int width, bool any_hit,
+           float* __restrict__ t_out, int* __restrict__ which_out,
+           float* __restrict__ n_out, uint8_t* __restrict__ bad_out,
+           int* __restrict__ stats_out) {
+    const long long r = ray_of(n, width);
+    if (r < 0) return;
+    if (!active[r]) {
+        store(r, no_walk(), t_out, which_out, n_out, bad_out, stats_out);
+        return;
+    }
+    LocalStack stack;
+    const float Px = __ldg(P + 3 * r), Py = __ldg(P + 3 * r + 1), Pz = __ldg(P + 3 * r + 2);
+    const float Dx = __ldg(D + 3 * r), Dy = __ldg(D + 3 * r + 1), Dz = __ldg(D + 3 * r + 2);
+    const Walk w = any_hit ? walk<true, true>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
+                           : walk<true, false>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
+    store(r, w, t_out, which_out, n_out, bad_out, stats_out);
+}
+
 }  // namespace
 
 extern "C" int srt_trace_wide(
-    const float* nodes, const float* leaves,
-    const float* P, const float* D, const uint8_t* active, long long n,
+    const float* nodes, const float* leaves, const float* normals,
+    const float* P, const float* D, const uint8_t* active, long long n, int width,
     int any_hit, float mt_eps, int max_steps, int stack_depth,
     float* t_out, int* which_out, float* n_out, uint8_t* bad_out,
     int* stats_out, void* stream) {
-    if (n < 1 || stack_depth < 1 || stack_depth > MAX_STACK || max_steps < 1)
+    if (n < 1 || stack_depth < 1 || stack_depth > MAX_STACK || max_steps < 1 || width < 0 ||
+        (width > 0 && n % width))
         return (int)cudaErrorInvalidValue;
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
-            stack_depth, max_steps, mt_eps};
-    const unsigned grid = (unsigned)((n + BLOCK - 1) / BLOCK);
-    trace_wide<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        s, P, D, active, n, any_hit != 0, t_out, which_out, n_out, bad_out,
-        stats_out);
+            reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
+    trace_wide<<<ray_blocks(n, width), BLOCK, 0, (cudaStream_t)stream>>>(
+        s, P, D, active, n, width, any_hit != 0, t_out, which_out, n_out, bad_out, stats_out);
     return (int)cudaGetLastError();
+}
+
+// The launch's resources, into info[0..6): registers a thread, static
+// shared bytes, local bytes a thread (the stack), dynamic shared bytes
+// (none), resident blocks an SM, threads a block.
+extern "C" int srt_trace_wide_info(int stack_depth, int* info) {
+    if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, trace_wide);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_wide, BLOCK, 0);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = a.numRegs;
+    info[1] = (int)a.sharedSizeBytes;
+    info[2] = (int)a.localSizeBytes;
+    info[3] = 0;
+    info[4] = per_sm;
+    info[5] = BLOCK;
+    return 0;
 }

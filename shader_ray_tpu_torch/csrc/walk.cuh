@@ -1,33 +1,74 @@
 // The per-thread 8-wide short-stack BVH walk shared by the fused frame
 // kernel (frame_kernel.cu) and the trace-only kernel (trace_kernel.cu),
 // so both paths visit the same nodes in the same order and accept the
-// same hits.  Node table and Woop leaf records as ops/pack_wide.py
-// lays them out; both are read with 16-byte loads.  The stack is the
-// caller's: local memory for the trace kernel, shared memory for the
-// frame kernel.  The binary-tree kernel (trace_binary_kernel.cu) takes
-// the constants, safe_inv and the slab test from here.
+// same hits, and the block helpers all three kernels use: live-ray
+// compaction, a stack in shared memory, the dynamic shared-memory limit.
+// Node table and Woop leaf records as ops/pack_wide.py lays them out;
+// both are read with 16-byte loads.  The binary-tree kernel
+// (trace_binary_kernel.cu) takes the constants, safe_inv and the slab
+// test from here.
+//
+// What bounds the walk: the latency of its dependent loads (pop, node,
+// leaf records), not arithmetic or bytes.  A pop issues its node's 16
+// float4s in storage order at once, with no wait for the octant's order
+// word, slab-tests the children in storage order and permutes the hit
+// bits and child words into the octant's near-to-far order afterwards
+// (select trees, no dynamically indexed arrays, so nothing goes to local
+// memory).  A Woop test issues the three float4s of its distance and
+// (u, v) rows together.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#ifndef WALK_STORAGE_ORDER
+#define WALK_STORAGE_ORDER 1
+#endif
+#ifndef WALK_PREFETCH
+#define WALK_PREFETCH 0
+#endif
+#ifndef WALK_STACK16
+#define WALK_STACK16 0
+#endif
+#ifndef WALK_RECORD_F4
+#define WALK_RECORD_F4 3
+#endif
+#ifndef WALK_HINTS
+#define WALK_HINTS 0
+#endif
+#ifndef WALK_FLAT
+#define WALK_FLAT 0
+#endif
+#ifndef TRACE_TILE_W
+#define TRACE_TILE_W 16
+#endif
+
 namespace srt {
 
 constexpr int WIDE = 8;
 constexpr int MAX_STACK = 128;
 constexpr int NODE_F4 = 2 * WIDE;   // float4s a wide node: two a child
-constexpr int RECORD_F4 = 6;        // float4s a Woop record (21 floats, padded to 24)
+constexpr int RECORD_F4 = WALK_RECORD_F4;  // float4s a triangle's Woop test rows, and its normal terms
 constexpr int COUNT_SHIFT = 26;
 constexpr int FIRST_MASK = (1 << COUNT_SHIFT) - 1;
 constexpr float INFINITELY_FAR = 1.0e7f;  // fs:115
 constexpr float RANGE_T1 = 1.0e8f;        // fs:463,491
+// stack entries above stack_depth: the flattened walk keeps a pop's hit
+// leaves on the stack too, above its internal children
+constexpr int STACK_EXTRA = WALK_FLAT ? WIDE : 0;
+constexpr int TRACE_BLOCK = 128;          // threads a block of the trace kernels
+constexpr int RAY_TILE_W = TRACE_TILE_W > 0 ? TRACE_TILE_W : 1;
+constexpr int RAY_TILE_H = TRACE_BLOCK / RAY_TILE_W;
 
 struct Scene {
     // (Nw, 8, 2) float4: child k as (lo.xyz, meta bits) and (hi.xyz,
     // bits of the child order of octant k)
     const float4* nodes;
-    const float4* leaves;  // (T, 6) float4 Woop records
+    const float4* leaves;   // (T, 3) float4 Woop test rows (floats 0-11 of a record)
+    const float4* normals;  // (T, 3) float4 n0, n1 - n0, n2 - n0 (floats 12-20)
     int stack_depth;
     int max_steps;
     float mt_eps;
@@ -41,12 +82,121 @@ struct Walk {
     unsigned steps, leafs, tris;
 };
 
+// The result of no walk: a miss, no id, no work.
+__device__ __forceinline__ Walk no_walk() {
+    Walk o;
+    o.t = INFINITELY_FAR;
+    o.nx = o.ny = o.nz = 0.0f;
+    o.which = -1;
+    o.bad = false;
+    o.steps = o.leafs = o.tris = 0;
+    return o;
+}
+
 // A thread's whole stack in local memory.
 struct LocalStack {
-    int s[MAX_STACK];
+    int s[MAX_STACK + STACK_EXTRA];
     __device__ __forceinline__ int get(int i) const { return s[i]; }
     __device__ __forceinline__ void set(int i, int v) { s[i] = v; }
 };
+
+// A thread's stack in shared memory: entry i at sh[i * BLOCK] (sh points
+// at the thread's column), so the lanes of a warp touch 32 different
+// banks whatever their depths.
+#if WALK_STACK16
+typedef unsigned short stack_entry;
+#else
+typedef int stack_entry;
+#endif
+template <int BLOCK>
+struct BlockStack {
+    stack_entry* sh;
+    __device__ __forceinline__ int get(int i) const { return sh[i * BLOCK]; }
+    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = (stack_entry)v; }
+};
+
+// The threads whose flag is set, in thread order, into q[0..n); returns
+// n.  Every thread of the block calls it (warp ballots, a prefix over
+// the block's warps, two barriers).
+template <int BLOCK>
+__device__ __forceinline__ int compact(bool flag, short* q, int* wcount) {
+    constexpr int WARPS = BLOCK / 32;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned m = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const int c = wcount[w];
+        off += w < warp ? c : 0;
+        total += c;
+    }
+    if (flag) q[off + __popc(m & ((1u << lane) - 1u))] = (short)tid;
+    __syncthreads();
+    return total;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` (above the 48
+// KB a launch gets without asking), once a device; `raised` holds bit d
+// for device d.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>& raised) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (raised.load() & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) raised.fetch_or(bit);
+    return err;
+}
+
+// The ray a thread of a trace kernel walks, or -1: with width 0 the n
+// rays are a list and thread i walks ray i; with width > 0 they are the
+// pixels of a width-wide image, row-major, and a block walks a RAY_TILE_W x
+// RAY_TILE_H tile of them, so neighbouring rays share warps and SMs.
+__device__ __forceinline__ long long ray_of(long long n, int width) {
+    if (width <= 0 || TRACE_TILE_W <= 0) {
+        const long long i = (long long)blockIdx.x * TRACE_BLOCK + threadIdx.x;
+        return i < n ? i : -1;
+    }
+    const long long height = n / width, tiles_x = (width + RAY_TILE_W - 1) / RAY_TILE_W;
+    const long long px = (blockIdx.x % tiles_x) * RAY_TILE_W + threadIdx.x % RAY_TILE_W;
+    const long long py = (blockIdx.x / tiles_x) * RAY_TILE_H + threadIdx.x / RAY_TILE_W;
+    return px < width && py < height ? py * width + px : -1;
+}
+
+// the blocks of a trace launch over n rays (ray_of)
+inline unsigned ray_blocks(long long n, int width) {
+    if (width <= 0 || TRACE_TILE_W <= 0) return (unsigned)((n + TRACE_BLOCK - 1) / TRACE_BLOCK);
+    const long long height = n / width;
+    return (unsigned)(((width + RAY_TILE_W - 1) / RAY_TILE_W) * ((height + RAY_TILE_H - 1) / RAY_TILE_H));
+}
+
+// 16-byte loads of the node tables (kept in L1 where WALK_HINTS asks)
+// and of the triangle records (evicted first)
+__device__ __forceinline__ float4 ld_keep(const float4* p) {
+#if WALK_HINTS
+    float4 v;
+    asm("ld.global.nc.L1::evict_last.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+    return v;
+#else
+    return __ldg(p);
+#endif
+}
+
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+#if WALK_HINTS
+    float4 v;
+    asm("ld.global.nc.L1::evict_first.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+    return v;
+#else
+    return __ldg(p);
+#endif
+}
 
 // finite 1/d: IEEE inf NaN-kills slab terms (kernel_body.py:48-59)
 __device__ __forceinline__ float safe_inv(float d) {
@@ -70,55 +220,177 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz,
     t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fminf(fmaxf(taz, tbz), RANGE_T1));
 }
 
-// the same for a box stored as 6 floats lo.xyz, hi.xyz
-__device__ __forceinline__ void slab(const float* __restrict__ b,
-                                     float Px, float Py, float Pz,
-                                     float ix, float iy, float iz,
-                                     float& t0, float& t1) {
-    slab(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), __ldg(b + 4), __ldg(b + 5),
-         Px, Py, Pz, ix, iy, iz, t0, t1);
+// c[k] for a k in 0..7 known only at run time, by a tree of selects
+// (c stays in registers)
+__device__ __forceinline__ int pick8(const int (&c)[WIDE], int k) {
+    const int a0 = (k & 1) ? c[1] : c[0], a1 = (k & 1) ? c[3] : c[2];
+    const int a2 = (k & 1) ? c[5] : c[4], a3 = (k & 1) ? c[7] : c[6];
+    const int b0 = (k & 2) ? a1 : a0, b1 = (k & 2) ? a3 : a2;
+    return (k & 4) ? b1 : b0;
 }
 
-// One ray's short-stack walk: pop a node, slab-test its 8 children in
-// the octant's near-to-far order, Woop-test hit leaves near-to-far
-// (accept d <= t: the last of equal distances wins), push hit internal
-// children far-to-near.  ANY_HIT returns at the first accepted hit.
-// TRACK_ID also records the accepted triangle's id.  Stack: get(i) and
-// set(i, v) of entry i < s.stack_depth.
+// Woop test of the triangle whose test rows are at rec: true where it
+// accepts d <= t (fs:92-98 as kernel_body.slot_hit), with d, u and v
+__device__ __forceinline__ bool woop_test(const float4* rec, float Px, float Py, float Pz,
+                                          float Dx, float Dy, float Dz, float t, float mt_eps,
+                                          float& d, float& u, float& v) {
+    const float4 r0 = ld_stream(rec), r1 = ld_stream(rec + 1), r2 = ld_stream(rec + 2);
+    const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
+    const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
+    if (!(fabsf(dz) >= mt_eps)) return false;
+    d = oz * (-1.0f / dz);
+    if (!(d <= t && d >= 0.0f)) return false;
+    u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w) + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
+    if (!(u >= 0.0f)) return false;
+    v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w) + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
+    return v >= 0.0f && u + v <= 1.0f;
+}
+
+// One pop's node: slab-test its children; returns the hit bits and the
+// child words in the octant's near-to-far order
+__device__ __forceinline__ unsigned test_node(const float4* nd, int oct, float Px, float Py,
+                                              float Pz, float ix, float iy, float iz, float t,
+                                              int (&cms)[WIDE]) {
+    unsigned hits = 0;
+#if WALK_STORAGE_ORDER
+    // every child's box and word in storage order, all loads at once
+    int cm_k[WIDE], ow[WIDE];
+    unsigned hk = 0;
+#pragma unroll
+    for (int k = 0; k < WIDE; ++k) {
+        const float4 lo = ld_keep(nd + 2 * k);
+        const float4 hi = ld_keep(nd + 2 * k + 1);
+        cm_k[k] = __float_as_int(lo.w);
+        ow[k] = __float_as_int(hi.w);
+        float t0, t1;
+        slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
+        if (cm_k[k] != -1 && t0 < t1 && t0 < t) hk |= 1u << k;
+    }
+    const int order = pick8(ow, oct);
+#pragma unroll
+    for (int p = 0; p < WIDE; ++p) {
+        const int ck = (order >> (3 * p)) & 7;
+        cms[p] = pick8(cm_k, ck);
+        hits |= ((hk >> ck) & 1u) << p;
+    }
+#else
+    const int order = __float_as_int(ld_keep(nd + 2 * oct + 1).w);
+#pragma unroll
+    for (int p = 0; p < WIDE; ++p) {
+        const int ck = (order >> (3 * p)) & 7;
+        const float4 lo = ld_keep(nd + 2 * ck);
+        const int cm = __float_as_int(lo.w);
+        cms[p] = cm;
+        if (cm == -1) continue;
+        const float4 hi = ld_keep(nd + 2 * ck + 1);
+        float t0, t1;
+        slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
+        if (t0 < t1 && t0 < t) hits |= 1u << p;
+    }
+#endif
+    return hits;
+}
+
+// One ray's short-stack walk: pop a node, slab-test its 8 children,
+// Woop-test hit leaves in the octant's near-to-far order (accept d <= t:
+// the last of equal distances wins), push hit internal children
+// far-to-near.  ANY_HIT returns at the first accepted hit.  TRACK_ID
+// also records the accepted triangle's id.  Stack: get(i) and set(i, v)
+// of entry i < s.stack_depth + STACK_EXTRA.
 template <bool TRACK_ID, bool ANY_HIT, class Stack>
 __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float Pz,
                                      float Dx, float Dy, float Dz, Stack& stack) {
-    Walk o;
-    o.t = INFINITELY_FAR;
-    o.nx = o.ny = o.nz = 0.0f;
-    o.which = -1;
-    o.bad = false;
-    o.steps = o.leafs = o.tris = 0;
+    Walk o = no_walk();
     const float ix = safe_inv(Dx), iy = safe_inv(Dy), iz = safe_inv(Dz);
     const int oct = (Dx > 0.0f) + 2 * (Dy > 0.0f) + 4 * (Dz > 0.0f);
     int best = -1;          // record of the accepted hit, its u and v
     float bu = 0.0f, bv = 0.0f;
     int sp = 1;
     stack.set(0, 0);
+#if WALK_FLAT
+    // one node pop or one triangle test an iteration, so lanes at
+    // different stages share iterations.  A pop pushes its hit internal
+    // children far-to-near and then its hit leaves far-to-near above them,
+    // so the leaves are tested near-to-far before the next pop, as below.
+    // A leaf entry is count << 26 | first (bit 31 set once begun); an
+    // overflow or the step budget counts only once the pop's leaves are
+    // done without an any-hit return, as below.
+    bool overflow = false;
+    while (sp > 0) {
+        const int e = stack.get(sp - 1);
+        if (e >= (1 << COUNT_SHIFT) || e < 0) {
+            const int cnt = (e >> COUNT_SHIFT) & 31, tri = e & FIRST_MASK;
+            if (e > 0) ++o.leafs;
+            ++o.tris;
+            float d, u, v;
+            if (woop_test(s.leaves + (size_t)tri * RECORD_F4, Px, Py, Pz, Dx, Dy, Dz, o.t,
+                          s.mt_eps, d, u, v)) {
+                if (ANY_HIT) {
+                    o.t = 0.0f;
+                    return o;
+                }
+                o.t = d;
+                best = tri;
+                bu = u;
+                bv = v;
+            }
+            if (cnt > 1)
+                stack.set(sp - 1, (int)(0x80000000u | ((unsigned)(cnt - 1) << COUNT_SHIFT)
+                                        | (unsigned)(tri + 1)));
+            else
+                --sp;
+            continue;
+        }
+        if (overflow) o.bad = true;
+        overflow = false;
+        if (o.steps >= (unsigned)s.max_steps) {
+            o.bad = true;
+            break;
+        }
+        --sp;
+        ++o.steps;
+        int cms[WIDE];
+        const unsigned hits = test_node(s.nodes + (size_t)e * NODE_F4, oct, Px, Py, Pz,
+                                        ix, iy, iz, o.t, cms);
+#pragma unroll
+        for (int p = WIDE - 1; p >= 0; --p) {
+            const int cm = cms[p];
+            if (!((hits >> p) & 1u) || cm >= (1 << COUNT_SHIFT)) continue;
+            if (sp < s.stack_depth) stack.set(sp++, cm);
+            else overflow = true;
+        }
+#pragma unroll
+        for (int p = WIDE - 1; p >= 0; --p) {
+            const int cm = cms[p];
+            if ((hits >> p) & 1u && cm >= (1 << COUNT_SHIFT)) stack.set(sp++, cm);
+        }
+    }
+    if (overflow) o.bad = true;
+#else
     while (sp > 0) {
         const int node = stack.get(--sp);
         ++o.steps;
-        const float4* nd = s.nodes + (size_t)node * NODE_F4;
-        const int order = __float_as_int(__ldg(&nd[2 * oct + 1].w));
         int cms[WIDE];
-        unsigned hits = 0;
+        const unsigned hits = test_node(s.nodes + (size_t)node * NODE_F4, oct, Px, Py, Pz,
+                                        ix, iy, iz, o.t, cms);
+#if WALK_PREFETCH
+        // push first (nothing below reads the stack), so the next pop's
+        // node is known and its two lines can come while the leaves are
+        // tested; an overflow counts only if the walk goes on past them
+        bool overflow = false;
 #pragma unroll
-        for (int p = 0; p < WIDE; ++p) {
-            const int ck = (order >> (3 * p)) & 7;
-            const float4 lo = __ldg(nd + 2 * ck);
-            const int cm = __float_as_int(lo.w);
-            cms[p] = cm;
-            if (cm == -1) continue;
-            const float4 hi = __ldg(nd + 2 * ck + 1);
-            float t0, t1;
-            slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
-            if (t0 < t1 && t0 < o.t) hits |= 1u << p;
+        for (int p = WIDE - 1; p >= 0; --p) {
+            const int cm = cms[p];
+            if (!((hits >> p) & 1u) || cm >= (1 << COUNT_SHIFT)) continue;
+            if (sp < s.stack_depth) stack.set(sp++, cm);
+            else overflow = true;
         }
+        if (sp > 0) {
+            const float4* next = s.nodes + (size_t)stack.get(sp - 1) * NODE_F4;
+            asm volatile("prefetch.global.L1 [%0];" :: "l"(next));
+            asm volatile("prefetch.global.L1 [%0];" :: "l"(next + WIDE));
+        }
+#endif
 #pragma unroll
         for (int p = 0; p < WIDE; ++p) {
             const int cm = cms[p];
@@ -126,23 +398,12 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             ++o.leafs;
             const int cnt = cm >> COUNT_SHIFT;
             const int first = cm & FIRST_MASK;
-            const float4* rec = s.leaves + (size_t)first * RECORD_F4;
-            for (int k = 0; k < cnt; ++k, rec += RECORD_F4) {
+            for (int k = 0; k < cnt; ++k) {
                 ++o.tris;
-                const float4 r0 = __ldg(rec);
-                const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
-                const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
-                if (!(fabsf(dz) >= s.mt_eps)) continue;
-                const float d = oz * (-1.0f / dz);
-                if (!(d <= o.t && d >= 0.0f)) continue;
-                const float4 r1 = __ldg(rec + 1);
-                const float u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w)
-                              + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
-                if (!(u >= 0.0f)) continue;
-                const float4 r2 = __ldg(rec + 2);
-                const float v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w)
-                              + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
-                if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+                float d, u, v;
+                if (!woop_test(s.leaves + (size_t)(first + k) * RECORD_F4, Px, Py, Pz,
+                               Dx, Dy, Dz, o.t, s.mt_eps, d, u, v))
+                    continue;
                 if (ANY_HIT) {
                     o.t = 0.0f;
                     return o;
@@ -153,6 +414,9 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
                 bv = v;
             }
         }
+#if WALK_PREFETCH
+        if (overflow) o.bad = true;
+#else
 #pragma unroll
         for (int p = WIDE - 1; p >= 0; --p) {
             const int cm = cms[p];
@@ -160,15 +424,17 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             if (sp < s.stack_depth) stack.set(sp++, cm);
             else o.bad = true;
         }
+#endif
         if (o.steps >= (unsigned)s.max_steps && sp > 0) {
             o.bad = true;
             break;
         }
     }
+#endif
     if (!ANY_HIT && best >= 0) {
-        // n0 + u (n1 - n0) + v (n2 - n0): record floats 12-14, 15-17, 18-20
-        const float4* rec = s.leaves + (size_t)best * RECORD_F4;
-        const float4 r3 = __ldg(rec + 3), r4 = __ldg(rec + 4), r5 = __ldg(rec + 5);
+        // n0 + u (n1 - n0) + v (n2 - n0)
+        const float4* rec = s.normals + (size_t)best * RECORD_F4;
+        const float4 r3 = __ldg(rec), r4 = __ldg(rec + 1), r5 = __ldg(rec + 2);
         o.nx = r3.x + bu * r3.w + bv * r4.z;
         o.ny = r3.y + bu * r4.x + bv * r4.w;
         o.nz = r3.z + bu * r4.y + bv * r5.x;

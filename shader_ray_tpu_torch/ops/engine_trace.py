@@ -70,9 +70,13 @@ def trace_rays(
     cast = torch.zeros((), dtype=torch.long, device=dev)
     r = rays
 
+    # the rays of a whole frame are its pixels, row-major: the kernels
+    # then walk them in 2D tiles
+    width = statics.width if R == statics.width * statics.height else 0
+
     def cast_rays(P, D, active, any_hit=False):
         return trace(packed, P.contiguous(), D.contiguous(), active, any_hit=any_hit,
-                     mt_eps=statics.mt_eps, max_steps=max_steps)
+                     mt_eps=statics.mt_eps, max_steps=max_steps, width=width)
 
     for _ in range(statics.bounce_count):
         cast = cast + alive.sum()

@@ -235,7 +235,7 @@ def _entry():
     I = ctypes.c_int
     F = ctypes.c_float
     fn.argtypes = [
-        P, P, P, I, I,             # nodes, leaves, env, env_h, env_w
+        P, P, P, P, I, I,          # nodes, leaves, normals, env, env_h, env_w
         P, P, I, I, I,             # uni, jitters, K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
         I, I, I, F, F, I, I,       # bounces, shadows, diffuse, fudge, eps, max_steps, stack
@@ -274,7 +274,8 @@ def frame_kernel(
     colour mean and the int64 counter row.  CPU tensors run
     ``frame_plain``; CUDA tensors launch the CUDA kernel."""
     tensors = dict(
-        nodes=packed.nodes, leaves=packed.leaves, env=packed.env, uni=uni, jitters=jitters,
+        nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=packed.env,
+        uni=uni, jitters=jitters,
     )
     device = _build.one_device("frame_kernel", tensors)
     if device.type == "cpu":
@@ -283,6 +284,7 @@ def frame_kernel(
     check = functools.partial(_build.check, "frame_kernel")
     check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
     check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
+    check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
     check("env", packed.env, torch.float32, (None, None, 3))
     check("uni", uni, torch.float32, (UNI_SIZE,))
     check("jitters", jitters, torch.float32, (None, 2))
@@ -301,7 +303,8 @@ def frame_kernel(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.env.data_ptr(),
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
+            packed.env.data_ptr(),
             packed.env.shape[0], packed.env.shape[1],
             uni.data_ptr(), jitters.data_ptr(), K, fs.width, fs.height,
             inv_w, inv_h, aspect,

@@ -17,13 +17,16 @@ read with 16-byte loads:
                               empty: -1.  Order: the octant's child order,
                               8 x 3-bit slots, nearest first (empties
                               last).  256 bytes a node.
-  leaves  (T, 24) f32         one Woop record per triangle in BVH order
-                              (layout at WOOP_RECORD, padded with zeros
-                              to 6 float4s); the record index is the
-                              triangle id
+  leaves  (T, 12) f32         the test rows of each triangle's Woop record
+                              (floats 0-11 of WOOP_RECORD: three float4s,
+                              the distance, u and v rows), in BVH order;
+                              the row index is the triangle id
+  normals (T, 12) f32         the rest of the record, n0, n1 - n0, n2 - n0
+                              (floats 12-20, padded with zeros to three
+                              float4s), read once a ray after its walk
 
 ``PackedWide.child_boxes``, ``child_meta`` and ``orders`` read the node
-table back per child.
+table back per child, ``records`` the Woop records whole.
 
 Leaf counts are capped at ``max_leaf_tests`` (the reference's
 10-triangle leaf budget, raytracer.es.fs:382).
@@ -56,13 +59,14 @@ FIRST_MASK = (1 << COUNT_SHIFT) - 1
 #   11    -r1.v0
 #   12-20 n0.xyz (n1-n0).xyz (n2-n0).xyz
 WOOP_RECORD = 21
-LEAF_STRIDE = 24    # floats a record takes in the leaf table
+LEAF_STRIDE = 12    # floats a triangle takes in the leaf table, and in the normal table
 
 
 @dataclass
 class PackedWide:
     nodes: torch.Tensor       # (Nw, 8, 8) f32 (meta and orders as int32 bits)
-    leaves: torch.Tensor      # (T, 24) f32
+    leaves: torch.Tensor      # (T, 12) f32 Woop test rows
+    normals: torch.Tensor     # (T, 12) f32 normal terms
     env_pyramid: EnvPyramid   # level 0 (the frame kernel's env) + mips
     n_wide: int
     stack_depth: int
@@ -84,6 +88,12 @@ class PackedWide:
         return self.nodes.view(torch.int32)[..., 7]
 
     @property
+    def records(self) -> torch.Tensor:
+        """(T, 21) f32 Woop records (WOOP_RECORD), leaves and normals
+        joined."""
+        return torch.cat([self.leaves, self.normals[:, :WOOP_RECORD - LEAF_STRIDE]], dim=1)
+
+    @property
     def env(self) -> torch.Tensor:
         """(H0, W0, 3) f32 env level 0, a view of the pyramid."""
         return self.env_pyramid.level0
@@ -92,6 +102,7 @@ class PackedWide:
         return PackedWide(
             nodes=self.nodes.to(device),
             leaves=self.leaves.to(device),
+            normals=self.normals.to(device),
             env_pyramid=self.env_pyramid.to(device),
             n_wide=self.n_wide,
             stack_depth=self.stack_depth,
@@ -286,12 +297,13 @@ def pack_scene_wide(
     bits[:, :, 3] = meta[:, :WIDE]
     bits[:, :, 7] = meta[:, WIDE:]
     records = woop_records(data.tri_positions, data.tri_normals)
-    leaves = np.zeros((len(records), LEAF_STRIDE), np.float32)
-    leaves[:, :WOOP_RECORD] = records
+    normals = np.zeros((len(records), LEAF_STRIDE), np.float32)
+    normals[:, :WOOP_RECORD - LEAF_STRIDE] = records[:, LEAF_STRIDE:]
     leaf_counts = counts[is_leaf]
     return PackedWide(
         nodes=torch.from_numpy(nodes),
-        leaves=torch.from_numpy(leaves),
+        leaves=torch.from_numpy(np.ascontiguousarray(records[:, :LEAF_STRIDE])),
+        normals=torch.from_numpy(normals),
         env_pyramid=EnvPyramid.pack(env, cfg.env_base),
         n_wide=Nw,
         # each pop pushes <= 7 net entries per level (pack_wide.py:427)

@@ -195,8 +195,8 @@ def walk_plain(
             rows = idx[mi[sel]]
             t[rows] = d[sel]
             which[rows] = tri[sel]
-            us, vs, rs = u[sel, None], v[sel, None], rec[sel]
-            normal[rows] = rs[:, 12:15] + us * rs[:, 15:18] + vs * rs[:, 18:21]
+            us, vs, ns = u[sel, None], v[sel, None], packed.normals[tri[sel]]
+            normal[rows] = ns[:, 0:3] + us * ns[:, 3:6] + vs * ns[:, 6:9]
 
         # push hit internal children far-to-near (nearest on top)
         for p in range(WIDE - 1, -1, -1):
@@ -224,20 +224,25 @@ def walk_binary_plain(
     max_steps: int = 0,
 ) -> WalkResult:
     """Per-ray stackless walk of the binary tree, vectorized over rays:
-    each step every open ray slab-tests its node ``g``; on a box hit of
-    a leaf it Moller-Trumbore-tests the leaf's triangles in order,
+    each ray walks the node bank of its OWN direction octant from record
+    0 (the root); each step it slab-tests its record ``g``; on a box hit
+    of a leaf it Moller-Trumbore-tests the leaf's triangles in order,
     accepting ``d <= t`` with ``d`` inside the leaf's slab range
-    ``[t0, t1]`` (kernel_body.slot_hit, "mt" branch); then it follows the
-    hit or the miss link of its OWN direction octant.  ``any_hit`` stops
-    a ray at its first accepted triangle.  A ray still walking after
-    ``max_steps`` steps (0 = 2 * N + 2, packet.py:141) is bad."""
+    ``[t0, t1]`` (kernel_body.slot_hit, "mt" branch); then it goes to
+    ``g + 1`` after a box hit of an inner node (its hit link) and to the
+    record's miss link otherwise (a leaf's two links are equal).
+    ``any_hit`` stops a ray at its first accepted triangle.  The normal
+    of the accepted hit is interpolated once, after the walk.  A ray
+    still walking after ``max_steps`` steps (0 = 2 * N + 2,
+    packet.py:141) is bad."""
     R = P.shape[0]
     dev = P.device
     max_steps = max_steps or 2 * packed.node_count + 2
     inv = safe_inv(D)
     octant = (D[:, 0] > 0).long() + 2 * (D[:, 1] > 0).long() + 4 * (D[:, 2] > 0).long()
     t = torch.full((R,), INFINITELY_FAR, dtype=torch.float32, device=dev)
-    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    bu = torch.zeros(R, dtype=torch.float32, device=dev)
+    bv = torch.zeros(R, dtype=torch.float32, device=dev)
     which = torch.full((R,), -1, dtype=torch.long, device=dev)
     bad = torch.zeros(R, dtype=torch.bool, device=dev)
     steps = torch.zeros(R, dtype=torch.long, device=dev)
@@ -245,24 +250,26 @@ def walk_binary_plain(
     tris = torch.zeros(R, dtype=torch.long, device=dev)
     tris_u = torch.zeros(R, dtype=torch.long, device=dev)
     tris_v = torch.zeros(R, dtype=torch.long, device=dev)
-    g = torch.where(active, packed.root, -1).long()
-    links = packed.links.long()
-    leaf = packed.leaf.long()
+    g = torch.where(active, 0, -1).long()
+    miss_links = packed.miss.long()
+    leaf_words = packed.leaf.long()
 
     idx = torch.nonzero(g >= 0).squeeze(1)
     while idx.numel():
-        gi = g[idx]
+        gi, oi = g[idx], octant[idx]
         steps[idx] += 1
         Pi, Di = P[idx], D[idx]
-        box = packed.boxes[gi]
-        ta = (box[:, 0:3] - Pi) * inv[idx]
-        tb = (box[:, 3:6] - Pi) * inv[idx]
+        rec = packed.nodes[oi, gi]                          # (M, 8)
+        ta = (rec[:, 0:3] - Pi) * inv[idx]
+        tb = (rec[:, 4:7] - Pi) * inv[idx]
         lo = torch.minimum(ta, tb)
         hi = torch.maximum(ta, tb)
         t0 = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), torch.clamp(lo[:, 2], min=0.0))
         t1 = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), torch.clamp(hi[:, 2], max=RANGE_T1))
         boxhit = (t0 < t1) & (t0 < t[idx])
-        cnt = torch.where(boxhit, leaf[gi, 1], 0)
+        leaf = leaf_words[oi, gi]                           # -1: inner node
+        cnt = torch.where(boxhit & (leaf >= 0), leaf >> COUNT_SHIFT, 0)
+        first = leaf & FIRST_MASK
         leafs[idx] += (cnt > 0).long()
 
         found = torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
@@ -272,12 +279,10 @@ def walk_binary_plain(
                 break
             rows = idx[sel]
             tris[rows] += 1
-            tri = leaf[gi[sel], 0] + k
+            tri = first[sel] + k
             rec = packed.tris[tri]
             Ps, Ds = Pi[sel], Di[sel]
-            v0 = rec[:, 0:3]
-            e0 = rec[:, 3:6] - v0              # v1 - v0
-            e1 = v0 - rec[:, 6:9]              # v0 - v2
+            v0, e0, e1 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]   # e0 = v1 - v0, e1 = v0 - v2
             M = torch.stack([
                 e1[:, 1] * Ds[:, 2] - e1[:, 2] * Ds[:, 1],
                 e1[:, 2] * Ds[:, 0] - e1[:, 0] * Ds[:, 2],
@@ -308,17 +313,21 @@ def walk_binary_plain(
             else:
                 t[hit_rows] = d[ok]
                 which[hit_rows] = tri[ok]
-                n0 = rec[ok, 9:12]
-                normal[hit_rows] = (n0 + u[ok, None] * (rec[ok, 12:15] - n0)
-                                    + v[ok, None] * (rec[ok, 15:18] - n0))
+                bu[hit_rows] = u[ok]
+                bv[hit_rows] = v[ok]
 
-        nxt = links[gi, octant[idx], torch.where(boxhit, 0, 1)]
+        nxt = torch.where(boxhit & (leaf < 0), gi + 1, miss_links[oi, gi])
         nxt = torch.where(found, -1, nxt)
         overflow = (steps[idx] >= max_steps) & (nxt >= 0)
         bad[idx[overflow]] = True
         nxt = torch.where(overflow, -1, nxt)
         g[idx] = nxt
         idx = idx[nxt >= 0]
+    normal = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    got = torch.nonzero(which >= 0).squeeze(1)
+    if got.numel():
+        nr = packed.normals[which[got]]
+        normal[got] = (nr[:, 0:3] + bu[got, None] * nr[:, 4:7]) + bv[got, None] * nr[:, 8:11]
     return WalkResult(t, normal, which, bad, steps, leafs, tris, steps, tris_u, tris_v)
 
 
@@ -333,9 +342,10 @@ def packet_hit(w: WalkResult, with_stats: bool) -> PacketHit:
     )
 
 
-def _ray_args(where: str, tables: dict, P, D, active):
-    """Check the ray tensors against the tables' device; returns
-    (device, active as a bool tensor)."""
+def _ray_args(where: str, tables: dict, P, D, active, width: int = 0):
+    """Check the ray tensors against the tables' device and the image
+    width (0, or one that divides the ray count); returns (device,
+    active as a bool tensor)."""
     if active is None:
         active = torch.ones(P.shape[0], dtype=torch.bool, device=P.device)
     device = _build.one_device(where, dict(tables, P=P, D=D, active=active))
@@ -343,6 +353,8 @@ def _ray_args(where: str, tables: dict, P, D, active):
     _build.check(where, "P", P, torch.float32, (R, 3))
     _build.check(where, "D", D, torch.float32, (R, 3))
     _build.check(where, "active", active, torch.bool, (R,))
+    if width < 0 or (width and R % width):
+        raise ValueError(f"{where}: width {width} does not divide {R} rays")
     return device, active
 
 
@@ -355,13 +367,33 @@ def _outputs(R: int, device, with_stats: bool):
     return t, which, normal, bad, stats
 
 
+INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
+             "threads")
+
+
+def launch_info(name: str, stack_depth: int) -> dict[str, int]:
+    """The launch of trace kernel ``name`` ("trace_wide" or
+    "trace_binary") on the current card for a scene's stack bound:
+    registers a thread, static and dynamic (stack) shared bytes a block,
+    local bytes a thread, resident blocks an SM, threads a block."""
+    lib = {"trace_wide": "trace_kernel", "trace_binary": "trace_binary_kernel"}[name]
+    fn = getattr(_build.library(lib)[0], f"srt_{name}_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = fn(stack_depth, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{name} launch info failed: CUDA error {err}")
+    return dict(zip(INFO_KEYS, info))
+
+
 @functools.cache
 def _wide_entry():
     fn = _build.library("trace_kernel")[0].srt_trace_wide
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn.argtypes = [
-        P, P,                      # nodes, leaves
-        P, P, P, L,                # P, D, active, R
+        P, P, P,                   # nodes, leaves, normals
+        P, P, P, L, I,             # P, D, active, R, width
         I, F, I, I,                # any_hit, eps, max_steps, stack
         P, P, P, P, P, P,          # t, which, normal, bad, stats, stream
     ]
@@ -374,9 +406,9 @@ def _binary_entry():
     fn = _build.library("trace_binary_kernel")[0].srt_trace_binary
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn.argtypes = [
-        P, P, P, P,                # links, boxes, leaf, tris
-        I, I, I, F,                # root, node count, max_steps, eps
-        P, P, P, L, I,             # P, D, active, R, any_hit
+        P, P, P,                   # nodes, tris, normals
+        I, I, F,                   # node count, max_steps, eps
+        P, P, P, L, I, I,          # P, D, active, R, width, any_hit
         P, P, P, P, P, P,          # t, which, normal, bad, stats, stream
     ]
     fn.restype = I
@@ -392,18 +424,24 @@ def trace_wide(
     mt_eps: float = 1.0e-7,
     max_steps: int = 0,
     with_stats: bool = False,
+    width: int = 0,
 ) -> PacketHit:
     """Trace (R, 3) f32 object-space rays through the 8-wide tree.
-    ``max_steps`` is the budget in node pops (0 = n_wide + 2).  CPU
-    tensors run ``walk_plain``; CUDA tensors launch the CUDA kernel."""
-    tables = dict(nodes=packed.nodes, leaves=packed.leaves)
-    device, active = _ray_args("trace_wide", tables, P, D, active)
+    ``max_steps`` is the budget in node pops (0 = n_wide + 2).  A
+    ``width`` > 0 says the rays are the pixels of a width-wide image,
+    row-major: the kernel then walks them in 2D tiles (the results do not
+    change).  CPU tensors run ``walk_plain``; CUDA tensors launch the
+    CUDA kernel."""
+    tables = dict(nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals)
+    device, active = _ray_args("trace_wide", tables, P, D, active, width)
     if device.type == "cpu":
         return packet_hit(walk_plain(packed, P, D, active, any_hit, mt_eps, max_steps),
                            with_stats)
     Nw = packed.n_wide
     _build.check("trace_wide", "nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
     _build.check("trace_wide", "leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
+    _build.check("trace_wide", "normals", packed.normals, torch.float32,
+                 (packed.leaves.shape[0], LEAF_STRIDE))
     if not 1 <= packed.stack_depth <= MAX_STACK:
         raise ValueError(f"trace_wide: stack depth {packed.stack_depth} > {MAX_STACK}")
     fn = _wide_entry()
@@ -413,8 +451,8 @@ def trace_wide(
         return PacketHit(t, which, normal, bad, stats)
     with torch.cuda.device(device):
         err = fn(
-            packed.nodes.data_ptr(), packed.leaves.data_ptr(),
-            P.data_ptr(), D.data_ptr(), active.data_ptr(), R,
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
+            P.data_ptr(), D.data_ptr(), active.data_ptr(), R, width,
             int(any_hit), mt_eps, max_steps or Nw + 2, packed.stack_depth,
             t.data_ptr(), which.data_ptr(), normal.data_ptr(), bad.data_ptr(),
             stats.data_ptr() if with_stats else None,
@@ -433,21 +471,21 @@ def trace_binary(
     mt_eps: float = 1.0e-7,
     max_steps: int = 0,
     with_stats: bool = False,
+    width: int = 0,
 ) -> PacketHit:
     """Trace (R, 3) f32 object-space rays through the binary tree.
-    ``max_steps`` is the budget in node steps (0 = 2 * N + 2).  CPU
-    tensors run ``walk_binary_plain``; CUDA tensors launch the CUDA
-    kernel."""
-    tables = dict(links=packed.links, boxes=packed.boxes, leaf=packed.leaf, tris=packed.tris)
-    device, active = _ray_args("trace_binary", tables, P, D, active)
+    ``max_steps`` is the budget in node steps (0 = 2 * N + 2); ``width``
+    as for ``trace_wide``.  CPU tensors run ``walk_binary_plain``; CUDA
+    tensors launch the CUDA kernel."""
+    tables = dict(nodes=packed.nodes, tris=packed.tris, normals=packed.normals)
+    device, active = _ray_args("trace_binary", tables, P, D, active, width)
     if device.type == "cpu":
         return packet_hit(
             walk_binary_plain(packed, P, D, active, any_hit, mt_eps, max_steps), with_stats)
     N = packed.node_count
-    _build.check("trace_binary", "links", packed.links, torch.int32, (N, 8, 2))
-    _build.check("trace_binary", "boxes", packed.boxes, torch.float32, (N, 6))
-    _build.check("trace_binary", "leaf", packed.leaf, torch.int32, (N, 2))
-    _build.check("trace_binary", "tris", packed.tris, torch.float32, (None, 18))
+    _build.check("trace_binary", "nodes", packed.nodes, torch.float32, (8, N, 8))
+    _build.check("trace_binary", "tris", packed.tris, torch.float32, (None, 12))
+    _build.check("trace_binary", "normals", packed.normals, torch.float32, (packed.tris.shape[0], 12))
     fn = _binary_entry()
     R = P.shape[0]
     t, which, normal, bad, stats = _outputs(R, device, with_stats)
@@ -455,9 +493,9 @@ def trace_binary(
         return PacketHit(t, which, normal, bad, stats)
     with torch.cuda.device(device):
         err = fn(
-            packed.links.data_ptr(), packed.boxes.data_ptr(), packed.leaf.data_ptr(),
-            packed.tris.data_ptr(), packed.root, N, max_steps or 2 * N + 2, mt_eps,
-            P.data_ptr(), D.data_ptr(), active.data_ptr(), R, int(any_hit),
+            packed.nodes.data_ptr(), packed.tris.data_ptr(), packed.normals.data_ptr(),
+            N, max_steps or 2 * N + 2, mt_eps,
+            P.data_ptr(), D.data_ptr(), active.data_ptr(), R, width, int(any_hit),
             t.data_ptr(), which.data_ptr(), normal.data_ptr(), bad.data_ptr(),
             stats.data_ptr() if with_stats else None,
             torch.cuda.current_stream(device).cuda_stream,

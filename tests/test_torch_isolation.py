@@ -9,6 +9,7 @@ to show the path each case is for.  This file imports no jax, so its
 card tests run where jax is not installed."""
 
 import ast
+import functools
 import os
 import pkgutil
 import subprocess
@@ -393,3 +394,133 @@ def test_frame_kernel_control_flow_on_card(cuda_device, name):
     assert chip_smoke.case_unmet(name, fs, kc, kn.cpu()) is None
     red = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
     assert int(((kc == red).all(-1) != (pc == red).all(-1)).sum()) <= 1
+
+
+@functools.cache
+def _trace_case_scene():
+    """A 2000-triangle bench-like scene as wide and binary tables, and
+    1024 seeded rays (8 blocks of chip_smoke.TRACE_BLOCK) from in front of
+    it toward points inside its box."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops.pack import pack_scene
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    pos, nrm = bunny_class_scene(2000)
+    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    rng = np.random.default_rng(12)
+    P = (np.array([0.0, 0.0, 3.8]) + rng.uniform(-0.3, 0.3, (1024, 3))).astype(np.float32)
+    D = rng.uniform(-0.8, 0.8, (1024, 3)).astype(np.float32) - P
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    tables = {"wide": pack_scene_wide(data, procedural_sky(32)),
+              "binary": pack_scene(data, procedural_sky(32))}
+    return tables, torch.from_numpy(P), torch.from_numpy(D)
+
+
+@pytest.mark.parametrize("name", chip_smoke.TRACE_CASES)
+def test_trace_cases_show_their_paths(name):
+    """Each case of the trace kernels' masks and layouts, walked by both
+    plain versions on the CPU for the closest and any hit, shows the path
+    it is for: no ray active, all, one ray a block, every other warp, a
+    seeded 3%, a ray count that ends inside a block, a 31 x 23 image;
+    active rays walk and the rest do not."""
+    from shader_ray_tpu_torch.ops.trace_kernel import trace
+
+    tables, P, D = _trace_case_scene()
+    P, D, active, width = chip_smoke.trace_case(name, P, D)
+    for packed in tables.values():
+        for any_hit in (False, True):
+            hit = trace(packed, P, D, active, any_hit=any_hit, with_stats=True, width=width)
+            assert chip_smoke.trace_case_unmet(name, active, hit.stats[:, 0]) is None
+            assert (hit.t[active] < 1.0e7).any() == (name != "none")
+
+
+@pytest.mark.parametrize("name", chip_smoke.TRACE_CASES)
+def test_trace_case_check_refuses_a_walk_off_its_path(name):
+    """Each case's check refuses an active mask or per-ray steps that are
+    not the case's path, so a kernel that walks the wrong rays fails on
+    the card."""
+    _, P, D = _trace_case_scene()
+    P, D, active, _ = chip_smoke.trace_case(name, P, D)
+    steps = active.long() * 5
+    assert chip_smoke.trace_case_unmet(name, active, steps) is None
+    idle = torch.nonzero(~active).squeeze(1)
+    if idle.numel():
+        wrong = steps.clone()
+        wrong[idle[-1]] = 1                          # an inactive ray walked
+        assert chip_smoke.trace_case_unmet(name, active, wrong) is not None
+    if active.any():
+        wrong = steps.clone()
+        wrong[torch.nonzero(active)[0, 0]] = 0        # an active ray did not
+        assert chip_smoke.trace_case_unmet(name, active, wrong) is not None
+    # the complement of the case's mask, walked as asked
+    assert chip_smoke.trace_case_unmet(name, ~active, (~active).long()) is not None
+
+
+@pytest.mark.parametrize("fault", ["t", "hit-flips", "ids", "bad", "counters", "normals",
+                                   "idle-work", "idle-hit"])
+def test_trace_gate_refuses_each_fault(fault):
+    """chip_smoke's gate of a trace kernel's result against its plain
+    version passes differences inside its limits (t off by 1e-6 of its
+    scale on every ray, normals by 1e-6, a walk counter by 1e-4 of its
+    total) and refuses each kind beyond them."""
+    from shader_ray_tpu_torch.ops.trace_kernel import trace
+
+    tables, P, D = _trace_case_scene()
+    active = torch.from_numpy(np.random.default_rng(3).uniform(size=P.shape[0]) < 0.7)
+    want = trace(tables["wide"], P, D, active, with_stats=True)
+    hits = torch.nonzero(want.t < 1.0e7).squeeze(1)
+    assert hits.numel() > 200
+    near = want._replace(t=torch.where(want.t < 1.0e7, want.t * (1 + 1e-6), want.t),
+                         normal=want.normal + 1e-6 * active[:, None], stats=want.stats.clone())
+    near.stats[hits[0], 2] += int(1e-4 * float(want.stats[:, 2].sum()))
+    assert chip_smoke.trace_disagreement(near, want, active, False)[1] is None
+    got = want._replace(t=want.t.clone(), which=want.which.clone(), normal=want.normal.clone(),
+                        bad=want.bad.clone(), stats=want.stats.clone())
+    some = hits[: max(hits.numel() // 50, 2)]
+    idle = torch.nonzero(~active)[0, 0]
+    if fault == "t":
+        got.t[hits] += 1e-3
+    elif fault == "hit-flips":
+        got.t[some], got.which[some] = 1.0e7, -1
+    elif fault == "ids":
+        got.which[some] += 1
+        got.t[some] *= 1 + 2e-6                     # no tie: another triangle
+    elif fault == "bad":
+        got.bad[hits[0]] = True
+    elif fault == "counters":
+        got.stats[active, 2] += 1                   # a test more a ray
+    elif fault == "normals":
+        got.normal[hits] += 1e-4
+    elif fault == "idle-work":
+        got.stats[idle, 0] = 1
+    else:
+        got.t[idle] = 1.0
+    assert chip_smoke.trace_disagreement(got, want, active, False)[1] is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.TRACE_CASES)
+def test_trace_cases_on_card(cuda_device, name):
+    """Both trace kernels against their plain versions on each case of
+    their masks and layouts, closest and any hit, under chip_smoke's gate (t, ids, normals,
+    bad flags, each walk counter total within 1e-3, inactive rays a miss
+    with no work), and each case's walk on its path."""
+    from shader_ray_tpu_torch.ops import trace_kernel as tk
+
+    tables, P, D = _trace_case_scene()
+    P, D, active, width = chip_smoke.trace_case(name, P, D)
+    P, D, active = (x.to(cuda_device) for x in (P, D, active))
+    for kind, packed in tables.items():
+        packed = packed.to(cuda_device)
+        plain = tk.walk_plain if kind == "wide" else tk.walk_binary_plain
+        for any_hit in (False, True):
+            before = tk._build.LAUNCHES[f"trace_{kind}"]
+            got = tk.trace(packed, P, D, active, any_hit=any_hit, with_stats=True, width=width)
+            assert tk._build.LAUNCHES[f"trace_{kind}"] == before + 1
+            walk = plain(packed, P, D, active, any_hit)
+            torch.cuda.synchronize()
+            assert chip_smoke.trace_disagreement(got, tk.packet_hit(walk, True), active,
+                                                 any_hit)[1] is None
+            assert chip_smoke.trace_case_unmet(name, active.cpu(), got.stats[:, 0].cpu()) is None

@@ -36,6 +36,7 @@ from shader_ray_tpu.ops.traversal import traverse
 from shader_ray_tpu_torch.convert import packed_from_numpy
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, trace, trace_binary, trace_wide
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -206,12 +207,72 @@ def test_hitmiss_banks_equal_reference(name):
     assert data.hitmiss.shape == (8, data.group_count, 2) and data.hitmiss.dtype == np.int32
     assert data.hitmiss.tobytes() == ref.hitmiss.tobytes()
     packed = packed_from_numpy(vars(ref), procedural_sky(32), "binary")
-    # (N, 8, 2): node-major, so one ray's next node is one 8-byte read
-    np.testing.assert_array_equal(packed.links.numpy(), ref.hitmiss.transpose(1, 0, 2))
-    leaf = packed.leaf.numpy()
-    np.testing.assert_array_equal(leaf[:, 0], ref.node_objects[:, 0])
-    assert leaf[:, 1].max() <= 10 and ((leaf[:, 1] > 0) == (ref.node_objects[:, 1] > 0)).all()
-    assert packed.root == ref.tree_root and packed.tris.shape == (ref.triangle_count, 18)
+    N = ref.group_count
+    assert packed.nodes.shape == (8, N, 8) and packed.node_count == N
+    miss, leaf = packed.miss.numpy(), packed.leaf.numpy()
+    # each bank's records decode back to the reference's links, node for
+    # node: an inner record's hit link is the next record, a leaf's is its
+    # miss link, and records name nodes through the bank's order
+    for o in range(8):
+        order = packed.order[o].numpy()
+        assert order[0] == ref.tree_root and sorted(order.tolist()) == list(range(N))
+        inner = leaf[o] < 0
+        miss_node = np.where(miss[o] >= 0, order[np.maximum(miss[o], 0)], -1)
+        next_node = np.append(order[1:], -1)
+        decoded = np.empty((N, 2), np.int32)
+        decoded[order, 0] = np.where(inner, next_node, miss_node)
+        decoded[order, 1] = miss_node
+        np.testing.assert_array_equal(decoded, ref.hitmiss[o])
+        np.testing.assert_array_equal(packed.boxes[o].numpy(), ref.node_boxes[order, 0:6])
+        objects = ref.node_objects[order]
+        assert (inner == (ref.node_children[order, 0] >= 0)).all()
+        np.testing.assert_array_equal(leaf[o][~inner] & FIRST_MASK, objects[~inner, 0])
+        np.testing.assert_array_equal(leaf[o][~inner] >> COUNT_SHIFT,
+                                      np.minimum(objects[~inner, 1], 10))
+    assert packed.tris.shape == packed.normals.shape == (ref.triangle_count, 12)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_binary_banks_are_the_walks_preorder(name):
+    """What the packed walk's "next record on a hit" rests on, checked on
+    the reference's own links: in every bank the hit link of an inner
+    node is the node the bank numbers next (g + 1), a leaf's hit and miss
+    links are equal, and a miss link skips forward past the subtree."""
+    _, _, ref = _ref_data(name)
+    packed = packed_from_numpy(vars(ref), procedural_sky(32), "binary")
+    N = ref.group_count
+    g = np.arange(N)
+    for o in range(8):
+        order = packed.order[o].numpy()
+        pos = np.empty(N + 1, np.int64)
+        pos[order] = g
+        pos[-1] = -1                                   # link -1: done
+        hit, miss = (pos[ref.hitmiss[o][order, j]] for j in (0, 1))
+        inner = ref.node_children[order, 0] >= 0
+        assert inner.any() and (~inner).any()
+        assert (hit[inner] == g[inner] + 1).all()
+        assert (hit[~inner] == miss[~inner]).all()
+        assert ((miss > g) | (miss == -1)).all()
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_binary_triangle_records_are_exact_differences(name):
+    """The Moller-Trumbore operands v0, e0 = v1 - v0, e1 = v0 - v2 and
+    the normal terms n0, n1 - n0, n2 - n0 equal, bit for bit, the f32
+    differences the walk used to take from v0 v1 v2 and n0 n1 n2 (f32
+    subtraction rounds exactly), with zero padding."""
+    _, _, ref = _ref_data(name)
+    packed = packed_from_numpy(vars(ref), procedural_sky(32), "binary")
+    v = torch.from_numpy(ref.tri_positions).view(-1, 3, 3)
+    n = torch.from_numpy(ref.tri_normals).view(-1, 3, 3)
+    tris, normals = packed.tris.view(-1, 3, 4), packed.normals.view(-1, 3, 4)
+    for got, want in (
+        (tris[:, 0, :3], v[:, 0]), (tris[:, 1, :3], v[:, 1] - v[:, 0]),
+        (tris[:, 2, :3], v[:, 0] - v[:, 2]), (normals[:, 0, :3], n[:, 0]),
+        (normals[:, 1, :3], n[:, 1] - n[:, 0]), (normals[:, 2, :3], n[:, 2] - n[:, 0]),
+    ):
+        assert torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+    assert (tris[..., 3] == 0).all() and (normals[..., 3] == 0).all()
 
 
 def test_trace_rejects_mixed_devices(scene):
