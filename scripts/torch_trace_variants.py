@@ -32,39 +32,44 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # (source, variant): macros, or PARENT for the source of an older checkout
-# (--old DIR).  Earlier rounds measured compaction and a shared-memory
-# stack in trace_kernel.cu, compaction, both next records and register
-# caps in trace_binary_kernel.cu (all slower); this round: 2D tiles of an
-# image's rays (TRACE_TILE_W, 0 = a list), the walk's node loads in
-# storage order, the prefetch, L1 eviction hints, the flattened loops, a
-# 16-bit stack in the frame kernel.
+# (--old DIR).  "merged" is the kernels' own design; the rest switch one
+# part of it (or, "list" ...: the order the redesign proposed, from the
+# parent's per-ray list: compaction, the whole stack in shared memory,
+# node loads in storage order, the prefetch of the next node).  Switches:
+# TRACE_TILE_W (2D ray tiles this wide, 0 = a list), TRACE_COMPACT and
+# BINARY_COMPACT (block compaction of the active rays), TRACE_SMEM_STACK,
+# WALK_STORAGE_ORDER, WALK_PREFETCH, WALK_RECORD_F4 (6: Woop records
+# whole, normals inside), BINARY_FLAT (0: the nested leaf loop).
 PARENT = None
+LIST = {"TRACE_TILE_W": 0}
 VARIANTS = {
     ("trace_kernel", "parent"): PARENT,
-    ("trace_kernel", "w-list"): {"TRACE_TILE_W": 0, "WALK_STORAGE_ORDER": 0},
-    ("trace_kernel", "w-tile16"): {"WALK_STORAGE_ORDER": 0},
-    ("trace_kernel", "w-tile32"): {"TRACE_TILE_W": 32, "WALK_STORAGE_ORDER": 0},
-    ("trace_kernel", "w-tile8"): {"TRACE_TILE_W": 8, "WALK_STORAGE_ORDER": 0},
-    ("trace_kernel", "w-tile16-order"): {},
-    ("trace_kernel", "w-tile16-prefetch"): {"WALK_STORAGE_ORDER": 0, "WALK_PREFETCH": 1},
-    ("trace_kernel", "w-tile16-order-prefetch"): {"WALK_PREFETCH": 1},
-    ("trace_kernel", "w-tile16-hints"): {"WALK_STORAGE_ORDER": 0, "WALK_HINTS": 1},
-    ("trace_kernel", "w-tile16-flat"): {"WALK_STORAGE_ORDER": 0, "WALK_FLAT": 1},
+    ("trace_kernel", "merged"): {},
+    ("trace_kernel", "list"): LIST,
+    ("trace_kernel", "list+compact"): {**LIST, "TRACE_COMPACT": 1},
+    ("trace_kernel", "list+compact+smem-stack"): {**LIST, "TRACE_COMPACT": 1, "TRACE_SMEM_STACK": 1},
+    ("trace_kernel", "list+compact+smem-stack+storage-order"): {
+        **LIST, "TRACE_COMPACT": 1, "TRACE_SMEM_STACK": 1, "WALK_STORAGE_ORDER": 1},
+    ("trace_kernel", "list+compact+smem-stack+storage-order+prefetch"): {
+        **LIST, "TRACE_COMPACT": 1, "TRACE_SMEM_STACK": 1, "WALK_STORAGE_ORDER": 1,
+        "WALK_PREFETCH": 1},
+    ("trace_kernel", "tile16"): {"TRACE_TILE_W": 16},
+    ("trace_kernel", "merged+compact"): {"TRACE_COMPACT": 1},
+    ("trace_kernel", "merged+smem-stack"): {"TRACE_SMEM_STACK": 1},
+    ("trace_kernel", "merged+storage-order"): {"WALK_STORAGE_ORDER": 1},
+    ("trace_kernel", "merged+prefetch"): {"WALK_PREFETCH": 1},
+    ("trace_kernel", "merged+whole-records"): {"WALK_RECORD_F4": 6},
     ("trace_binary_kernel", "parent"): PARENT,
-    ("trace_binary_kernel", "b-list"): {"TRACE_TILE_W": 0},
-    ("trace_binary_kernel", "b-tile16"): {},
-    ("trace_binary_kernel", "b-tile32"): {"TRACE_TILE_W": 32},
-    ("trace_binary_kernel", "b-tile16-hints"): {"WALK_HINTS": 1},
-    ("trace_binary_kernel", "b-tile16-flat"): {"BINARY_FLAT": 1},
+    ("trace_binary_kernel", "merged"): {},
+    ("trace_binary_kernel", "list"): LIST,
+    ("trace_binary_kernel", "tile16"): {"TRACE_TILE_W": 16},
+    ("trace_binary_kernel", "merged+nested"): {"BINARY_FLAT": 0},
+    ("trace_binary_kernel", "merged+compact"): {"BINARY_COMPACT": 1},
     ("frame_kernel", "parent"): PARENT,
-    ("frame_kernel", "f-order-first"): {"WALK_STORAGE_ORDER": 0},
-    ("frame_kernel", "f-order"): {},
-    ("frame_kernel", "f-prefetch"): {"WALK_STORAGE_ORDER": 0, "WALK_PREFETCH": 1},
-    ("frame_kernel", "f-prefetch-stack16"): {"WALK_STORAGE_ORDER": 0, "WALK_PREFETCH": 1,
-                                             "WALK_STACK16": 1},
-    ("frame_kernel", "f-prefetch-hints"): {"WALK_STORAGE_ORDER": 0, "WALK_PREFETCH": 1,
-                                           "WALK_HINTS": 1},
-    ("frame_kernel", "f-flat"): {"WALK_STORAGE_ORDER": 0, "WALK_FLAT": 1},
+    ("frame_kernel", "merged"): {},
+    ("frame_kernel", "merged+storage-order"): {"WALK_STORAGE_ORDER": 1},
+    ("frame_kernel", "merged+prefetch"): {"WALK_PREFETCH": 1},
+    ("frame_kernel", "merged+whole-records"): {"WALK_RECORD_F4": 6},
 }
 TIMED = 40  # calls per series
 
@@ -191,8 +196,9 @@ def main() -> int:
         else:
             fn.argtypes, fn.restype = entries[src].argtypes, entries[src].restype
             entry = fn
+        whole_records = macros is PARENT or (macros or {}).get("WALK_RECORD_F4") == 6
         tables = packed_b if src == "trace_binary_kernel" else (
-            packed_whole if macros is PARENT else packed)
+            packed_whole if whole_records else packed)
         key = f"{src.replace('_kernel', '')}/{name}"
         variants[key] = (src, entry, tables)
         report = " | ".join(ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln)

@@ -123,7 +123,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
     __shared__ unsigned char sFlag[BLOCK], sBad[BLOCK];
     __shared__ short q[BLOCK];
     __shared__ int wcount[WARPS];
-    extern __shared__ stack_entry stack_sh[];  // (stack_depth, BLOCK)
+    extern __shared__ int stack_sh[];  // (stack_depth, BLOCK)
 
     const int tid = threadIdx.x;
     for (int i = tid; i < UNI_SIZE; i += BLOCK) u[i] = uni_g[i];
@@ -334,7 +334,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
 // take, once a device (a launch still asks only for its scene's depth).
 cudaError_t allow_stack_smem() {
     static std::atomic<unsigned long long> raised{0};
-    return allow_smem(frame, (MAX_STACK + STACK_EXTRA) * BLOCK * (int)sizeof(stack_entry), raised);
+    return allow_smem(frame, MAX_STACK * BLOCK * (int)sizeof(int), raised);
 }
 
 }  // namespace
@@ -353,7 +353,7 @@ extern "C" int srt_frame_kernel(
         stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || env_w < 1)
         return (int)cudaErrorInvalidValue;
     // the stack takes stack_depth * BLOCK ints: up to 128 KB
-    const size_t smem = (size_t)(stack_depth + STACK_EXTRA) * BLOCK * sizeof(stack_entry);
+    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     const int tiles_x = (W + TILE_W - 1) / TILE_W;
@@ -373,7 +373,7 @@ extern "C" int srt_frame_kernel(
 // threads a block, tile width, tile height.
 extern "C" int srt_frame_kernel_info(int stack_depth, int* info) {
     if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(stack_depth + STACK_EXTRA) * BLOCK * sizeof(stack_entry);
+    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;

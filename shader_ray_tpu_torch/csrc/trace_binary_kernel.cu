@@ -36,7 +36,10 @@
 #include "walk.cuh"
 
 #ifndef BINARY_FLAT
-#define BINARY_FLAT 0
+#define BINARY_FLAT 1
+#endif
+#ifndef BINARY_COMPACT
+#define BINARY_COMPACT 0
 #endif
 
 namespace {
@@ -67,33 +70,6 @@ __device__ __forceinline__ void store(long long r, float t, int which, float nx,
     }
 }
 
-// Moller-Trumbore (kernel_body.slot_hit, "mt" branch) of the triangle at
-// tr (v0, v1 - v0, v0 - v2), clipped to the leaf's slab range [t0, t1]:
-// true where it accepts d <= t, with d, u, v
-__device__ __forceinline__ bool mt_test(const float4* __restrict__ tr, float Px, float Py,
-                                        float Pz, float Dx, float Dy, float Dz, float t,
-                                        float t0, float t1, float mt_eps,
-                                        float& d, float& u, float& v) {
-    const float4 v0 = srt::ld_stream(tr), e0 = srt::ld_stream(tr + 1), e1 = srt::ld_stream(tr + 2);
-    const float Mx = e1.y * Dz - e1.z * Dy;
-    const float My = e1.z * Dx - e1.x * Dz;
-    const float Mz = e1.x * Dy - e1.y * Dx;
-    const float det = e0.x * Mx + e0.y * My + e0.z * Mz;
-    if (!(fabsf(det) >= mt_eps)) return false;
-    const float minv_det = -1.0f / det;
-    const float inv_det = -minv_det;
-    const float Tx = Px - v0.x, Ty = Py - v0.y, Tz = Pz - v0.z;
-    const float Qx = Ty * e0.z - Tz * e0.y;
-    const float Qy = Tz * e0.x - Tx * e0.z;
-    const float Qz = Tx * e0.y - Ty * e0.x;
-    d = (e1.x * Qx + e1.y * Qy + e1.z * Qz) * minv_det;
-    if (!(d <= t && d >= t0 && d <= t1)) return false;
-    u = (Tx * Mx + Ty * My + Tz * Mz) * inv_det;
-    if (!(u >= 0.0f)) return false;
-    v = (Dx * Qx + Dy * Qy + Dz * Qz) * inv_det;
-    return v >= 0.0f && u + v <= 1.0f;
-}
-
 __global__ void __launch_bounds__(BLOCK)
 trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
              const float4* __restrict__ normals, int N, int max_steps, float mt_eps,
@@ -102,13 +78,27 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
              float* __restrict__ t_out, int* __restrict__ which_out,
              float* __restrict__ n_out, uint8_t* __restrict__ bad_out,
              int* __restrict__ stats_out) {
-    const long long r = srt::ray_of(n, width);
+    const int tid = threadIdx.x;
+#if BINARY_COMPACT
+    __shared__ short q[BLOCK];
+    __shared__ int wcount[BLOCK / 32];
+    const long long own = srt::ray_of(n, width, tid);
+    const bool live = own >= 0 && active[own];
+    if (own >= 0 && !live)
+        store(own, INFINITELY_FAR, -1, 0.0f, 0.0f, 0.0f, false, 0, 0, 0,
+              t_out, which_out, n_out, bad_out, stats_out);
+    const int nq = srt::compact<BLOCK>(live, q, wcount);
+    if (tid >= nq) return;
+    const long long r = srt::ray_of(n, width, q[tid]);
+#else
+    const long long r = srt::ray_of(n, width, tid);
     if (r < 0) return;
     if (!active[r]) {
         store(r, INFINITELY_FAR, -1, 0.0f, 0.0f, 0.0f, false, 0, 0, 0,
               t_out, which_out, n_out, bad_out, stats_out);
         return;
     }
+#endif
     float t = INFINITELY_FAR;
     int best = -1, steps = 0, leafs = 0, tests = 0;
     float bu = 0.0f, bv = 0.0f;
@@ -119,29 +109,51 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
     const int oct = (Dx > 0.0f) + 2 * (Dy > 0.0f) + 4 * (Dz > 0.0f);
     const float4* bank = nodes + (size_t)oct * N * 2;   // (N, 2) float4 records
     int g = 0;                                          // the root is record 0
-    float4 a = srt::ld_keep(bank), b = srt::ld_keep(bank + 1);   // (lo, miss), (hi, leaf)
+    float4 a = __ldg(bank), b = __ldg(bank + 1);   // (lo, miss), (hi, leaf)
 #if BINARY_FLAT
     // one step or one triangle test an iteration: lanes at a leaf and
     // lanes stepping share iterations; each ray's sequence is unchanged
-    int tnext = 0, tleft = 0, after = -1;
+    const float4* tr = tris;
+    int tri = 0, tleft = 0, after = -1;
     float lt0 = 0.0f, lt1 = 0.0f;
     while (true) {
         int next;
         if (tleft > 0) {
             ++tests;
-            float d, u, v;
-            if (mt_test(tris + (size_t)tnext * 3, Px, Py, Pz, Dx, Dy, Dz, t, lt0, lt1, mt_eps,
-                        d, u, v)) {
-                if (any_hit) {
-                    t = 0.0f;
-                    break;
+            // Moller-Trumbore (kernel_body.slot_hit, "mt" branch), clipped
+            // to the leaf's slab range
+            const float4 v0 = __ldg(tr), e0 = __ldg(tr + 1), e1 = __ldg(tr + 2);
+            const float Mx = e1.y * Dz - e1.z * Dy;
+            const float My = e1.z * Dx - e1.x * Dz;
+            const float Mz = e1.x * Dy - e1.y * Dx;
+            const float det = e0.x * Mx + e0.y * My + e0.z * Mz;
+            if (fabsf(det) >= mt_eps) {
+                const float minv_det = -1.0f / det;
+                const float inv_det = -minv_det;
+                const float Tx = Px - v0.x, Ty = Py - v0.y, Tz = Pz - v0.z;
+                const float Qx = Ty * e0.z - Tz * e0.y;
+                const float Qy = Tz * e0.x - Tx * e0.z;
+                const float Qz = Tx * e0.y - Ty * e0.x;
+                const float d = (e1.x * Qx + e1.y * Qy + e1.z * Qz) * minv_det;
+                if (d <= t && d >= lt0 && d <= lt1) {
+                    const float u = (Tx * Mx + Ty * My + Tz * Mz) * inv_det;
+                    if (u >= 0.0f) {
+                        const float v = (Dx * Qx + Dy * Qy + Dz * Qz) * inv_det;
+                        if (v >= 0.0f && u + v <= 1.0f) {
+                            if (any_hit) {
+                                t = 0.0f;
+                                break;
+                            }
+                            t = d;
+                            best = tri;
+                            bu = u;
+                            bv = v;
+                        }
+                    }
                 }
-                t = d;
-                best = tnext;
-                bu = u;
-                bv = v;
             }
-            ++tnext;
+            tr += 3;
+            ++tri;
             if (--tleft > 0) continue;
             next = after;
         } else {
@@ -154,7 +166,8 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
             const int cnt = leaf >> COUNT_SHIFT;
             if (boxhit && cnt > 0) {
                 ++leafs;
-                tnext = leaf & FIRST_MASK;
+                tri = leaf & FIRST_MASK;
+                tr = tris + (size_t)tri * 3;
                 tleft = cnt;
                 lt0 = t0;
                 lt1 = t1;
@@ -168,8 +181,8 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
             bad = true;
             break;
         }
-        a = srt::ld_keep(bank + 2 * next);
-        b = srt::ld_keep(bank + 2 * next + 1);
+        a = __ldg(bank + 2 * next);
+        b = __ldg(bank + 2 * next + 1);
         g = next;
     }
 #else
@@ -184,13 +197,29 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
         if (boxhit && cnt > 0) {
             ++leafs;
             const int first = leaf & FIRST_MASK;
+            const float4* tr = tris + (size_t)first * 3;
             bool found = false;
-            for (int k = 0; k < cnt; ++k) {
+            for (int k = 0; k < cnt; ++k, tr += 3) {
                 ++tests;
-                float d, u, v;
-                if (!mt_test(tris + (size_t)(first + k) * 3, Px, Py, Pz, Dx, Dy, Dz, t, t0, t1,
-                             mt_eps, d, u, v))
-                    continue;
+                // Moller-Trumbore (kernel_body.slot_hit, "mt" branch)
+                const float4 v0 = __ldg(tr), e0 = __ldg(tr + 1), e1 = __ldg(tr + 2);
+                const float Mx = e1.y * Dz - e1.z * Dy;
+                const float My = e1.z * Dx - e1.x * Dz;
+                const float Mz = e1.x * Dy - e1.y * Dx;
+                const float det = e0.x * Mx + e0.y * My + e0.z * Mz;
+                if (!(fabsf(det) >= mt_eps)) continue;
+                const float minv_det = -1.0f / det;
+                const float inv_det = -minv_det;
+                const float Tx = Px - v0.x, Ty = Py - v0.y, Tz = Pz - v0.z;
+                const float Qx = Ty * e0.z - Tz * e0.y;
+                const float Qy = Tz * e0.x - Tx * e0.z;
+                const float Qz = Tx * e0.y - Ty * e0.x;
+                const float d = (e1.x * Qx + e1.y * Qy + e1.z * Qz) * minv_det;
+                if (!(d <= t && d >= t0 && d <= t1)) continue;
+                const float u = (Tx * Mx + Ty * My + Tz * Mz) * inv_det;
+                if (!(u >= 0.0f)) continue;
+                const float v = (Dx * Qx + Dy * Qy + Dz * Qz) * inv_det;
+                if (!(v >= 0.0f && u + v <= 1.0f)) continue;
                 if (any_hit) {
                     found = true;
                     break;
@@ -213,8 +242,8 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
             bad = true;
             break;
         }
-        a = srt::ld_keep(bank + 2 * next);
-        b = srt::ld_keep(bank + 2 * next + 1);
+        a = __ldg(bank + 2 * next);
+        b = __ldg(bank + 2 * next + 1);
         g = next;
     }
 #endif

@@ -25,25 +25,16 @@
 #include <atomic>
 
 #ifndef WALK_STORAGE_ORDER
-#define WALK_STORAGE_ORDER 1
-#endif
-#ifndef WALK_PREFETCH
-#define WALK_PREFETCH 0
-#endif
-#ifndef WALK_STACK16
-#define WALK_STACK16 0
+#define WALK_STORAGE_ORDER 0
 #endif
 #ifndef WALK_RECORD_F4
 #define WALK_RECORD_F4 3
 #endif
-#ifndef WALK_HINTS
-#define WALK_HINTS 0
-#endif
-#ifndef WALK_FLAT
-#define WALK_FLAT 0
+#ifndef WALK_PREFETCH
+#define WALK_PREFETCH 0
 #endif
 #ifndef TRACE_TILE_W
-#define TRACE_TILE_W 16
+#define TRACE_TILE_W 8
 #endif
 
 namespace srt {
@@ -56,9 +47,6 @@ constexpr int COUNT_SHIFT = 26;
 constexpr int FIRST_MASK = (1 << COUNT_SHIFT) - 1;
 constexpr float INFINITELY_FAR = 1.0e7f;  // fs:115
 constexpr float RANGE_T1 = 1.0e8f;        // fs:463,491
-// stack entries above stack_depth: the flattened walk keeps a pop's hit
-// leaves on the stack too, above its internal children
-constexpr int STACK_EXTRA = WALK_FLAT ? WIDE : 0;
 constexpr int TRACE_BLOCK = 128;          // threads a block of the trace kernels
 constexpr int RAY_TILE_W = TRACE_TILE_W > 0 ? TRACE_TILE_W : 1;
 constexpr int RAY_TILE_H = TRACE_BLOCK / RAY_TILE_W;
@@ -95,7 +83,7 @@ __device__ __forceinline__ Walk no_walk() {
 
 // A thread's whole stack in local memory.
 struct LocalStack {
-    int s[MAX_STACK + STACK_EXTRA];
+    int s[MAX_STACK];
     __device__ __forceinline__ int get(int i) const { return s[i]; }
     __device__ __forceinline__ void set(int i, int v) { s[i] = v; }
 };
@@ -103,16 +91,11 @@ struct LocalStack {
 // A thread's stack in shared memory: entry i at sh[i * BLOCK] (sh points
 // at the thread's column), so the lanes of a warp touch 32 different
 // banks whatever their depths.
-#if WALK_STACK16
-typedef unsigned short stack_entry;
-#else
-typedef int stack_entry;
-#endif
 template <int BLOCK>
 struct BlockStack {
-    stack_entry* sh;
+    int* sh;
     __device__ __forceinline__ int get(int i) const { return sh[i * BLOCK]; }
-    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = (stack_entry)v; }
+    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = v; }
 };
 
 // The threads whose flag is set, in thread order, into q[0..n); returns
@@ -156,14 +139,14 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>
 // rays are a list and thread i walks ray i; with width > 0 they are the
 // pixels of a width-wide image, row-major, and a block walks a RAY_TILE_W x
 // RAY_TILE_H tile of them, so neighbouring rays share warps and SMs.
-__device__ __forceinline__ long long ray_of(long long n, int width) {
+__device__ __forceinline__ long long ray_of(long long n, int width, int tid) {
     if (width <= 0 || TRACE_TILE_W <= 0) {
-        const long long i = (long long)blockIdx.x * TRACE_BLOCK + threadIdx.x;
+        const long long i = (long long)blockIdx.x * TRACE_BLOCK + tid;
         return i < n ? i : -1;
     }
     const long long height = n / width, tiles_x = (width + RAY_TILE_W - 1) / RAY_TILE_W;
-    const long long px = (blockIdx.x % tiles_x) * RAY_TILE_W + threadIdx.x % RAY_TILE_W;
-    const long long py = (blockIdx.x / tiles_x) * RAY_TILE_H + threadIdx.x / RAY_TILE_W;
+    const long long px = (blockIdx.x % tiles_x) * RAY_TILE_W + tid % RAY_TILE_W;
+    const long long py = (blockIdx.x / tiles_x) * RAY_TILE_H + tid / RAY_TILE_W;
     return px < width && py < height ? py * width + px : -1;
 }
 
@@ -172,30 +155,6 @@ inline unsigned ray_blocks(long long n, int width) {
     if (width <= 0 || TRACE_TILE_W <= 0) return (unsigned)((n + TRACE_BLOCK - 1) / TRACE_BLOCK);
     const long long height = n / width;
     return (unsigned)(((width + RAY_TILE_W - 1) / RAY_TILE_W) * ((height + RAY_TILE_H - 1) / RAY_TILE_H));
-}
-
-// 16-byte loads of the node tables (kept in L1 where WALK_HINTS asks)
-// and of the triangle records (evicted first)
-__device__ __forceinline__ float4 ld_keep(const float4* p) {
-#if WALK_HINTS
-    float4 v;
-    asm("ld.global.nc.L1::evict_last.v4.f32 {%0, %1, %2, %3}, [%4];"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
-    return v;
-#else
-    return __ldg(p);
-#endif
-}
-
-__device__ __forceinline__ float4 ld_stream(const float4* p) {
-#if WALK_HINTS
-    float4 v;
-    asm("ld.global.nc.L1::evict_first.v4.f32 {%0, %1, %2, %3}, [%4];"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
-    return v;
-#else
-    return __ldg(p);
-#endif
 }
 
 // finite 1/d: IEEE inf NaN-kills slab terms (kernel_body.py:48-59)
@@ -229,74 +188,12 @@ __device__ __forceinline__ int pick8(const int (&c)[WIDE], int k) {
     return (k & 4) ? b1 : b0;
 }
 
-// Woop test of the triangle whose test rows are at rec: true where it
-// accepts d <= t (fs:92-98 as kernel_body.slot_hit), with d, u and v
-__device__ __forceinline__ bool woop_test(const float4* rec, float Px, float Py, float Pz,
-                                          float Dx, float Dy, float Dz, float t, float mt_eps,
-                                          float& d, float& u, float& v) {
-    const float4 r0 = ld_stream(rec), r1 = ld_stream(rec + 1), r2 = ld_stream(rec + 2);
-    const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
-    const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
-    if (!(fabsf(dz) >= mt_eps)) return false;
-    d = oz * (-1.0f / dz);
-    if (!(d <= t && d >= 0.0f)) return false;
-    u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w) + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
-    if (!(u >= 0.0f)) return false;
-    v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w) + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
-    return v >= 0.0f && u + v <= 1.0f;
-}
-
-// One pop's node: slab-test its children; returns the hit bits and the
-// child words in the octant's near-to-far order
-__device__ __forceinline__ unsigned test_node(const float4* nd, int oct, float Px, float Py,
-                                              float Pz, float ix, float iy, float iz, float t,
-                                              int (&cms)[WIDE]) {
-    unsigned hits = 0;
-#if WALK_STORAGE_ORDER
-    // every child's box and word in storage order, all loads at once
-    int cm_k[WIDE], ow[WIDE];
-    unsigned hk = 0;
-#pragma unroll
-    for (int k = 0; k < WIDE; ++k) {
-        const float4 lo = ld_keep(nd + 2 * k);
-        const float4 hi = ld_keep(nd + 2 * k + 1);
-        cm_k[k] = __float_as_int(lo.w);
-        ow[k] = __float_as_int(hi.w);
-        float t0, t1;
-        slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
-        if (cm_k[k] != -1 && t0 < t1 && t0 < t) hk |= 1u << k;
-    }
-    const int order = pick8(ow, oct);
-#pragma unroll
-    for (int p = 0; p < WIDE; ++p) {
-        const int ck = (order >> (3 * p)) & 7;
-        cms[p] = pick8(cm_k, ck);
-        hits |= ((hk >> ck) & 1u) << p;
-    }
-#else
-    const int order = __float_as_int(ld_keep(nd + 2 * oct + 1).w);
-#pragma unroll
-    for (int p = 0; p < WIDE; ++p) {
-        const int ck = (order >> (3 * p)) & 7;
-        const float4 lo = ld_keep(nd + 2 * ck);
-        const int cm = __float_as_int(lo.w);
-        cms[p] = cm;
-        if (cm == -1) continue;
-        const float4 hi = ld_keep(nd + 2 * ck + 1);
-        float t0, t1;
-        slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
-        if (t0 < t1 && t0 < t) hits |= 1u << p;
-    }
-#endif
-    return hits;
-}
-
 // One ray's short-stack walk: pop a node, slab-test its 8 children,
 // Woop-test hit leaves in the octant's near-to-far order (accept d <= t:
 // the last of equal distances wins), push hit internal children
 // far-to-near.  ANY_HIT returns at the first accepted hit.  TRACK_ID
 // also records the accepted triangle's id.  Stack: get(i) and set(i, v)
-// of entry i < s.stack_depth + STACK_EXTRA.
+// of entry i < s.stack_depth.
 template <bool TRACK_ID, bool ANY_HIT, class Stack>
 __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float Pz,
                                      float Dx, float Dy, float Dz, Stack& stack) {
@@ -307,72 +204,48 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
     float bu = 0.0f, bv = 0.0f;
     int sp = 1;
     stack.set(0, 0);
-#if WALK_FLAT
-    // one node pop or one triangle test an iteration, so lanes at
-    // different stages share iterations.  A pop pushes its hit internal
-    // children far-to-near and then its hit leaves far-to-near above them,
-    // so the leaves are tested near-to-far before the next pop, as below.
-    // A leaf entry is count << 26 | first (bit 31 set once begun); an
-    // overflow or the step budget counts only once the pop's leaves are
-    // done without an any-hit return, as below.
-    bool overflow = false;
-    while (sp > 0) {
-        const int e = stack.get(sp - 1);
-        if (e >= (1 << COUNT_SHIFT) || e < 0) {
-            const int cnt = (e >> COUNT_SHIFT) & 31, tri = e & FIRST_MASK;
-            if (e > 0) ++o.leafs;
-            ++o.tris;
-            float d, u, v;
-            if (woop_test(s.leaves + (size_t)tri * RECORD_F4, Px, Py, Pz, Dx, Dy, Dz, o.t,
-                          s.mt_eps, d, u, v)) {
-                if (ANY_HIT) {
-                    o.t = 0.0f;
-                    return o;
-                }
-                o.t = d;
-                best = tri;
-                bu = u;
-                bv = v;
-            }
-            if (cnt > 1)
-                stack.set(sp - 1, (int)(0x80000000u | ((unsigned)(cnt - 1) << COUNT_SHIFT)
-                                        | (unsigned)(tri + 1)));
-            else
-                --sp;
-            continue;
-        }
-        if (overflow) o.bad = true;
-        overflow = false;
-        if (o.steps >= (unsigned)s.max_steps) {
-            o.bad = true;
-            break;
-        }
-        --sp;
-        ++o.steps;
-        int cms[WIDE];
-        const unsigned hits = test_node(s.nodes + (size_t)e * NODE_F4, oct, Px, Py, Pz,
-                                        ix, iy, iz, o.t, cms);
-#pragma unroll
-        for (int p = WIDE - 1; p >= 0; --p) {
-            const int cm = cms[p];
-            if (!((hits >> p) & 1u) || cm >= (1 << COUNT_SHIFT)) continue;
-            if (sp < s.stack_depth) stack.set(sp++, cm);
-            else overflow = true;
-        }
-#pragma unroll
-        for (int p = WIDE - 1; p >= 0; --p) {
-            const int cm = cms[p];
-            if ((hits >> p) & 1u && cm >= (1 << COUNT_SHIFT)) stack.set(sp++, cm);
-        }
-    }
-    if (overflow) o.bad = true;
-#else
     while (sp > 0) {
         const int node = stack.get(--sp);
         ++o.steps;
+        const float4* nd = s.nodes + (size_t)node * NODE_F4;
         int cms[WIDE];
-        const unsigned hits = test_node(s.nodes + (size_t)node * NODE_F4, oct, Px, Py, Pz,
-                                        ix, iy, iz, o.t, cms);
+        unsigned hits = 0;
+#if WALK_STORAGE_ORDER
+        // every child's box and word in storage order, all loads at once
+        int cm_k[WIDE], ow[WIDE];
+        unsigned hk = 0;
+#pragma unroll
+        for (int k = 0; k < WIDE; ++k) {
+            const float4 lo = __ldg(nd + 2 * k);
+            const float4 hi = __ldg(nd + 2 * k + 1);
+            cm_k[k] = __float_as_int(lo.w);
+            ow[k] = __float_as_int(hi.w);
+            float t0, t1;
+            slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
+            if (cm_k[k] != -1 && t0 < t1 && t0 < o.t) hk |= 1u << k;
+        }
+        const int order = pick8(ow, oct);
+#pragma unroll
+        for (int p = 0; p < WIDE; ++p) {
+            const int ck = (order >> (3 * p)) & 7;
+            cms[p] = pick8(cm_k, ck);
+            hits |= ((hk >> ck) & 1u) << p;
+        }
+#else
+        const int order = __float_as_int(__ldg(&nd[2 * oct + 1].w));
+#pragma unroll
+        for (int p = 0; p < WIDE; ++p) {
+            const int ck = (order >> (3 * p)) & 7;
+            const float4 lo = __ldg(nd + 2 * ck);
+            const int cm = __float_as_int(lo.w);
+            cms[p] = cm;
+            if (cm == -1) continue;
+            const float4 hi = __ldg(nd + 2 * ck + 1);
+            float t0, t1;
+            slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
+            if (t0 < t1 && t0 < o.t) hits |= 1u << p;
+        }
+#endif
 #if WALK_PREFETCH
         // push first (nothing below reads the stack), so the next pop's
         // node is known and its two lines can come while the leaves are
@@ -398,12 +271,21 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             ++o.leafs;
             const int cnt = cm >> COUNT_SHIFT;
             const int first = cm & FIRST_MASK;
-            for (int k = 0; k < cnt; ++k) {
+            const float4* rec = s.leaves + (size_t)first * RECORD_F4;
+            for (int k = 0; k < cnt; ++k, rec += RECORD_F4) {
                 ++o.tris;
-                float d, u, v;
-                if (!woop_test(s.leaves + (size_t)(first + k) * RECORD_F4, Px, Py, Pz,
-                               Dx, Dy, Dz, o.t, s.mt_eps, d, u, v))
-                    continue;
+                const float4 r0 = __ldg(rec), r1 = __ldg(rec + 1), r2 = __ldg(rec + 2);
+                const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
+                const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
+                if (!(fabsf(dz) >= s.mt_eps)) continue;
+                const float d = oz * (-1.0f / dz);
+                if (!(d <= o.t && d >= 0.0f)) continue;
+                const float u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w)
+                              + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
+                if (!(u >= 0.0f)) continue;
+                const float v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w)
+                              + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
+                if (!(v >= 0.0f && u + v <= 1.0f)) continue;
                 if (ANY_HIT) {
                     o.t = 0.0f;
                     return o;
@@ -430,7 +312,6 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             break;
         }
     }
-#endif
     if (!ANY_HIT && best >= 0) {
         // n0 + u (n1 - n0) + v (n2 - n0)
         const float4* rec = s.normals + (size_t)best * RECORD_F4;
