@@ -16,7 +16,7 @@ port's two paths through the Renderer's entry points:
 
 The frame kernel is also held to its plain version on the control-flow
 cases of its wave compaction (FRAME_CASES), the two trace kernels on the
-cases of their active-ray compaction (TRACE_CASES), and the three walk
+edges of their active masks and ray layouts (TRACE_CASES), and the three walk
 kernels' launch resources (registers, shared memory, blocks an SM) are
 printed.  Each path runs
 with the launch counts set to 0 just before it and read just after.
@@ -441,10 +441,10 @@ def trace_disagreement(got, want, active, any_hit: bool) -> tuple[dict, str | No
 # B, first triangle 4 B a leaf visit); a test's 48 B (before: 36 B); the
 # normals, 48 B once a hit ray (before: 36 B at each accepted hit,
 # counted once a hit ray here, so a lower bound).
-def cache_bytes(kind: str, walk, hit_rays: int) -> tuple[int, int]:
+def cache_bytes(tree: str, walk, hit_rays: int) -> tuple[int, int]:
     steps, slabs, leafs, tris, tris_u, tris_v = (
         int(getattr(walk, f).sum()) for f in ("steps", "slabs", "leafs", "tris", "tris_u", "tris_v"))
-    if kind == "wide":
+    if tree == "wide":
         return (steps * 256 + tris * 48 + hit_rays * 48,
                 steps * (4 + 128) + slabs * 16 + (tris + tris_u + tris_v) * 16 + hit_rays * 48)
     return (steps * 32 + tris * 48 + hit_rays * 48,
@@ -671,7 +671,7 @@ def main() -> int:
             for any_hit in (False, True):
                 compare_trace(name, kernel, plain, tables, Pr, Dr, act, any_hit,
                               f"{'any-hit' if any_hit else 'closest'}, {what} {size}", SMALL[0])
-    # the compaction's edges (TRACE_CASES) on the same primaries: each
+    # the masks' and layouts' edges (TRACE_CASES) on the same primaries: each
     # case's plain walks show its path, the kernels are held to them
     for case in TRACE_CASES:
         cP, cD, cact, cw = trace_case(case, P_s, D_s)
@@ -896,8 +896,8 @@ def main() -> int:
                   f"plain {p_ms:.1f} ms, n=1; bound: {work} -> "
                   f"{ops:.4g} ops ({ops / PEAK_F32 * 1e3:.4f} ms), {ray_io + tbytes} bytes "
                   f"({(ray_io + tbytes) / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
-            kind = name.removeprefix("trace_")
-            now, before = cache_bytes(kind, walk, 0 if any_hit else int((walk.which >= 0).sum()))
+            now, before = cache_bytes(name.removeprefix("trace_"), walk,
+                                      0 if any_hit else int((walk.which >= 0).sum()))
             print(f"    loads through L1/L2, counted from the plain walk's work: {now} bytes "
                   f"({before} bytes in the layout before)")
             out[any_hit] = (float(np.median(t_k)), p_ms, b_ms, b_by)
@@ -972,7 +972,7 @@ def main() -> int:
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
 

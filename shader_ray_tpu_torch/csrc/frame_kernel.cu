@@ -19,7 +19,8 @@
 // in local memory) took 2.64 ms a bench frame where six separate trace
 // launches of the same rays took 1.14: a warp waited for its slowest
 // pixel through every bounce, and the counter array and the stack
-// spilled.  This design (1.06 ms; PERF.md):
+// spilled.  This design (1.06 ms; 1.01 ms with the walk's split leaf
+// records, H100 80GB HBM3 at 700 W; PERF.md):
 //   * bounces in waves: a block owns a 16x16 tile of pixels (one thread
 //     a pixel) for all K samples.  Each walk phase compacts the tile's
 //     live rays into a dense queue in shared memory (warp ballot + a
@@ -35,8 +36,9 @@
 //   * walk counters stay in registers for one walk, are summed over the
 //     warp with shuffles into a per-phase counter in shared memory, and
 //     leave the block with one 64-bit atomic per counter;
-//   * nodes and Woop records are read with 16-byte loads (walk.cuh).
-// What holds it now: 107 registers and the 64 KB stack allow 2 blocks
+//   * nodes and Woop test rows are read with 16-byte loads, a hit's
+//     normal terms once a walk (walk.cuh).
+// What holds it now: 108 registers and the 64 KB stack allow 2 blocks
 // (16 warps) an SM, and a block waits at each phase's barrier for its
 // slowest walk.  Tiles of 16x8, 16x4, 32x8, 32x16 and 16x32, part of
 // the stack in local memory, fewer registers and persistent blocks were
@@ -54,6 +56,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "walk.cuh"
 
@@ -87,6 +91,33 @@ constexpr int UNI_SIZE = 52;
 // ray flags a walker leaves for the slot's owner
 constexpr unsigned char ALIVE = 1;   // hit: bounces on
 constexpr unsigned char SHADOW = 2;  // and casts a shadow ray first
+
+// A thread's stack in shared memory: entry i at sh[i * BLOCK], so the
+// lanes of a warp touch 32 different banks whatever their depths.
+struct BlockStack {
+    int* sh;
+    __device__ __forceinline__ int get(int i) const { return sh[i * BLOCK]; }
+    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = v; }
+};
+
+// The owners of the flagged slots, in slot order, into q[0..n); returns
+// n.  Every thread of the block calls it.
+__device__ __forceinline__ int compact(bool flag, short* q, int* wcount) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const unsigned m = __ballot_sync(0xffffffffu, flag);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const int c = wcount[w];
+        off += w < warp ? c : 0;
+        total += c;
+    }
+    if (flag) q[off + __popc(m & ((1u << lane) - 1u))] = (short)tid;
+    __syncthreads();
+    return total;
+}
 
 // one walk's counts into the block's per-phase counters (ph = node
 // pops, ph + 1 leaf visits, ph + 2 triangle tests)
@@ -130,7 +161,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
     for (int c = tid; c < N_COUNTERS; c += BLOCK) cnt[c] = 0;
     __syncthreads();
 
-    BlockStack<BLOCK> stack;
+    BlockStack stack;
     stack.sh = stack_sh + tid;
     const float* m = u + UNI_OBJECT_MATRIX;
     const float* nm = u + UNI_NORMAL_MATRIX;
@@ -179,7 +210,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
 
             for (int b = 0; b < bounces; ++b) {
                 // closest-hit phase over the live rays, shading after each walk
-                const int n = compact<BLOCK>(live, q, wcount);
+                const int n = compact(live, q, wcount);
                 if (n == 0) break;
                 const int ph = 1 + 3 * (phase_stride * b);
                 if (tid == 0) cnt[0] += (unsigned long long)n;
@@ -258,7 +289,7 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
                 if (!shadows) continue;
 
                 // any-hit phase over the light-facing hits
-                const int ns = compact<BLOCK>(live && (sFlag[tid] & SHADOW), q, wcount);
+                const int ns = compact(live && (sFlag[tid] & SHADOW), q, wcount);
                 if (ns == 0) continue;
                 if (tid == 0) cnt[0] += (unsigned long long)ns;
                 st = lf = tr = 0;
@@ -333,8 +364,16 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
 // without asking: raise the kernel's limit to what MAX_STACK entries
 // take, once a device (a launch still asks only for its scene's depth).
 cudaError_t allow_stack_smem() {
-    static std::atomic<unsigned long long> raised{0};
-    return allow_smem(frame, MAX_STACK * BLOCK * (int)sizeof(int), raised);
+    static std::atomic<unsigned long long> raised{0};  // bit d: device d
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (raised.load() & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_STACK * BLOCK * (int)sizeof(int));
+    if (err == cudaSuccess) raised.fetch_or(bit);
+    return err;
 }
 
 }  // namespace

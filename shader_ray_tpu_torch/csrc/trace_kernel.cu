@@ -11,18 +11,18 @@
 // the stack or the step budget t = -1, which = -1, bad; an any-hit walk
 // that finds a hit t = 0.
 //
-// What bounds it here: the latency of the walk's dependent loads, as
-// for the frame kernel; per ray it moves 25 bytes in and 21 out, small
-// beside the walk.  The design:
-//   * a block of BLOCK rays compacts its active rays into a queue in
-//     shared memory (warp ballots + a prefix over the warps) and walks
-//     only the queue, so from the second bounce on, and in shadow
-//     traces, busy warps are full and the rest exit at once; inactive
-//     rays are written by their owner threads;
-//   * the whole stack is in dynamic shared memory at [entry][thread]
-//     (stack_depth * BLOCK * 4 bytes, 32 KB at the bench scene);
-//   * the walk (walk.cuh) issues a node's loads without waiting for its
-//     order word.
+// What bounds it here: the walk's dependent loads in diverging warps
+// (walk.cuh), not arithmetic or bytes; per ray it moves 25 bytes in and
+// 21 out.  The design: one thread a ray with its stack in local memory;
+// given an image's width, a block walks an 8x16 tile of its pixels (a
+// warp 8x4) instead of 128 pixels of a row, so a warp's rays and an SM's
+// blocks share nodes and leaf records in L1.  On the bench frame (H100
+// 80GB HBM3 at 700 W, PERF.md): 0.22 ms closest and 0.19 ms any-hit on
+// the 786,432 primaries, 0.83 ms for a frame's six launches, against
+// 0.30 / 0.24 / 1.14 ms for the parent's per-row design; 10x above the
+// operation bound.  Compacting a block's active rays, the whole stack in
+// shared memory (it takes L1's room), loading a node in storage order and
+// prefetching the next node were each slower or no faster.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC.  Entry points: srt_trace_wide,
@@ -32,13 +32,6 @@
 #include <stdint.h>
 
 #include "walk.cuh"
-
-#ifndef TRACE_COMPACT
-#define TRACE_COMPACT 0
-#endif
-#ifndef TRACE_SMEM_STACK
-#define TRACE_SMEM_STACK 0
-#endif
 
 namespace {
 
@@ -68,45 +61,18 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
            float* __restrict__ t_out, int* __restrict__ which_out,
            float* __restrict__ n_out, uint8_t* __restrict__ bad_out,
            int* __restrict__ stats_out) {
-    const int tid = threadIdx.x;
-#if TRACE_COMPACT
-    __shared__ short q[BLOCK];
-    __shared__ int wcount[BLOCK / 32];
-    const long long own = ray_of(n, width, tid);
-    const bool live = own >= 0 && active[own];
-    if (own >= 0 && !live) store(own, no_walk(), t_out, which_out, n_out, bad_out, stats_out);
-    const int nq = compact<BLOCK>(live, q, wcount);
-    if (tid >= nq) return;
-    const long long r = ray_of(n, width, q[tid]);
-#else
-    const long long r = ray_of(n, width, tid);
+    const long long r = ray_of(n, width, threadIdx.x);
     if (r < 0) return;
     if (!active[r]) {
         store(r, no_walk(), t_out, which_out, n_out, bad_out, stats_out);
         return;
     }
-#endif
-#if TRACE_SMEM_STACK
-    extern __shared__ int stack_sh[];  // (stack_depth, BLOCK)
-    BlockStack<BLOCK> stack;
-    stack.sh = stack_sh + tid;
-#else
     LocalStack stack;
-#endif
     const float Px = __ldg(P + 3 * r), Py = __ldg(P + 3 * r + 1), Pz = __ldg(P + 3 * r + 2);
     const float Dx = __ldg(D + 3 * r), Dy = __ldg(D + 3 * r + 1), Dz = __ldg(D + 3 * r + 2);
     const Walk w = any_hit ? walk<true, true>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
                            : walk<true, false>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
     store(r, w, t_out, which_out, n_out, bad_out, stats_out);
-}
-
-size_t stack_bytes(int stack_depth) {
-    return TRACE_SMEM_STACK ? (size_t)stack_depth * BLOCK * sizeof(int) : 0;
-}
-
-cudaError_t allow_stack_smem() {
-    static std::atomic<unsigned long long> raised{0};
-    return allow_smem(trace_wide, (int)stack_bytes(MAX_STACK), raised);
 }
 
 }  // namespace
@@ -120,11 +86,9 @@ extern "C" int srt_trace_wide(
     if (n < 1 || stack_depth < 1 || stack_depth > MAX_STACK || max_steps < 1 || width < 0 ||
         (width > 0 && n % width))
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_stack_smem();
-    if (err != cudaSuccess) return (int)err;
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
-    trace_wide<<<ray_blocks(n, width), BLOCK, stack_bytes(stack_depth), (cudaStream_t)stream>>>(
+    trace_wide<<<ray_blocks(n, width), BLOCK, 0, (cudaStream_t)stream>>>(
         s, P, D, active, n, width, any_hit != 0, t_out, which_out, n_out, bad_out, stats_out);
     return (int)cudaGetLastError();
 }
@@ -134,18 +98,16 @@ extern "C" int srt_trace_wide(
 // (none), resident blocks an SM, threads a block.
 extern "C" int srt_trace_wide_info(int stack_depth, int* info) {
     if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_stack_smem();
-    if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;
-    if ((err = cudaFuncGetAttributes(&a, trace_wide)) != cudaSuccess) return (int)err;
+    cudaError_t err = cudaFuncGetAttributes(&a, trace_wide);
+    if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_wide, BLOCK,
-                                                        stack_bytes(stack_depth));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_wide, BLOCK, 0);
     if (err != cudaSuccess) return (int)err;
     info[0] = a.numRegs;
     info[1] = (int)a.sharedSizeBytes;
     info[2] = (int)a.localSizeBytes;
-    info[3] = (int)stack_bytes(stack_depth);
+    info[3] = 0;
     info[4] = per_sm;
     info[5] = BLOCK;
     return 0;

@@ -1,55 +1,44 @@
 // The per-thread 8-wide short-stack BVH walk shared by the fused frame
 // kernel (frame_kernel.cu) and the trace-only kernel (trace_kernel.cu),
 // so both paths visit the same nodes in the same order and accept the
-// same hits, and the block helpers all three kernels use: live-ray
-// compaction, a stack in shared memory, the dynamic shared-memory limit.
-// Node table and Woop leaf records as ops/pack_wide.py lays them out;
-// both are read with 16-byte loads.  The binary-tree kernel
-// (trace_binary_kernel.cu) takes the constants, safe_inv and the slab
-// test from here.
+// same hits; and the ray-to-thread map of both trace kernels.  Node table
+// and Woop leaf records as ops/pack_wide.py lays them out.  The stack is
+// the caller's: local memory for the trace kernel, shared memory for the
+// frame kernel.  The binary-tree kernel (trace_binary_kernel.cu) takes
+// the constants, the ray map, safe_inv and the slab test from here.
 //
-// What bounds the walk: the latency of its dependent loads (pop, node,
-// leaf records), not arithmetic or bytes.  A pop issues its node's 16
-// float4s in storage order at once, with no wait for the octant's order
-// word, slab-tests the children in storage order and permutes the hit
-// bits and child words into the octant's near-to-far order afterwards
-// (select trees, no dynamically indexed arrays, so nothing goes to local
-// memory).  A Woop test issues the three float4s of its distance and
-// (u, v) rows together.
+// What bounds the walk: the latency and the cache traffic of its
+// dependent loads (pop, order word, children, leaf records), in warps
+// whose lanes diverge; not arithmetic (it runs 10x above its operation
+// bound) and not device memory (the tables stay in L2).  A pop reads the
+// octant's order word, then each child's two float4s in visit order; a
+// Woop test issues its three 16-byte rows at once and never touches the
+// normals, which a walk reads once, for its accepted hit, from a table of
+// their own (48-byte test rows instead of 96-byte records: -7% on the
+// trace's primaries, -1.5% on the frame kernel; H100 80GB HBM3 at 700 W,
+// PERF.md section 6).  Loading a node in storage order without waiting
+// for the order word and permuting the hits afterwards, prefetching the
+// next node into L1 while the leaves are tested, a 16-bit stack (within
+// 1%) and L1 eviction hints measured no faster; a flattened pop-or-test
+// loop slower.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
-#ifndef WALK_STORAGE_ORDER
-#define WALK_STORAGE_ORDER 0
-#endif
-#ifndef WALK_RECORD_F4
-#define WALK_RECORD_F4 3
-#endif
-#ifndef WALK_PREFETCH
-#define WALK_PREFETCH 0
-#endif
-#ifndef TRACE_TILE_W
-#define TRACE_TILE_W 8
-#endif
-
 namespace srt {
 
 constexpr int WIDE = 8;
 constexpr int MAX_STACK = 128;
 constexpr int NODE_F4 = 2 * WIDE;   // float4s a wide node: two a child
-constexpr int RECORD_F4 = WALK_RECORD_F4;  // float4s a triangle's Woop test rows, and its normal terms
+constexpr int RECORD_F4 = 3;        // float4s a triangle's Woop test rows, and its normal terms
 constexpr int COUNT_SHIFT = 26;
 constexpr int FIRST_MASK = (1 << COUNT_SHIFT) - 1;
 constexpr float INFINITELY_FAR = 1.0e7f;  // fs:115
 constexpr float RANGE_T1 = 1.0e8f;        // fs:463,491
 constexpr int TRACE_BLOCK = 128;          // threads a block of the trace kernels
-constexpr int RAY_TILE_W = TRACE_TILE_W > 0 ? TRACE_TILE_W : 1;
-constexpr int RAY_TILE_H = TRACE_BLOCK / RAY_TILE_W;
+constexpr int RAY_TILE_W = 8, RAY_TILE_H = TRACE_BLOCK / RAY_TILE_W;  // a block's tile of an image
 
 struct Scene {
     // (Nw, 8, 2) float4: child k as (lo.xyz, meta bits) and (hi.xyz,
@@ -88,59 +77,12 @@ struct LocalStack {
     __device__ __forceinline__ void set(int i, int v) { s[i] = v; }
 };
 
-// A thread's stack in shared memory: entry i at sh[i * BLOCK] (sh points
-// at the thread's column), so the lanes of a warp touch 32 different
-// banks whatever their depths.
-template <int BLOCK>
-struct BlockStack {
-    int* sh;
-    __device__ __forceinline__ int get(int i) const { return sh[i * BLOCK]; }
-    __device__ __forceinline__ void set(int i, int v) { sh[i * BLOCK] = v; }
-};
-
-// The threads whose flag is set, in thread order, into q[0..n); returns
-// n.  Every thread of the block calls it (warp ballots, a prefix over
-// the block's warps, two barriers).
-template <int BLOCK>
-__device__ __forceinline__ int compact(bool flag, short* q, int* wcount) {
-    constexpr int WARPS = BLOCK / 32;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const unsigned m = __ballot_sync(0xffffffffu, flag);
-    if (lane == 0) wcount[warp] = __popc(m);
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-        const int c = wcount[w];
-        off += w < warp ? c : 0;
-        total += c;
-    }
-    if (flag) q[off + __popc(m & ((1u << lane) - 1u))] = (short)tid;
-    __syncthreads();
-    return total;
-}
-
-// Raise a kernel's dynamic shared-memory limit to `bytes` (above the 48
-// KB a launch gets without asking), once a device; `raised` holds bit d
-// for device d.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>& raised) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-    if (raised.load() & bit) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess) raised.fetch_or(bit);
-    return err;
-}
-
 // The ray a thread of a trace kernel walks, or -1: with width 0 the n
 // rays are a list and thread i walks ray i; with width > 0 they are the
 // pixels of a width-wide image, row-major, and a block walks a RAY_TILE_W x
 // RAY_TILE_H tile of them, so neighbouring rays share warps and SMs.
 __device__ __forceinline__ long long ray_of(long long n, int width, int tid) {
-    if (width <= 0 || TRACE_TILE_W <= 0) {
+    if (width <= 0) {
         const long long i = (long long)blockIdx.x * TRACE_BLOCK + tid;
         return i < n ? i : -1;
     }
@@ -152,7 +94,7 @@ __device__ __forceinline__ long long ray_of(long long n, int width, int tid) {
 
 // the blocks of a trace launch over n rays (ray_of)
 inline unsigned ray_blocks(long long n, int width) {
-    if (width <= 0 || TRACE_TILE_W <= 0) return (unsigned)((n + TRACE_BLOCK - 1) / TRACE_BLOCK);
+    if (width <= 0) return (unsigned)((n + TRACE_BLOCK - 1) / TRACE_BLOCK);
     const long long height = n / width;
     return (unsigned)(((width + RAY_TILE_W - 1) / RAY_TILE_W) * ((height + RAY_TILE_H - 1) / RAY_TILE_H));
 }
@@ -179,15 +121,6 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz,
     t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fminf(fmaxf(taz, tbz), RANGE_T1));
 }
 
-// c[k] for a k in 0..7 known only at run time, by a tree of selects
-// (c stays in registers)
-__device__ __forceinline__ int pick8(const int (&c)[WIDE], int k) {
-    const int a0 = (k & 1) ? c[1] : c[0], a1 = (k & 1) ? c[3] : c[2];
-    const int a2 = (k & 1) ? c[5] : c[4], a3 = (k & 1) ? c[7] : c[6];
-    const int b0 = (k & 2) ? a1 : a0, b1 = (k & 2) ? a3 : a2;
-    return (k & 4) ? b1 : b0;
-}
-
 // One ray's short-stack walk: pop a node, slab-test its 8 children,
 // Woop-test hit leaves in the octant's near-to-far order (accept d <= t:
 // the last of equal distances wins), push hit internal children
@@ -210,28 +143,6 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
         const float4* nd = s.nodes + (size_t)node * NODE_F4;
         int cms[WIDE];
         unsigned hits = 0;
-#if WALK_STORAGE_ORDER
-        // every child's box and word in storage order, all loads at once
-        int cm_k[WIDE], ow[WIDE];
-        unsigned hk = 0;
-#pragma unroll
-        for (int k = 0; k < WIDE; ++k) {
-            const float4 lo = __ldg(nd + 2 * k);
-            const float4 hi = __ldg(nd + 2 * k + 1);
-            cm_k[k] = __float_as_int(lo.w);
-            ow[k] = __float_as_int(hi.w);
-            float t0, t1;
-            slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
-            if (cm_k[k] != -1 && t0 < t1 && t0 < o.t) hk |= 1u << k;
-        }
-        const int order = pick8(ow, oct);
-#pragma unroll
-        for (int p = 0; p < WIDE; ++p) {
-            const int ck = (order >> (3 * p)) & 7;
-            cms[p] = pick8(cm_k, ck);
-            hits |= ((hk >> ck) & 1u) << p;
-        }
-#else
         const int order = __float_as_int(__ldg(&nd[2 * oct + 1].w));
 #pragma unroll
         for (int p = 0; p < WIDE; ++p) {
@@ -245,25 +156,6 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, Px, Py, Pz, ix, iy, iz, t0, t1);
             if (t0 < t1 && t0 < o.t) hits |= 1u << p;
         }
-#endif
-#if WALK_PREFETCH
-        // push first (nothing below reads the stack), so the next pop's
-        // node is known and its two lines can come while the leaves are
-        // tested; an overflow counts only if the walk goes on past them
-        bool overflow = false;
-#pragma unroll
-        for (int p = WIDE - 1; p >= 0; --p) {
-            const int cm = cms[p];
-            if (!((hits >> p) & 1u) || cm >= (1 << COUNT_SHIFT)) continue;
-            if (sp < s.stack_depth) stack.set(sp++, cm);
-            else overflow = true;
-        }
-        if (sp > 0) {
-            const float4* next = s.nodes + (size_t)stack.get(sp - 1) * NODE_F4;
-            asm volatile("prefetch.global.L1 [%0];" :: "l"(next));
-            asm volatile("prefetch.global.L1 [%0];" :: "l"(next + WIDE));
-        }
-#endif
 #pragma unroll
         for (int p = 0; p < WIDE; ++p) {
             const int cm = cms[p];
@@ -296,9 +188,6 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
                 bv = v;
             }
         }
-#if WALK_PREFETCH
-        if (overflow) o.bad = true;
-#else
 #pragma unroll
         for (int p = WIDE - 1; p >= 0; --p) {
             const int cm = cms[p];
@@ -306,7 +195,6 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             if (sp < s.stack_depth) stack.set(sp++, cm);
             else o.bad = true;
         }
-#endif
         if (o.steps >= (unsigned)s.max_steps && sp > 0) {
             o.bad = true;
             break;

@@ -17,7 +17,9 @@ Each wrapper runs its plain PyTorch version (``walk_plain``,
 CUDA kernel (``csrc/trace_kernel.cu``, ``csrc/trace_binary_kernel.cu``,
 built with nvcc at first use) for CUDA tensors, or raises.  The wide
 walk is the one the fused frame kernel runs (``csrc/walk.cuh``), so the
-fused and unfused paths accept the same hits.
+fused and unfused paths accept the same hits.  Given an image's
+``width``, the kernels walk its pixels' rays in 8x16 tiles; the results
+do not depend on it.
 """
 
 from __future__ import annotations
