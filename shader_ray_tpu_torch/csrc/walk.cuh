@@ -121,12 +121,12 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz,
     t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fminf(fmaxf(taz, tbz), RANGE_T1));
 }
 
-// One ray's short-stack walk: pop a node, slab-test its 8 children,
-// Woop-test hit leaves in the octant's near-to-far order (accept d <= t:
-// the last of equal distances wins), push hit internal children
-// far-to-near.  ANY_HIT returns at the first accepted hit.  TRACK_ID
-// also records the accepted triangle's id.  Stack: get(i) and set(i, v)
-// of entry i < s.stack_depth.
+// One ray's short-stack walk: pop a node, slab-test its 8 children in
+// the octant's near-to-far order, Woop-test hit leaves near-to-far
+// (accept d <= t: the last of equal distances wins), push hit internal
+// children far-to-near.  ANY_HIT returns at the first accepted hit.
+// TRACK_ID also records the accepted triangle's id.  Stack: get(i) and
+// set(i, v) of entry i < s.stack_depth.
 template <bool TRACK_ID, bool ANY_HIT, class Stack>
 __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float Pz,
                                      float Dx, float Dy, float Dz, Stack& stack) {
@@ -141,9 +141,9 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
         const int node = stack.get(--sp);
         ++o.steps;
         const float4* nd = s.nodes + (size_t)node * NODE_F4;
+        const int order = __float_as_int(__ldg(&nd[2 * oct + 1].w));
         int cms[WIDE];
         unsigned hits = 0;
-        const int order = __float_as_int(__ldg(&nd[2 * oct + 1].w));
 #pragma unroll
         for (int p = 0; p < WIDE; ++p) {
             const int ck = (order >> (3 * p)) & 7;

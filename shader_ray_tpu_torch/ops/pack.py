@@ -18,9 +18,9 @@ ray reads plain tensors laid out for one 32-byte sector a step:
                           either way); ``leaf`` = first triangle | count
                           << 26 for a leaf (count capped at
                           ``max_leaf_tests``, fs:382), -1 for an inner
-                          node.  Boxes are exact f32.
-  order    (8, N) i32     each bank's records as DFS node indices (the
-                          numbering of SceneData and ``hitmiss``)
+                          node.  Boxes are exact f32.  ``bank_order``
+                          gives a bank's records as DFS node indices
+                          (the numbering of SceneData and ``hitmiss``).
   tris     (T, 12) f32    per triangle in BVH order v0, e0 = v1 - v0,
                           e1 = v0 - v2, each padded to a float4: the
                           Moller-Trumbore operands, rounded exactly as
@@ -50,17 +50,11 @@ INNER = -1  # the leaf field of an inner node
 @dataclass
 class PackedBinary:
     nodes: torch.Tensor       # (8, N, 8) f32 (miss and leaf as int32 bits)
-    order: torch.Tensor       # (8, N) i32
     tris: torch.Tensor        # (T, 12) f32
     normals: torch.Tensor     # (T, 12) f32
     env_pyramid: EnvPyramid
     node_count: int
     max_count: int            # largest leaf count after the cap
-
-    @property
-    def boxes(self) -> torch.Tensor:
-        """(8, N, 6) f32 boxes lo.xyz, hi.xyz of each bank's records."""
-        return torch.cat([self.nodes[..., 0:3], self.nodes[..., 4:7]], dim=-1)
 
     @property
     def miss(self) -> torch.Tensor:
@@ -75,7 +69,6 @@ class PackedBinary:
     def to(self, device) -> "PackedBinary":
         return PackedBinary(
             nodes=self.nodes.to(device),
-            order=self.order.to(device),
             tris=self.tris.to(device),
             normals=self.normals.to(device),
             env_pyramid=self.env_pyramid.to(device),
@@ -118,14 +111,12 @@ def pack_scene(
     leaf_field = np.where(is_leaf, (counts << COUNT_SHIFT) | data.node_objects[:, 0], INNER)
     nodes = np.zeros((BANKS, N, 8), np.float32)
     bits = nodes.view(np.int32)
-    orders = np.zeros((BANKS, N), np.int32)
     for o in range(BANKS):
         links = data.hitmiss[o]
         order = bank_order(links, int(data.tree_root))
         pos = np.append(np.argsort(order), -1)        # pos[-1] = -1: done
         if not (links[order, 0][is_leaf[order]] == links[order, 1][is_leaf[order]]).all():
             raise ValueError("a leaf's hit and miss links differ")
-        orders[o] = order
         nodes[o, :, 0:3] = data.node_boxes[order, 0:3]
         nodes[o, :, 4:7] = data.node_boxes[order, 3:6]
         bits[o, :, 3] = pos[links[order, 1]]
@@ -142,7 +133,6 @@ def pack_scene(
     leaf_counts = counts[is_leaf]
     return PackedBinary(
         nodes=torch.from_numpy(nodes),
-        order=torch.from_numpy(orders),
         tris=torch.from_numpy(tris),
         normals=torch.from_numpy(normals),
         env_pyramid=EnvPyramid.pack(env, cfg.env_base),

@@ -26,7 +26,7 @@ read with 16-byte loads:
                               float4s), read once a ray after its walk
 
 ``PackedWide.child_boxes``, ``child_meta`` and ``orders`` read the node
-table back per child, ``records`` the Woop records whole.
+table back per child.
 
 Leaf counts are capped at ``max_leaf_tests`` (the reference's
 10-triangle leaf budget, raytracer.es.fs:382).
@@ -86,12 +86,6 @@ class PackedWide:
     def orders(self) -> torch.Tensor:
         """(Nw, 8) i32 child order of each octant, a view of the node table."""
         return self.nodes.view(torch.int32)[..., 7]
-
-    @property
-    def records(self) -> torch.Tensor:
-        """(T, 21) f32 Woop records (WOOP_RECORD), leaves and normals
-        joined."""
-        return torch.cat([self.leaves, self.normals[:, :WOOP_RECORD - LEAF_STRIDE]], dim=1)
 
     @property
     def env(self) -> torch.Tensor:

@@ -5,9 +5,9 @@ bound, same child sets per node, same octant orders, each dequantised
 16-bit reference box contains the port's exact f32 box, and the Woop
 records match pack._woop_records.  The port's node table packs a
 child's box, meta and one octant's order into two float4s; the tests
-read it back through ``child_boxes``, ``child_meta`` and ``orders``,
-and the Woop records, split into test rows and normal terms, through
-``records``."""
+read it back through ``child_boxes``, ``child_meta`` and ``orders``;
+the Woop records are split into test rows (``leaves``) and normal terms
+(``normals``)."""
 
 import numpy as np
 import pytest
@@ -85,7 +85,8 @@ def test_woop_records(packs):
     data, ref, port = packs
     want = ref_woop_records(data.tri_positions, data.tri_normals)
     np.testing.assert_allclose(woop_records(data.tri_positions, data.tri_normals), want, atol=1e-6, rtol=0)
-    np.testing.assert_allclose(port.records.numpy(), want, atol=1e-6, rtol=0)
+    records = np.concatenate([port.leaves.numpy(), port.normals.numpy()[:, :9]], axis=1)
+    np.testing.assert_allclose(records, want, atol=1e-6, rtol=0)
     assert port.leaves.shape == port.normals.shape == (len(want), 12)
     assert not port.normals[:, 9:].any()
     # and record by record against the reference's leaf-group layout
@@ -97,4 +98,4 @@ def test_woop_records(packs):
         grp, sub = divmod(row, WOOP_LEAVES_PER_GROUP)
         c0 = sub * WOOP_LEAF_RECORD
         block = leaves[grp * GROUP_ROWS : grp * GROUP_ROWS + cnt, c0 : c0 + WOOP_LEAF_RECORD]
-        np.testing.assert_allclose(port.records.numpy()[tb : tb + cnt], block, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(records[tb : tb + cnt], block, atol=1e-6, rtol=0)

@@ -36,6 +36,7 @@ from shader_ray_tpu.ops.traversal import traverse
 from shader_ray_tpu_torch.convert import packed_from_numpy
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+from shader_ray_tpu_torch.ops.pack import bank_order
 from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, trace, trace_binary, trace_wide
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -214,7 +215,7 @@ def test_hitmiss_banks_equal_reference(name):
     # node: an inner record's hit link is the next record, a leaf's is its
     # miss link, and records name nodes through the bank's order
     for o in range(8):
-        order = packed.order[o].numpy()
+        order = bank_order(ref.hitmiss[o], ref.tree_root)
         assert order[0] == ref.tree_root and sorted(order.tolist()) == list(range(N))
         inner = leaf[o] < 0
         miss_node = np.where(miss[o] >= 0, order[np.maximum(miss[o], 0)], -1)
@@ -223,7 +224,8 @@ def test_hitmiss_banks_equal_reference(name):
         decoded[order, 0] = np.where(inner, next_node, miss_node)
         decoded[order, 1] = miss_node
         np.testing.assert_array_equal(decoded, ref.hitmiss[o])
-        np.testing.assert_array_equal(packed.boxes[o].numpy(), ref.node_boxes[order, 0:6])
+        box = packed.nodes[o].numpy()[:, [0, 1, 2, 4, 5, 6]]
+        np.testing.assert_array_equal(box, ref.node_boxes[order, 0:6])
         objects = ref.node_objects[order]
         assert (inner == (ref.node_children[order, 0] >= 0)).all()
         np.testing.assert_array_equal(leaf[o][~inner] & FIRST_MASK, objects[~inner, 0])
@@ -235,24 +237,39 @@ def test_hitmiss_banks_equal_reference(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_binary_banks_are_the_walks_preorder(name):
     """What the packed walk's "next record on a hit" rests on, checked on
-    the reference's own links: in every bank the hit link of an inner
-    node is the node the bank numbers next (g + 1), a leaf's hit and miss
-    links are equal, and a miss link skips forward past the subtree."""
+    the reference's own links and the tree's shape: numbered in each
+    bank's walk order, every subtree is a run of records (an inner node
+    at g has its children at g + 1 and just past the first child's
+    subtree), an inner node's hit link is g + 1, its miss link the record
+    past its subtree, and a leaf's hit and miss links are equal."""
     _, _, ref = _ref_data(name)
-    packed = packed_from_numpy(vars(ref), procedural_sky(32), "binary")
     N = ref.group_count
+    children = ref.node_children
+    size = np.ones(N, np.int64)                      # nodes in each subtree
+    todo, seen = [ref.tree_root], []
+    while todo:
+        n = todo.pop()
+        seen.append(n)
+        todo += [int(c) for c in children[n] if c >= 0]
+    for n in reversed(seen):
+        size[n] += sum(size[c] for c in children[n] if c >= 0)
     g = np.arange(N)
     for o in range(8):
-        order = packed.order[o].numpy()
+        order = bank_order(ref.hitmiss[o], ref.tree_root)
         pos = np.empty(N + 1, np.int64)
         pos[order] = g
         pos[-1] = -1                                   # link -1: done
         hit, miss = (pos[ref.hitmiss[o][order, j]] for j in (0, 1))
-        inner = ref.node_children[order, 0] >= 0
+        inner = children[order, 0] >= 0
         assert inner.any() and (~inner).any()
         assert (hit[inner] == g[inner] + 1).all()
         assert (hit[~inner] == miss[~inner]).all()
-        assert ((miss > g) | (miss == -1)).all()
+        past = g + size[order]
+        assert (miss == np.where(past < N, past, -1)).all()
+        near = order[np.minimum(g + 1, N - 1)]
+        kids = np.sort(pos[children[order]], axis=1)
+        assert (kids[inner, 0] == g[inner] + 1).all()
+        assert (kids[inner, 1] == g[inner] + 1 + size[near][inner]).all()
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
