@@ -432,6 +432,56 @@ def trace_disagreement(got, want, active, any_hit: bool) -> tuple[dict, str | No
     return e, ", ".join(why) or None
 
 
+def env_disagreement(got, want, nan_rays=None) -> tuple[dict, str | None]:
+    """env_sample's radiance against its plain version's on the same
+    rays: the errors measured and why they are beyond their limits, or
+    None.  Both call the card's atan2f/acosf/log2f and differ by FMA
+    contraction in the texel coordinates, on radiance that reaches ~50 at
+    the sun: mean abs <= 1e-5 and max abs <= 1e-2 over the finite rays.
+    ``nan_rays`` (bool, one a ray) are the rays whose radiance is NaN in
+    all three channels (grad mode along the +-y axis): the plain version
+    and the kernel are NaN exactly there and finite everywhere else."""
+    import torch
+
+    expect = torch.zeros(want.shape[0], dtype=torch.bool, device=want.device) \
+        if nan_rays is None else nan_rays
+    fin = ~expect
+    diff = (got[fin] - want[fin]).abs()
+    e = {
+        "max": float(diff.max()) if diff.numel() else 0.0,
+        "mean": float(diff.mean()) if diff.numel() else 0.0,
+        "nan_rays": int(torch.isnan(got).any(-1).sum()),
+    }
+    nan_row = expect[:, None].expand_as(want)
+    why = [k for k, bad in (
+        ("plain NaN off the expected rays", not torch.equal(torch.isnan(want), nan_row)),
+        ("NaN where the plain version has none, or none where it has", not torch.equal(
+            torch.isnan(got), torch.isnan(want))),
+        ("non-finite radiance", not bool(torch.isfinite(got[fin]).all())),
+        ("max abs", e["max"] > 1e-2), ("mean abs", e["mean"] > 1e-5),
+    ) if bad]
+    return e, ", ".join(why) or None
+
+
+def pole_rays(n: int, device):
+    """(D, dDdx, dDdy, on the axis) of ``n`` rays, every fourth exactly
+    along +y or -y (x = z = 0), the rest seeded directions away from the
+    poles, all with seeded non-zero differentials."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    D = rng.normal(size=(n, 3)).astype(np.float32)
+    D[:, 1] *= 0.5
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    axis = np.arange(n) % 4 == 0
+    D[axis] = 0.0
+    D[axis, 1] = np.where(np.arange(n)[axis] % 8 == 0, 1.0, -1.0)
+    g = rng.normal(size=(2, n, 3)).astype(np.float32) * 1e-3
+    return (*(torch.from_numpy(x).to(device) for x in (D, g[0], g[1])),
+            torch.from_numpy(axis).to(device))
+
+
 # loads a trace issues, in bytes through L1/L2, per unit of the plain
 # walks' counted work: (this tree's layout, the layout before it).  Wide:
 # a pop's 16 float4s (before: the order word, 8 child lo float4s, the hi
@@ -550,6 +600,11 @@ def main() -> int:
               f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static + "
               f"{info['dynamic_smem']} B stack a block, {info['threads']} threads a block, "
               f"{info['blocks_per_sm']} blocks an SM")
+    for mode in ek.MODES:
+        info = ek.launch_info(mode)
+        print(f"env_sample launch, {mode}: {info['registers']} registers, "
+              f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static, "
+              f"{info['threads']} threads a block, {info['blocks_per_sm']} blocks an SM")
     params_cuda = type(params)(*[x.cuda() for x in params])
     uni = pack_uniforms(params).cuda()
     statics = RenderStatics(width=W, height=H)
@@ -637,21 +692,19 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version on {what}: {why}")
         return walk, start.elapsed_time(stop)
 
-    def compare_env(D, gx, gy, grad, aniso, what):
-        """Mean abs <= 1e-5 and max abs <= 1e-2 on radiance that reaches
-        ~50 at the sun: both versions call the card's atan2f/acosf/log2f
-        and differ by FMA contraction in the texel coordinates."""
-        got = ek.env_sample(pyramid, D, gx, gy, grad=grad, aniso=aniso)
+    def compare_env(D, gx, gy, grad, aniso, what, nan_rays=None, width=0):
+        """The kernel against its plain version under env_disagreement's
+        limits; ``nan_rays``: the rays that must be NaN in both."""
+        got = ek.env_sample(pyramid, D, gx, gy, grad=grad, aniso=aniso, width=width)
         want = ek.env_sample_plain(pyramid, D, gx, gy, grad=grad, aniso=aniso)
         torch.cuda.synchronize()
-        diff = (got - want).abs()
-        errs["env_sample"] = max(errs["env_sample"], float(diff.max()))
-        print(f"env_sample vs plain, {what} ({D.shape[0]} rays): max abs {float(diff.max()):.3e} "
-              f"(limit 1e-2), mean abs {float(diff.mean()):.3e} (limit 1e-5)")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"env_sample produced non-finite radiance on {what}")
-        if float(diff.max()) > 1e-2 or float(diff.mean()) > 1e-5:
-            raise AssertionError(f"env_sample disagrees with its plain version on {what}")
+        e, why = env_disagreement(got, want, nan_rays)
+        errs["env_sample"] = max(errs["env_sample"], e["max"])
+        print(f"env_sample vs plain, {what} ({D.shape[0]} rays): max abs {e['max']:.3e} "
+              f"(limit 1e-2), mean abs {e['mean']:.3e} (limit 1e-5), NaN rays {e['nan_rays']} "
+              f"(expected {0 if nan_rays is None else int(nan_rays.sum())})")
+        if why:
+            raise AssertionError(f"env_sample disagrees with its plain version on {what}: {why}")
 
     def env_bytes(D, gx, gy, grad, aniso) -> int:
         """Bytes of the distinct pyramid texels the lookup of these rays
@@ -712,6 +765,13 @@ def main() -> int:
     compare_env(D_e, None, None, False, 1, "mode 0")
     compare_env(D_e, gx_e, gy_e, True, 1, "grad, aniso=1")
     compare_env(D_e, gx_e, gy_e, True, 4, "grad, aniso=4")
+    # directions exactly along +-y: in grad mode 0/0 in du/dx, NaN radiance
+    # as the reference gives; mode 0 stays finite there
+    D_p, gx_p, gy_p, axis = pole_rays(4096, "cuda")
+    compare_env(D_p, None, None, False, 1, "mode 0, a quarter of the rays along +-y")
+    for aniso in (1, 4):
+        compare_env(D_p, gx_p, gy_p, True, aniso, f"grad, aniso={aniso}, a quarter of the rays "
+                    f"along +-y", nan_rays=axis)
 
     # 5-6. the fused path through the Renderer's entry points
     _build.LAUNCHES.clear()
@@ -911,7 +971,8 @@ def main() -> int:
         })
 
     # env_sample on the bench primaries' directions: mode 0 is the entry's
-    # time (the which=0 frame's launch), grad with aniso=4 beside it
+    # time (the which=0 frame's launch), grad with aniso=4 (the which=1
+    # frame's) beside it as grad_ms / grad_bound_ms
     gx_f, gy_f = rays_f.dDdx.contiguous(), rays_f.dDdy.contiguous()
     R = D_f.shape[0]
     out = {}
@@ -940,6 +1001,7 @@ def main() -> int:
               f"({moved / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
         out[grad] = (k_ms, float(np.median(t_p)), b_ms, b_by)
     k_ms, p_ms, b_ms, b_by = out[False]
+    g_ms, g_p_ms, g_b_ms, g_b_by = out[True]
     table.append({
         "name": "env_sample", "route": "cuda",
         "source": "shader_ray_tpu_torch/csrc/env_kernel.cu",
@@ -947,6 +1009,7 @@ def main() -> int:
         "launches": launches["env_sample"], "max_abs_err": errs["env_sample"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
+        "grad_ms": g_ms, "grad_plain_ms": g_p_ms, "grad_bound_ms": g_b_ms, "grad_bound_by": g_b_by,
     })
 
     # the unfused frame end to end, both table types

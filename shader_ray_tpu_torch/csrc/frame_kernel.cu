@@ -59,11 +59,12 @@
 
 #include <atomic>
 
+#include "env.cuh"
 #include "walk.cuh"
 
 namespace {
 
-using namespace srt;  // Scene, Walk, walk(), the table constants (walk.cuh)
+using namespace srt;  // Scene, Walk, walk(), the table constants (walk.cuh); the env lookup (env.cuh)
 
 constexpr int TILE_W = 16, TILE_H = 16;
 constexpr int BLOCK = TILE_W * TILE_H;  // one thread a pixel of the tile
@@ -71,10 +72,6 @@ constexpr int WARPS = BLOCK / 32;
 constexpr int MAX_PHASES = 16;
 constexpr int N_COUNTERS = 1 + 3 * MAX_PHASES;
 static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "a tile is whole warps");
-
-// the reference's pi, kept verbatim (fs:116), rounded to f32 once
-constexpr float PI_REF = (float)3.14159265259;
-constexpr float TAU_REF = (float)(2.0 * 3.14159265259);
 
 // uniform table layout (kernel_mega.py:43-54)
 constexpr int UNI_OBJECT_MATRIX = 0;
@@ -140,7 +137,7 @@ __device__ __forceinline__ void count(unsigned long long* cnt, int ph,
 // registers without spilling; with (BLOCK) alone it chose 80 registers
 // and spilled 76 bytes in an earlier form of this kernel
 __global__ void __launch_bounds__(BLOCK, 1)
-frame(Scene s, const float* __restrict__ env, int eh, int ew,
+frame(Scene s, const Texel* __restrict__ env, EnvLevel env0,
       const float* __restrict__ uni_g, const float* __restrict__ jit, int K,
       int W, int H, int tiles_x,
       float inv_w, float inv_h, float aspect, int bounces,
@@ -315,30 +312,13 @@ frame(Scene s, const float* __restrict__ env, int eh, int ew,
                 float col0 = 1.0f, col1 = 0.0f, col2 = 0.0f;  // bad-ray paint
                 if (!sBad[tid]) {
                     const float Dx = sD[0][tid], Dy = sD[1][tid], Dz = sD[2][tid];
-                    // env term: u = 1 + atan2(-z, x)/tau, v = 1 - acos(y)/pi
-                    // (envmap.py:36-41), level-0 bilinear, REPEAT wrap
-                    const float eu = 1.0f + atan2f(-Dz, Dx) / TAU_REF;
-                    const float ev = 1.0f - acosf(fminf(fmaxf(Dy, -1.0f), 1.0f)) / PI_REF;
-                    const float x = eu * (float)ew - 0.5f;
-                    const float y = (1.0f - ev) * (float)eh - 0.5f;
-                    const float x0 = floorf(x), y0 = floorf(y);
-                    const float fx = x - x0, fy = y - y0;
-                    int xi0 = (int)x0 % ew; if (xi0 < 0) xi0 += ew;
-                    int yi0 = (int)y0 % eh; if (yi0 < 0) yi0 += eh;
-                    const int xi1 = xi0 + 1 == ew ? 0 : xi0 + 1;
-                    const int yi1 = yi0 + 1 == eh ? 0 : yi0 + 1;
-                    const float* r0 = env + (size_t)yi0 * ew * 3;
-                    const float* r1 = env + (size_t)yi1 * ew * 3;
-                    float e[3];
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) {
-                        const float top = __ldg(r0 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r0 + xi1 * 3 + c) * fx;
-                        const float bot = __ldg(r1 + xi0 * 3 + c) * (1.0f - fx) + __ldg(r1 + xi1 * 3 + c) * fx;
-                        e[c] = top * (1.0f - fy) + bot * fy;
-                    }
-                    col0 = sAcc[0][tid] + sMod[0][tid] * e[0];
-                    col1 = sAcc[1][tid] + sMod[1][tid] * e[1];
-                    col2 = sAcc[2][tid] + sMod[2][tid] * e[2];
+                    // env term: level-0 bilinear at the direction's (u, v) (env.cuh)
+                    float eu, ev;
+                    env_uv(sD[0][tid], sD[1][tid], sD[2][tid], eu, ev);
+                    const float3 e = bilinear<false>(env, env0, eu, ev);
+                    col0 = sAcc[0][tid] + sMod[0][tid] * e.x;
+                    col1 = sAcc[1][tid] + sMod[1][tid] * e.y;
+                    col2 = sAcc[2][tid] + sMod[2][tid] * e.z;
                 }
                 sum0 += col0;
                 sum1 += col1;
@@ -380,7 +360,7 @@ cudaError_t allow_stack_smem() {
 
 extern "C" int srt_frame_kernel(
     const float* nodes, const float* leaves, const float* normals,
-    const float* env, int env_h, int env_w,
+    const void* env, int env_h, int env_w,
     const float* uni, const float* jitters, int K, int W, int H,
     float inv_w, float inv_h, float aspect,
     int bounces, int shadows, int diffuse, float fudge, float mt_eps,
@@ -389,7 +369,8 @@ extern "C" int srt_frame_kernel(
     const bool cast = shadows != 0 && diffuse != 0;
     const int phases = bounces * (cast ? 2 : 1);
     if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
-        stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || env_w < 1)
+        stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || (env_h & (env_h - 1)) ||
+        env_w < 1 || (env_w & (env_w - 1)))
         return (int)cudaErrorInvalidValue;
     // the stack takes stack_depth * BLOCK ints: up to 128 KB
     const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
@@ -400,7 +381,7 @@ extern "C" int srt_frame_kernel(
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
     frame<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        s, env, env_h, env_w, uni, jitters, K, W, H, tiles_x,
+        s, static_cast<const Texel*>(env), env_level(0, env_h, env_w), uni, jitters, K, W, H, tiles_x,
         inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, 1 + 3 * phases,
         out, counters);
     return (int)cudaGetLastError();

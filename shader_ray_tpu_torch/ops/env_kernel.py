@@ -12,9 +12,14 @@ averaged.  Every ray reads exactly its own texels — the function the
 TPU's per-tile windows approximate (ops/envmap.sample_environment of the
 reference is the same per-ray function over a deeper mip chain).
 
+A grad-mode ray whose derivatives are not finite (one along the +-y
+axis: x = z = 0) gives NaN radiance, as in the reference, on every path:
+NaN passes through the max, min and clamps, and the texel and level
+indices it would make are clamped into range.
+
 CPU tensors run ``env_sample_plain``; CUDA tensors launch the
 hand-written kernel in ``csrc/env_kernel.cu`` (built with nvcc at first
-use) or raise.
+use; one kernel a mode) or raise.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.envmap import (
+    TEXEL,
     EnvPyramid,
     aniso_lod_and_probes,
     bilinear_level,
@@ -48,8 +54,9 @@ def env_sample_plain(
     ``touched``, a bool tensor over ``env.texels``' rows, gets True at
     every texel these rays read (the bytes a bound charges)."""
     u, v = env_coords(D)
+    table = env.table
     if not grad:
-        return bilinear_level(env.texels, env.table, torch.zeros_like(u, dtype=torch.long), u, v,
+        return bilinear_level(env.texels, table, torch.zeros_like(u, dtype=torch.long), u, v,
                               touched)
     dudx, dvdx, dudy, dvdy = env_derivatives(D, dDdx, dDdy)
     h0, w0 = (float(x) for x in env.base)
@@ -59,11 +66,11 @@ def env_sample_plain(
 
     def trilinear(ui, vi, rho):
         lod = torch.clamp(torch.log2(torch.clamp(rho, min=1e-12)), 0.0, float(top))
-        l0 = torch.floor(lod)
-        frac = (lod - l0)[..., None]
-        l0 = l0.long()
-        c0 = bilinear_level(env.texels, env.table, l0, ui, vi, touched)
-        c1 = bilinear_level(env.texels, env.table, torch.clamp(l0 + 1, max=top), ui, vi, touched)
+        lf = torch.floor(lod)
+        frac = (lod - lf)[..., None]
+        l0 = torch.nan_to_num(lf, nan=0.0).long()  # a NaN lod reads level 0 at weight NaN
+        c0 = bilinear_level(env.texels, table, l0, ui, vi, touched)
+        c1 = bilinear_level(env.texels, table, torch.clamp(l0 + 1, max=top), ui, vi, touched)
         return c0 * (1 - frac) + c1 * frac
 
     if aniso <= 1:
@@ -76,13 +83,34 @@ def env_sample_plain(
     return acc / float(len(offs))
 
 
+MAX_LEVELS = 12  # levels the kernel takes (csrc/env_kernel.cu)
+MODES = ("bilinear", "grad", "probes")  # the kernel's modes: mode 0, grad, grad with aniso > 1
+INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
+             "threads")
+
+
 @functools.cache
 def _entry():
     fn = _build.library("env_kernel")[0].srt_env_sample
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, I, P, P, P, L, I, I, P, P]
+    fn.argtypes = [P, P, I, P, P, P, L, I, I, I, P, P]
     fn.restype = I
     return fn
+
+
+def launch_info(mode: str) -> dict[str, int]:
+    """The launch of the env kernel of ``mode`` (one of ``MODES``) on the
+    current card: registers a thread, static and dynamic shared bytes a
+    block, local bytes a thread, resident blocks an SM, threads a
+    block."""
+    fn = _build.library("env_kernel")[0].srt_env_sample_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = fn(MODES.index(mode), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"env_sample launch info failed: CUDA error {err}")
+    return dict(zip(INFO_KEYS, info))
 
 
 def env_sample(
@@ -92,37 +120,44 @@ def env_sample(
     dDdy: torch.Tensor | None = None,
     grad: bool = False,
     aniso: int = 1,
+    width: int = 0,
 ) -> torch.Tensor:
     """Environment radiance (R, 3) for directions D (R, 3) f32; ``grad``
-    needs the differentials dDdx, dDdy (R, 3).  CPU tensors run
+    needs the differentials dDdx, dDdy (R, 3).  A ``width`` > 0 says the
+    rays are the pixels of a width-wide image, row-major (the kernel may
+    order its work by it; the results do not change).  CPU tensors run
     ``env_sample_plain``; CUDA tensors launch the CUDA kernel."""
-    tensors = dict(texels=env.texels, table=env.table, D=D)
+    tensors = dict(texels=env.texels, D=D)
     if grad:
         if dDdx is None or dDdy is None:
             raise ValueError("env_sample: grad mode needs dDdx and dDdy")
         tensors.update(dDdx=dDdx, dDdy=dDdy)
     if aniso < 1:
         raise ValueError(f"env_sample: aniso={aniso}: need >= 1")
+    R = D.shape[0]
+    if width < 0 or (width and R % width):
+        raise ValueError(f"env_sample: width {width} does not divide {R} rays")
     device = _build.one_device("env_sample", tensors)
     if device.type == "cpu":
         return env_sample_plain(env, D, dDdx, dDdy, grad, aniso)
-    R = D.shape[0]
     check = functools.partial(_build.check, "env_sample")
-    check("texels", env.texels, torch.float32, (None, 3))
-    check("table", env.table, torch.int32, (None, 3))
+    check("texels", env.texels, torch.float32, (None, TEXEL))
     check("D", D, torch.float32, (R, 3))
     if grad:
         check("dDdx", dDdx, torch.float32, (R, 3))
         check("dDdy", dDdy, torch.float32, (R, 3))
+    if not 1 <= env.n_levels <= MAX_LEVELS:
+        raise ValueError(f"env_sample: {env.n_levels} levels, the kernel takes 1 to {MAX_LEVELS}")
     fn = _entry()
     out = torch.empty((R, 3), dtype=torch.float32, device=device)
     if R == 0:
         return out
+    levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
     with torch.cuda.device(device):
         err = fn(
-            env.texels.data_ptr(), env.table.data_ptr(), env.n_levels,
+            env.texels.data_ptr(), levels, env.n_levels,
             D.data_ptr(), dDdx.data_ptr() if grad else None,
-            dDdy.data_ptr() if grad else None, R, int(grad), aniso,
+            dDdy.data_ptr() if grad else None, R, width, int(grad), aniso,
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.launched("env_sample", err)

@@ -3,14 +3,21 @@
 the anisotropic-sampler approximation, and bilinear REPEAT fetches from
 the env pyramid — the counterpart of shader_ray_tpu/ops/envmap.py.
 
-The pyramid (``pack_env_pyramid``) is ONE flat (texels, 3) f32 tensor
-with an (NL, 3) int32 table of (texel offset, height, width) per level:
-the pow2 base level, then 2x2 box means until height 16, as the
-reference's plane pyramid (ops/pallas/envwin.pack_env_planes) without
-its guard rows, seam phases and lane padding.  Level 0 comes first, so
-the (H0, W0, 3) tensor the frame kernel samples is a view of it: at the
-bench (1024 x 2048) 25 MB of 33.5 MB, resident in the H100's 50 MB L2.
-Row 0 is the top scanline and v = 1 maps to it (+y pole).
+The pyramid (``pack_env_pyramid``) is ONE flat (texels, 4) f32 tensor,
+a texel RGB and a zero pad (16 bytes: one 128-bit load on the card),
+with a (texel offset, height, width) row per level: the pow2 base level,
+then 2x2 box means until height 16, as the reference's plane pyramid
+(ops/pallas/envwin.pack_env_planes) without its guard rows, seam phases
+and lane padding.  Level 0 comes first, so the (H0, W0, 4) tensor the
+frame kernel samples is a view of it: at the bench (1024 x 2048) 33.5 MB
+of 44.7 MB; the texels a frame reads (0.64 MB at the bench primaries)
+stay in the H100's 50 MB L2.  Row 0 is the top scanline and v = 1 maps
+to it (+y pole).
+
+Texel indices wrap exactly (``wrap``) for every finite coordinate; a
+coordinate that is not finite (a grad-mode ray along the +-y axis
+divides 0 by 0) reads texel 0 of its level with a NaN weight, so the
+radiance is NaN as in the reference, whose gathers clamp their indices.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 PI = 3.14159265259  # fs:116 (the reference's slightly-off pi, kept verbatim)
 TAU = 2.0 * PI
 MIN_H = 16          # smallest env level height the packer emits
+TEXEL = 4           # floats a packed texel: RGB and a zero pad
 ANISO_PROBES = 4    # probe taps of the aniso approximation (GL
                     # MAX_ANISOTROPY 4, ray.cpp:505-508)
 
@@ -31,30 +39,36 @@ ANISO_PROBES = 4    # probe taps of the aniso approximation (GL
 class EnvPyramid:
     """The packed env pyramid (module docstring)."""
 
-    texels: torch.Tensor        # (texels, 3) f32, level 0 first
-    table: torch.Tensor         # (NL, 3) i32: texel offset, height, width
-    base: tuple[int, int]       # (H0, W0)
+    texels: torch.Tensor                       # (texels, TEXEL) f32, level 0 first
+    levels: tuple[tuple[int, int, int], ...]   # per level: texel offset, height, width
+
+    @property
+    def table(self) -> torch.Tensor:
+        """(NL, 3) i32 of ``levels`` on the texels' device."""
+        return torch.tensor(self.levels, dtype=torch.int32, device=self.texels.device)
+
+    @property
+    def base(self) -> tuple[int, int]:
+        """(H0, W0)."""
+        return self.levels[0][1], self.levels[0][2]
 
     @property
     def n_levels(self) -> int:
-        return int(self.table.shape[0])
+        return len(self.levels)
 
     @property
     def level0(self) -> torch.Tensor:
-        """(H0, W0, 3) view of level 0."""
+        """(H0, W0, TEXEL) view of level 0."""
         h, w = self.base
-        return self.texels[: h * w].view(h, w, 3)
+        return self.texels[: h * w].view(h, w, TEXEL)
 
     def to(self, device) -> "EnvPyramid":
-        return EnvPyramid(self.texels.to(device), self.table.to(device), self.base)
+        return EnvPyramid(self.texels.to(device), self.levels)
 
     @staticmethod
     def pack(env: np.ndarray, env_base: int = 1024) -> "EnvPyramid":
         texels, table = pack_env_pyramid(env, env_base)
-        return EnvPyramid(
-            torch.from_numpy(texels), torch.from_numpy(table),
-            (int(table[0, 1]), int(table[0, 2])),
-        )
+        return EnvPyramid(torch.from_numpy(texels), tuple(tuple(int(x) for x in r) for r in table))
 
 
 def env_coords(D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,37 +118,48 @@ def aniso_lod_and_probes(rho_x, rho_y, dudx, dvdx, dudy, dvdy, aniso: int):
     return rho_eff, offs
 
 
+def wrap(x: torch.Tensor, n) -> torch.Tensor:
+    """floor(x) mod n as int64, for an integral f32 ``x`` and a power of
+    two ``n``: exact for every finite x (each step is: a power-of-two
+    scale, a floor, a difference that is an integer below n).  A
+    non-finite x gives index 0 (its bilinear weight is NaN)."""
+    r = x - torch.floor(x / n) * n
+    return torch.nan_to_num(r, nan=0.0).long()
+
+
 def bilinear_level(
     pyramid: torch.Tensor, table: torch.Tensor, level: torch.Tensor,
     u: torch.Tensor, v: torch.Tensor, touched: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Bilinear REPEAT-wrapped fetch at a per-ray pyramid level
-    (``level`` int64, same shape as u) -> (..., 3).  ``touched``, a bool
-    tensor over the pyramid's texels, gets True at every texel read."""
+    (``level`` int64, same shape as u) -> (..., 3); the +1 neighbour is
+    wrapped from x0 + 1 in f32.  ``touched``, a bool tensor over the
+    pyramid's texels, gets True at every texel read."""
     tbl = table.long()[level]
     off, h, w = tbl[..., 0], tbl[..., 1], tbl[..., 2]
-    x = u * w.float() - 0.5
-    y = (1.0 - v) * h.float() - 0.5  # v = 1 -> top row 0
+    hf, wf = h.float(), w.float()
+    x = u * wf - 0.5
+    y = (1.0 - v) * hf - 0.5  # v = 1 -> top row 0
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-    xi0 = torch.remainder(x0.long(), w)
-    xi1 = torch.remainder((x0 + 1.0).long(), w)
-    yi0 = torch.remainder(y0.long(), h)
-    yi1 = torch.remainder((y0 + 1.0).long(), h)
+    xi0, xi1 = wrap(x0, wf), wrap(x0 + 1.0, wf)
+    yi0, yi1 = wrap(y0, hf), wrap(y0 + 1.0, hf)
     taps = [off + yi0 * w + xi0, off + yi0 * w + xi1, off + yi1 * w + xi0, off + yi1 * w + xi1]
     if touched is not None:
         for i in taps:
             touched[i] = True
-    c00, c10, c01, c11 = (pyramid[i] for i in taps)
+    c00, c10, c01, c11 = (pyramid[i, :3] for i in taps)
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx
     return top * (1 - fy) + bot * fy
 
 
 def bilinear_level0(env: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Bilinear REPEAT-wrapped fetch from an (H0, W0, 3) env -> (..., 3)."""
+    """Bilinear REPEAT-wrapped fetch from an (H0, W0, C) env (C = 3, or
+    TEXEL for the pyramid's level 0; power-of-two H0, W0) -> (..., 3);
+    the +1 neighbour is the next index after wrap(x0)."""
     h, w = env.shape[0], env.shape[1]
     x = u * w - 0.5
     y = (1.0 - v) * h - 0.5  # v = 1 -> top row 0
@@ -142,11 +167,10 @@ def bilinear_level0(env: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torc
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-    flat = env.reshape(-1, 3)
-    xi0 = torch.remainder(x0.long(), w)
-    xi1 = torch.remainder(x0.long() + 1, w)
-    yi0 = torch.remainder(y0.long(), h)
-    yi1 = torch.remainder(y0.long() + 1, h)
+    flat = env.reshape(-1, env.shape[-1])[:, :3]
+    xi0, yi0 = wrap(x0, w), wrap(y0, h)
+    xi1 = torch.where(xi0 + 1 == w, 0, xi0 + 1)
+    yi1 = torch.where(yi0 + 1 == h, 0, yi0 + 1)
     c00 = flat[yi0 * w + xi0]
     c10 = flat[yi0 * w + xi1]
     c01 = flat[yi1 * w + xi0]
@@ -177,9 +201,10 @@ def _resize_env(img: np.ndarray, H: int, W: int) -> np.ndarray:
 
 
 def pack_env_pyramid(env: np.ndarray, env_base: int = 1024) -> tuple[np.ndarray, np.ndarray]:
-    """(pyramid (texels, 3) f32, table (NL, 3) i32 of (texel offset, h,
-    w)): ``pack_env``'s level 0, then 2x2 box means down to height
-    ``MIN_H`` (the levels of envwin.pack_env_planes)."""
+    """(pyramid (texels, TEXEL) f32, RGB and a zero pad; table (NL, 3)
+    i32 of (texel offset, h, w)): ``pack_env``'s level 0, then 2x2 box
+    means down to height ``MIN_H`` (the levels of
+    envwin.pack_env_planes)."""
     cur = pack_env(env, env_base)
     levels, rows, off = [], [], 0
     while True:
@@ -190,7 +215,10 @@ def pack_env_pyramid(env: np.ndarray, env_base: int = 1024) -> tuple[np.ndarray,
         if h <= MIN_H:
             break
         cur = cur.reshape(h // 2, 2, w // 2, 2, 3).mean(axis=(1, 3)).astype(np.float32)
-    return np.concatenate(levels, axis=0), np.asarray(rows, np.int32)
+    rgb = np.concatenate(levels, axis=0)
+    texels = np.zeros((rgb.shape[0], TEXEL), np.float32)
+    texels[:, :3] = rgb
+    return texels, np.asarray(rows, np.int32)
 
 
 def pack_env(env: np.ndarray, env_base: int = 1024) -> np.ndarray:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from shader_ray_tpu_torch.ops import _build
-from shader_ray_tpu_torch.ops.envmap import sample_env
+from shader_ray_tpu_torch.ops.envmap import TEXEL, sample_env
 from shader_ray_tpu_torch.ops.pack_wide import LEAF_STRIDE, WIDE, PackedWide
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
 
@@ -285,7 +285,7 @@ def frame_kernel(
     check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
     check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
     check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
-    check("env", packed.env, torch.float32, (None, None, 3))
+    check("env", packed.env, torch.float32, (None, None, TEXEL))
     check("uni", uni, torch.float32, (UNI_SIZE,))
     check("jitters", jitters, torch.float32, (None, 2))
     K = jitters.shape[0]

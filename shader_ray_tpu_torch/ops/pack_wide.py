@@ -89,7 +89,8 @@ class PackedWide:
 
     @property
     def env(self) -> torch.Tensor:
-        """(H0, W0, 3) f32 env level 0, a view of the pyramid."""
+        """(H0, W0, TEXEL) f32 env level 0 (RGB and a zero pad), a view of
+        the pyramid."""
         return self.env_pyramid.level0
 
     def to(self, device) -> "PackedWide":

@@ -105,17 +105,20 @@ def test_pyramid_levels_equal_plane_pyramid(width, base):
     h0, w0 = int(table[0, 1]), int(table[0, 2])
     planes = pack_env_planes(img, base=(h0, w0))
     assert len(table) == planes.n_levels and table[-1, 1] == envmap.MIN_H
-    assert texels.shape == (int((table[:, 1] * table[:, 2]).sum()), 3)
+    assert texels.shape == (int((table[:, 1] * table[:, 2]).sum()), envmap.TEXEL)
+    assert not texels[:, 3:].any()  # RGB and a zero pad
     grid = np.asarray(planes.planes)
     for l, (off, h, w) in enumerate(table):
         assert (h, w) == (int(planes.h_smem[l]), int(planes.w_smem[l]))
-        level = texels[off : off + h * w].reshape(h, w, 3)
+        level = texels[off : off + h * w, :3].reshape(h, w, 3)
         row0, blk = int(planes.off_smem[l]), int(planes.blk_smem[l])
         for c in range(3):  # phase-0 plane of channel c, inside its guard row
             p = row0 + c * blk
             np.testing.assert_array_equal(level[:, :, c], grid[p + 1 : p + 1 + h, :w])
     pyr = envmap.EnvPyramid.pack(img, base)
-    assert pyr.base == (h0, w0) and pyr.level0.shape == (h0, w0, 3)
+    assert pyr.levels == tuple(map(tuple, table.tolist()))
+    assert torch.equal(pyr.table, torch.from_numpy(table))
+    assert pyr.base == (h0, w0) and pyr.level0.shape == (h0, w0, envmap.TEXEL)
     assert pyr.level0.data_ptr() == pyr.texels.data_ptr()  # a view, not a copy
 
 
@@ -160,6 +163,52 @@ def test_grad_mode_matches_oracle_up_to_the_last_level(sky, oracle_scene, aniso)
         np.testing.assert_allclose(got[beyond], last.numpy()[beyond], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("aniso", [1, 4])
+def test_grad_mode_along_the_y_axis_is_nan_as_the_reference(sky, oracle_scene, aniso):
+    """Directions exactly along +y and -y (x = z = 0) with non-zero
+    differentials: du/dx is 0/0, and the reference's
+    ``sample_environment(which=1)`` is NaN in all three channels.  The
+    plain version raises nothing, is NaN exactly where the reference is,
+    and equals it on the other rays (narrow footprints, lod inside the
+    port's levels); mode 0 stays finite there."""
+    rng = np.random.default_rng(49)
+    n = 400
+    D = rng.normal(size=(n, 3)).astype(np.float32)
+    D[:, 1] *= 0.5
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    D[::20] = [0.0, 1.0, 0.0]
+    D[10::20] = [0.0, -1.0, 0.0]
+    scale = (10.0 ** rng.uniform(-4.0, -2.0, size=(n, 1))).astype(np.float32)
+    gx = rng.normal(size=(n, 3)).astype(np.float32) * scale
+    gy = rng.normal(size=(n, 3)).astype(np.float32) * scale * 0.5
+    pyr = envmap.EnvPyramid.pack(sky)
+    tD, tgx, tgy = (torch.from_numpy(x) for x in (D, gx, gy))
+    got = env_sample(pyr, tD, tgx, tgy, grad=True, aniso=aniso).numpy()
+    want = np.asarray(ref_envmap.sample_environment(
+        oracle_scene, jnp.asarray(D), jnp.asarray(gx), jnp.asarray(gy), which=1, aniso=aniso))
+    axis = (D[:, 0] == 0) & (D[:, 2] == 0)
+    assert axis.sum() == 40 and np.isnan(want).any(-1).sum() == 40
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[axis]).all() and np.isfinite(got[~axis]).all()
+    np.testing.assert_allclose(got[~axis], want[~axis], rtol=2e-4, atol=2e-4)
+    assert np.isfinite(env_sample(pyr, tD).numpy()).all()
+
+
+def test_wrap_is_exact_for_every_finite_coordinate():
+    """``wrap`` is floor(x) mod n for power-of-two n, exactly, far past
+    2^31 (a grad probe near a pole reaches such x), and sends a
+    non-finite x to index 0."""
+    rng = np.random.default_rng(50)
+    ints = rng.integers(-(2**40), 2**40, size=2000)
+    x = np.concatenate([ints.astype(np.float32), np.float32([3.0e38, -3.0e38, 2.0**24 + 2, -1.0])])
+    for n in (16, 256, 2048):
+        got = envmap.wrap(torch.from_numpy(x), n).numpy()
+        want = np.array([int(v) % n for v in x.astype(np.float64)])
+        np.testing.assert_array_equal(got, want)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    assert envmap.wrap(special, 64).tolist() == [0, 0, 0]
+
+
 def test_grad_mode_needs_differentials(sky):
     pyr = envmap.EnvPyramid.pack(sky)
     D = torch.from_numpy(_rays(45, 16)[0])
@@ -187,7 +236,7 @@ def test_plain_sampler_marks_the_texels_it_reads(sky, grad, aniso):
     if not grad:
         h, w = pyr.base
         assert not touched[h * w:].any()
-    scrambled = envmap.EnvPyramid(torch.where(touched[:, None], pyr.texels, -7.0), pyr.table, pyr.base)
+    scrambled = envmap.EnvPyramid(torch.where(touched[:, None], pyr.texels, -7.0), pyr.levels)
     assert torch.equal(env_sample_plain(scrambled, D, gx, gy, grad=grad, aniso=aniso), want)
     one = torch.zeros_like(touched)
     env_sample_plain(pyr, D[:1], gx[:1], gy[:1], grad=grad, aniso=aniso, touched=one)

@@ -132,15 +132,16 @@ def test_wrappers_do_not_fall_back_when_the_kernel_cannot_build(monkeypatch):
 
 def test_build_tag_covers_included_headers(tmp_path, monkeypatch):
     """The cache tag hashes every source a library includes, so an edit
-    of the shared walk header rebuilds both libraries that include it."""
+    of a shared header (the walk, the env lookup) rebuilds every library
+    that includes it and no other."""
     from shader_ray_tpu_torch.ops import _build
 
     names = {p.name for p in _build.sources_of("frame_kernel")}
-    assert names == {"frame_kernel.cu", "walk.cuh"}
+    assert names == {"frame_kernel.cu", "walk.cuh", "env.cuh"}
     assert {p.name for p in _build.sources_of("trace_kernel")} == {"trace_kernel.cu", "walk.cuh"}
     assert {p.name for p in _build.sources_of("trace_binary_kernel")} == \
         {"trace_binary_kernel.cu", "walk.cuh"}
-    assert {p.name for p in _build.sources_of("env_kernel")} == {"env_kernel.cu"}
+    assert {p.name for p in _build.sources_of("env_kernel")} == {"env_kernel.cu", "env.cuh"}
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for path in _build.CSRC.iterdir():
@@ -153,6 +154,12 @@ def test_build_tag_covers_included_headers(tmp_path, monkeypatch):
     assert after["frame_kernel"] != before["frame_kernel"]
     assert after["trace_kernel"] != before["trace_kernel"]
     assert after["env_kernel"] == before["env_kernel"]
+    with open(csrc / "env.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {n: _build._paths(n)[0].name for n in before}
+    assert again["frame_kernel"] != after["frame_kernel"]
+    assert again["env_kernel"] != after["env_kernel"]
+    assert again["trace_kernel"] == after["trace_kernel"]
 
 
 def test_frame_kernel_rejects_mixed_devices():
@@ -277,7 +284,8 @@ def test_trace_kernel_matches_plain_on_card(cuda_device, kernel, any_hit):
 def test_env_kernel_matches_plain_on_card(cuda_device, grad, aniso):
     """Kernel vs plain version on the same card inputs: both call the
     card's atan2f/acosf/log2f, so they agree to the rounding of the
-    blend, rtol 1e-4 / atol 1e-4 (the sky's sun reaches ~50)."""
+    blend, rtol 1e-4 / atol 1e-4 (the sky's sun reaches ~50).  Rays
+    exactly along +-y are NaN in grad mode in both, finite in mode 0."""
     from shader_ray_tpu_torch.models.fixtures import procedural_sky
     from shader_ray_tpu_torch.ops import _build
     from shader_ray_tpu_torch.ops.env_kernel import env_sample, env_sample_plain
@@ -289,6 +297,7 @@ def test_env_kernel_matches_plain_on_card(cuda_device, grad, aniso):
     D = rng.normal(size=(n, 3)).astype(np.float32)
     D[:4] = [[-1, 0, 1e-7], [-1, 0, -1e-7], [0.02, 0.9998, 0.0], [0.0, -0.9998, 0.02]]
     D /= np.linalg.norm(D, axis=1, keepdims=True)
+    D[4:6] = [[0, 1, 0], [0, -1, 0]]
     scale = (10.0 ** rng.uniform(-4.0, -0.5, size=(n, 1))).astype(np.float32)
     gx = rng.normal(size=(n, 3)).astype(np.float32) * scale
     gy = rng.normal(size=(n, 3)).astype(np.float32) * scale * 0.3
@@ -298,8 +307,50 @@ def test_env_kernel_matches_plain_on_card(cuda_device, grad, aniso):
     assert _build.LAUNCHES["env_sample"] == before + 1
     want = env_sample_plain(pyr, D, gx, gy, grad=grad, aniso=aniso)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    poles = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    poles[4:6] = grad
+    assert torch.equal(torch.isnan(want), poles[:, None].expand(n, 3))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isfinite(got[~poles]).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, equal_nan=True)
+
+
+ENV_FAULTS = ("none", "one-ray-off", "all-rays-off", "nan-at-a-finite-ray", "finite-at-a-pole",
+              "inf-at-a-ray", "plain-nan-off-the-poles")
+
+
+@pytest.mark.parametrize("fault", ENV_FAULTS)
+def test_env_gate_refuses_each_fault(fault):
+    """chip_smoke.env_disagreement passes the plain version against
+    itself and refuses each fault a kernel could have: a ray off by more
+    than 1e-2, every ray off by more than 1e-5 on average, NaN where the
+    plain version is finite or a finite value where it is NaN, an
+    infinite value, and a plain version NaN off the expected rays."""
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky
+    from shader_ray_tpu_torch.ops.env_kernel import env_sample_plain
+    from shader_ray_tpu_torch.ops.envmap import EnvPyramid
+
+    pyr = EnvPyramid.pack(procedural_sky(64))
+    D, gx, gy, axis = chip_smoke.pole_rays(256, torch.device("cpu"))
+    assert int(axis.sum()) == 64 and (D[axis, 1].abs() == 1).all() and (D[axis][:, [0, 2]] == 0).all()
+    want = env_sample_plain(pyr, D, gx, gy, grad=True, aniso=4)
+    got = want.clone()
+    expect = axis.clone()
+    i, j = int((~axis).nonzero()[0]), int(axis.nonzero()[0])
+    if fault == "one-ray-off":
+        got[i, 1] += 0.02
+    elif fault == "all-rays-off":
+        got = got + 2e-5
+    elif fault == "nan-at-a-finite-ray":
+        got[i, 0] = float("nan")
+    elif fault == "finite-at-a-pole":
+        got[j] = 0.5
+    elif fault == "inf-at-a-ray":
+        got[i, 2] = float("inf")
+    elif fault == "plain-nan-off-the-poles":
+        expect[j] = False
+    _, why = chip_smoke.env_disagreement(got, want, expect)
+    assert (why is None) == (fault == "none"), why
 
 
 @pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
