@@ -223,11 +223,12 @@ def main() -> int:
     ):
         times = {name: [] for name in envs}
         for name in [*envs, *reversed(envs)]:
-            parts = chip_smoke.device_breakdown(
-                lambda name=name: sample(name, D, gx, gy, grad, aniso, W), ("env_sample",), TIMED)
-            if parts is None:
-                raise RuntimeError("the profiler saw no device time")
-            times[name].append(parts["env_sample"][0])
+            for _ in range(3):  # a profiling session now and then records no device time
+                parts = chip_smoke.device_breakdown(
+                    lambda name=name: sample(name, D, gx, gy, grad, aniso, W), ("env_sample",), TIMED)
+                if parts is not None:
+                    break
+            times[name].append(parts["env_sample"][0] if parts else float("nan"))
         for name, ms in times.items():
             results[f"env_kernel/{name} {label}"] = ms
             print(f"  env_kernel/{name} {label}: device ms a launch {', '.join(f'{t:.5f}' for t in ms)}")
