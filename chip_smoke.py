@@ -16,9 +16,10 @@ port's two paths through the Renderer's entry points:
 
 The frame kernel is also held to its plain version on the control-flow
 cases of its wave compaction (FRAME_CASES), the two trace kernels on the
-edges of their active masks and ray layouts (TRACE_CASES), and the three walk
-kernels' launch resources (registers, shared memory, blocks an SM) are
-printed.  Each path runs
+edges of their active masks and ray layouts (TRACE_CASES), the env sampler
+on directions exactly along +-y (NaN in grad mode exactly where the plain
+version has it, env_disagreement), and the four kernels' launch resources
+(registers, shared memory, blocks an SM) are printed.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times every kernel with CUDA events at the main path's shapes
 beside its bound and its plain version (the trace kernels also beside
@@ -692,10 +693,10 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version on {what}: {why}")
         return walk, start.elapsed_time(stop)
 
-    def compare_env(D, gx, gy, grad, aniso, what, nan_rays=None, width=0):
+    def compare_env(D, gx, gy, grad, aniso, what, nan_rays=None):
         """The kernel against its plain version under env_disagreement's
         limits; ``nan_rays``: the rays that must be NaN in both."""
-        got = ek.env_sample(pyramid, D, gx, gy, grad=grad, aniso=aniso, width=width)
+        got = ek.env_sample(pyramid, D, gx, gy, grad=grad, aniso=aniso)
         want = ek.env_sample_plain(pyramid, D, gx, gy, grad=grad, aniso=aniso)
         torch.cuda.synchronize()
         e, why = env_disagreement(got, want, nan_rays)

@@ -15,24 +15,7 @@
 
 #include <cuda_runtime.h>
 
-#ifndef ENV_TEXEL4
-#define ENV_TEXEL4 1  // variant switch: 0 = 12-byte texels, three scalar loads
-#endif
-#ifndef ENV_WRAP64
-#define ENV_WRAP64 0  // variant switch: the first design's signed 64-bit remainder
-#endif
-
 namespace srt {
-
-#if ENV_TEXEL4
-using Texel = float4;
-__device__ __forceinline__ float4 texel(const Texel* p) { return __ldg(p); }
-#else
-struct Texel { float r, g, b; };
-__device__ __forceinline__ float4 texel(const Texel* p) {
-    return make_float4(__ldg(&p->r), __ldg(&p->g), __ldg(&p->b), 0.0f);
-}
-#endif
 
 // the reference's pi, kept verbatim (fs:116), rounded to f32 once
 constexpr float PI_REF = (float)3.14159265259;
@@ -72,39 +55,22 @@ struct EnvLevel {
 // difference that is an integer below n); a non-finite x gives NaN,
 // which the conversion turns into 0, inside the level
 __device__ __forceinline__ int wrap(float x, float n, float inv_n) {
-#if ENV_WRAP64
-    const int ni = (int)n, i = (int)((long long)x % ni);
-    return i < 0 ? i + ni : i;
-#else
     return __float2int_rz(fmaf(-floorf(x * inv_n), n, x));
-#endif
 }
 
-// The texel cell of (u, v) in level L: its corner (x0, y0) in texels,
-// unwrapped, and the weights (fx, fy) of the +1 neighbours
-__device__ __forceinline__ void cell(const EnvLevel& L, float u, float v,
-                                     float& x0, float& y0, float& fx, float& fy) {
+// Bilinear REPEAT fetch of level L at (u, v) -> rgb, one 16-byte load a
+// texel.  FLOAT_NEXT: the +1 neighbour is wrap(x0 + 1) in float, as
+// bilinear_level (a grad probe's x0 may pass 2^24, where x0 + 1 rounds);
+// otherwise the next index after wrap(x0), as bilinear_level0 (level 0
+// at a direction's own (u, v), |x0| < 2^24).  The two agree wherever
+// |x0| < 2^24.
+template <bool FLOAT_NEXT>
+__device__ __forceinline__ float3 bilinear(const float4* __restrict__ pyr, const EnvLevel& L,
+                                           float u, float v) {
     const float x = u * L.w - 0.5f;
     const float y = (1.0f - v) * L.h - 0.5f;
-    x0 = floorf(x);
-    y0 = floorf(y);
-    fx = x - x0;
-    fy = y - y0;
-}
-
-// the four texels of the cell at (x0, y0): (x0, y0), (x0 + 1, y0),
-// (x0, y0 + 1), (x0 + 1, y0 + 1), REPEAT-wrapped.  FLOAT_NEXT: the +1
-// neighbour is wrap(x0 + 1) in float, as bilinear_level (a grad probe's
-// x0 may pass 2^24, where x0 + 1 rounds); otherwise the next index after
-// wrap(x0), as bilinear_level0 (level 0 at a direction's own (u, v),
-// |x0| < 2^24).  The two agree wherever |x0| < 2^24.
-struct Taps {
-    float4 c00, c10, c01, c11;
-};
-
-template <bool FLOAT_NEXT>
-__device__ __forceinline__ Taps taps(const Texel* __restrict__ pyr, const EnvLevel& L,
-                                     float x0, float y0) {
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float fx = x - x0, fy = y - y0;
     const int xi0 = wrap(x0, L.w, L.inv_w), yi0 = wrap(y0, L.h, L.inv_h);
     int xi1, yi1;
     if (FLOAT_NEXT) {
@@ -114,26 +80,14 @@ __device__ __forceinline__ Taps taps(const Texel* __restrict__ pyr, const EnvLev
         xi1 = xi0 + 1 == L.wi ? 0 : xi0 + 1;
         yi1 = yi0 + 1 == L.hi ? 0 : yi0 + 1;
     }
-    const Texel* r0 = pyr + L.off + yi0 * L.wi;
-    const Texel* r1 = pyr + L.off + yi1 * L.wi;
-    return Taps{texel(r0 + xi0), texel(r0 + xi1), texel(r1 + xi0), texel(r1 + xi1)};
-}
-
-__device__ __forceinline__ float3 blend(const Taps& t, float fx, float fy) {
+    const float4* r0 = pyr + L.off + yi0 * L.wi;
+    const float4* r1 = pyr + L.off + yi1 * L.wi;
+    const float4 c00 = __ldg(r0 + xi0), c10 = __ldg(r0 + xi1);
+    const float4 c01 = __ldg(r1 + xi0), c11 = __ldg(r1 + xi1);
     const float gx = 1.0f - fx, gy = 1.0f - fy;
-    return make_float3(
-        (t.c00.x * gx + t.c10.x * fx) * gy + (t.c01.x * gx + t.c11.x * fx) * fy,
-        (t.c00.y * gx + t.c10.y * fx) * gy + (t.c01.y * gx + t.c11.y * fx) * fy,
-        (t.c00.z * gx + t.c10.z * fx) * gy + (t.c01.z * gx + t.c11.z * fx) * fy);
-}
-
-// Bilinear REPEAT fetch of level L at (u, v) -> rgb (taps: FLOAT_NEXT)
-template <bool FLOAT_NEXT>
-__device__ __forceinline__ float3 bilinear(const Texel* __restrict__ pyr, const EnvLevel& L,
-                                           float u, float v) {
-    float x0, y0, fx, fy;
-    cell(L, u, v, x0, y0, fx, fy);
-    return blend(taps<FLOAT_NEXT>(pyr, L, x0, y0), fx, fy);
+    return make_float3((c00.x * gx + c10.x * fx) * gy + (c01.x * gx + c11.x * fx) * fy,
+                       (c00.y * gx + c10.y * fx) * gy + (c01.y * gx + c11.y * fx) * fy,
+                       (c00.z * gx + c10.z * fx) * gy + (c01.z * gx + c11.z * fx) * fy);
 }
 
 // a level's shape from its (texel offset, height, width)

@@ -12,9 +12,9 @@
 //
 // What bounds it here: operations and the latency of dependent loads in
 // divergent walks, not bytes.  The scene (node table + Woop records,
-// ~8 MB at 69k triangles) and the 25 MB env level stay in the 50 MB L2;
-// the work is ~200 f32 ops per node pop and ~50 per triangle test, in
-// dependent chains with data-dependent branches.  The first design (one
+// ~8 MB at 69k triangles) and the env texels a frame reads stay in the
+// 50 MB L2; the work is ~200 f32 ops per node pop and ~50 per triangle
+// test, in dependent chains with data-dependent branches.  The first design (one
 // thread walking one pixel through all its bounces, counters and stack
 // in local memory) took 2.64 ms a bench frame where six separate trace
 // launches of the same rays took 1.14: a warp waited for its slowest
@@ -137,7 +137,7 @@ __device__ __forceinline__ void count(unsigned long long* cnt, int ph,
 // registers without spilling; with (BLOCK) alone it chose 80 registers
 // and spilled 76 bytes in an earlier form of this kernel
 __global__ void __launch_bounds__(BLOCK, 1)
-frame(Scene s, const Texel* __restrict__ env, EnvLevel env0,
+frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
       const float* __restrict__ uni_g, const float* __restrict__ jit, int K,
       int W, int H, int tiles_x,
       float inv_w, float inv_h, float aspect, int bounces,
@@ -381,7 +381,7 @@ extern "C" int srt_frame_kernel(
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
     frame<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        s, static_cast<const Texel*>(env), env_level(0, env_h, env_w), uni, jitters, K, W, H, tiles_x,
+        s, static_cast<const float4*>(env), env_level(0, env_h, env_w), uni, jitters, K, W, H, tiles_x,
         inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, 1 + 3 * phases,
         out, counters);
     return (int)cudaGetLastError();

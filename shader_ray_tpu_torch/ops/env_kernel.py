@@ -85,15 +85,13 @@ def env_sample_plain(
 
 MAX_LEVELS = 12  # levels the kernel takes (csrc/env_kernel.cu)
 MODES = ("bilinear", "grad", "probes")  # the kernel's modes: mode 0, grad, grad with aniso > 1
-INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
-             "threads")
 
 
 @functools.cache
 def _entry():
     fn = _build.library("env_kernel")[0].srt_env_sample
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, I, P, P, P, L, I, I, I, P, P]
+    fn.argtypes = [P, P, I, P, P, P, L, I, I, P, P]
     fn.restype = I
     return fn
 
@@ -103,14 +101,7 @@ def launch_info(mode: str) -> dict[str, int]:
     current card: registers a thread, static and dynamic shared bytes a
     block, local bytes a thread, resident blocks an SM, threads a
     block."""
-    fn = _build.library("env_kernel")[0].srt_env_sample_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * len(INFO_KEYS))()
-    err = fn(MODES.index(mode), ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"env_sample launch info failed: CUDA error {err}")
-    return dict(zip(INFO_KEYS, info))
+    return _build.launch_info("env_kernel", "srt_env_sample_info", MODES.index(mode))
 
 
 def env_sample(
@@ -120,12 +111,9 @@ def env_sample(
     dDdy: torch.Tensor | None = None,
     grad: bool = False,
     aniso: int = 1,
-    width: int = 0,
 ) -> torch.Tensor:
     """Environment radiance (R, 3) for directions D (R, 3) f32; ``grad``
-    needs the differentials dDdx, dDdy (R, 3).  A ``width`` > 0 says the
-    rays are the pixels of a width-wide image, row-major (the kernel may
-    order its work by it; the results do not change).  CPU tensors run
+    needs the differentials dDdx, dDdy (R, 3).  CPU tensors run
     ``env_sample_plain``; CUDA tensors launch the CUDA kernel."""
     tensors = dict(texels=env.texels, D=D)
     if grad:
@@ -134,12 +122,10 @@ def env_sample(
         tensors.update(dDdx=dDdx, dDdy=dDdy)
     if aniso < 1:
         raise ValueError(f"env_sample: aniso={aniso}: need >= 1")
-    R = D.shape[0]
-    if width < 0 or (width and R % width):
-        raise ValueError(f"env_sample: width {width} does not divide {R} rays")
     device = _build.one_device("env_sample", tensors)
     if device.type == "cpu":
         return env_sample_plain(env, D, dDdx, dDdy, grad, aniso)
+    R = D.shape[0]
     check = functools.partial(_build.check, "env_sample")
     check("texels", env.texels, torch.float32, (None, TEXEL))
     check("D", D, torch.float32, (R, 3))
@@ -157,7 +143,7 @@ def env_sample(
         err = fn(
             env.texels.data_ptr(), levels, env.n_levels,
             D.data_ptr(), dDdx.data_ptr() if grad else None,
-            dDdy.data_ptr() if grad else None, R, width, int(grad), aniso,
+            dDdy.data_ptr() if grad else None, R, int(grad), aniso,
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.launched("env_sample", err)

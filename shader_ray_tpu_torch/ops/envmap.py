@@ -10,7 +10,7 @@ then 2x2 box means until height 16, as the reference's plane pyramid
 (ops/pallas/envwin.pack_env_planes) without its guard rows, seam phases
 and lane padding.  Level 0 comes first, so the (H0, W0, 4) tensor the
 frame kernel samples is a view of it: at the bench (1024 x 2048) 33.5 MB
-of 44.7 MB; the texels a frame reads (0.64 MB at the bench primaries)
+of 44.7 MB; the texels a frame reads (0.63 MB at the bench primaries)
 stay in the H100's 50 MB L2.  Row 0 is the top scanline and v = 1 maps
 to it (+y pole).
 

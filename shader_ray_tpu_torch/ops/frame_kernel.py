@@ -245,23 +245,13 @@ def _entry():
     return fn
 
 
-INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
-             "threads", "tile_w", "tile_h")
-
-
 def launch_info(stack_depth: int) -> dict[str, int]:
     """The frame kernel's launch on the current card for a scene's stack
     bound: registers a thread, static and dynamic (stack) shared bytes a
     block, local bytes a thread, resident blocks an SM, threads a block
     and the tile."""
-    fn = _build.library("frame_kernel")[0].srt_frame_kernel_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * len(INFO_KEYS))()
-    err = fn(stack_depth, ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"frame_kernel launch info failed: CUDA error {err}")
-    return dict(zip(INFO_KEYS, info))
+    return _build.launch_info("frame_kernel", "srt_frame_kernel_info", stack_depth,
+                              (*_build.INFO_KEYS, "tile_w", "tile_h"))
 
 
 def frame_kernel(

@@ -369,24 +369,13 @@ def _outputs(R: int, device, with_stats: bool):
     return t, which, normal, bad, stats
 
 
-INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm",
-             "threads")
-
-
 def launch_info(name: str, stack_depth: int) -> dict[str, int]:
     """The launch of trace kernel ``name`` ("trace_wide" or
     "trace_binary") on the current card for a scene's stack bound:
     registers a thread, static and dynamic (stack) shared bytes a block,
     local bytes a thread, resident blocks an SM, threads a block."""
     lib = {"trace_wide": "trace_kernel", "trace_binary": "trace_binary_kernel"}[name]
-    fn = getattr(_build.library(lib)[0], f"srt_{name}_info")
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * len(INFO_KEYS))()
-    err = fn(stack_depth, ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"{name} launch info failed: CUDA error {err}")
-    return dict(zip(INFO_KEYS, info))
+    return _build.launch_info(lib, f"srt_{name}_info", stack_depth)
 
 
 @functools.cache
