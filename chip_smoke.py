@@ -1013,14 +1013,17 @@ def main() -> int:
         "grad_ms": g_ms, "grad_plain_ms": g_p_ms, "grad_bound_ms": g_b_ms, "grad_bound_by": g_b_by,
     })
 
-    # the unfused frame end to end, both table types
-    for what, r, n in (("wide", unfused, 50), ("binary", binary, 20)):
-        frame_u = r.make_fn(statics)
+    # the unfused frame end to end, both table types, and the which=1 frame
+    # (grad env, aniso 4) whose env launch is the grad kernel's main-path call
+    for what, r, n, st in (("wide tables", unfused, 50, statics), ("binary tables", binary, 20, statics),
+                           ("wide tables, which=1 env_aniso=4", unfused, 20,
+                            statics._replace(which=1, env_aniso=4))):
+        frame_u = r.make_fn(st)
         _build.LAUNCHES.clear()
         frame_u(params)
         per_frame = dict(_build.LAUNCHES)
         t_u = host_times(lambda: frame_u(params), n)
-        print(f"  make_fn {W}x{H} unfused, {what} tables, end to end (host clock, synchronized "
+        print(f"  make_fn {W}x{H} unfused, {what}, end to end (host clock, synchronized "
               f"per frame): {summary(t_u)}; launches per frame {per_frame}")
         parts = device_breakdown(lambda: frame_u(params), tuple(per_frame), 10)
         if parts is None:
