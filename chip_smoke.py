@@ -550,6 +550,7 @@ def main() -> int:
     from shader_ray_tpu_torch.ops import frame_kernel as fk
     from shader_ray_tpu_torch.ops import trace_kernel as tk
     from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+    from shader_ray_tpu_torch.ops.envmap import ANISO_PROBES
     from shader_ray_tpu_torch.ops.pack import pack_scene
     from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
     from shader_ray_tpu_torch.ops.render import RenderStatics, generate_rays
@@ -707,12 +708,23 @@ def main() -> int:
         if why:
             raise AssertionError(f"env_sample disagrees with its plain version on {what}: {why}")
 
-    def env_bytes(D, gx, gy, grad, aniso) -> int:
-        """Bytes of the distinct pyramid texels the lookup of these rays
-        reads (marked by the plain version)."""
+    def env_needs(D, gx, gy, grad, aniso) -> tuple[int, int]:
+        """What the lookup of these rays needs, as the plain version
+        counts it: the bilinear fetches made at a non-zero weight, and
+        the bytes of the distinct pyramid texels they read (12 a texel,
+        whatever the layout)."""
         touched = torch.zeros(pyramid.texels.shape[0], dtype=torch.bool, device="cuda")
-        ek.env_sample_plain(pyramid, D, gx, gy, grad=grad, aniso=aniso, touched=touched)
-        return int(touched.sum()) * 12
+        fetches = torch.zeros((), dtype=torch.long, device="cuda")
+        ek.env_sample_plain(pyramid, D, gx, gy, grad=grad, aniso=aniso, touched=touched,
+                            fetches=fetches)
+        return int(touched.sum()) * 12, int(fetches)
+
+    def on_a_level(R, aniso, fetches) -> str:
+        """The share of a grad lookup's probes whose lod lies exactly on
+        a level (one fetch, the upper level's weight 0), from the plain
+        version's fetch count."""
+        probes = R * (ANISO_PROBES if aniso > 1 else 1)
+        return f"{2 * probes - fetches} of {probes} probes ({(2 * probes - fetches) / probes:.4f})"
 
     rays_s, P_s, D_s, sP_s, sD_s, sact_s = rays_at(*SMALL)
     all_s = torch.ones_like(sact_s)
@@ -879,7 +891,7 @@ def main() -> int:
     compare(W, H, one, probe)  # the main path's frame: its counted work gives the bound
     ops, work = walk_ops(probe["walks"], 0, OPS_WOOP)
     wide_tables = nbytes(packed.nodes, packed.leaves, packed.normals)
-    moved = wide_tables + env_bytes(probe["env_D"], None, None, False, 1) + nbytes(uni) + W * H * 3 * 4
+    moved = wide_tables + env_needs(probe["env_D"], None, None, False, 1)[0] + nbytes(uni) + W * H * 3 * 4
     del probe
     bound_ms, bound_by = bound(ops, moved)
     potential = W * H * 6
@@ -989,17 +1001,17 @@ def main() -> int:
         parts = device_breakdown(launch, ("env_sample",), 20)
         k_ms = parts["env_sample"][0] if parts else float(np.median(t_k))
         compare_env(D_f, gx_f, gy_f, grad, aniso, f"{what}, primaries {W}x{H}")
-        fetches = 2 * 4 if grad else 1
-        ops = R * (OPS_ENV_COORDS + (OPS_ENV_GRAD if grad else 0) + fetches * OPS_PER_FETCH)
-        texels = env_bytes(D_f, gx_f, gy_f, grad, aniso)
+        texels, fetches = env_needs(D_f, gx_f, gy_f, grad, aniso)
+        ops = R * (OPS_ENV_COORDS + (OPS_ENV_GRAD if grad else 0)) + fetches * OPS_PER_FETCH
         moved = R * 12 * (4 if grad else 2) + texels
         b_ms, b_by = bound(ops, moved)
         print(f"  env_sample {what}, {R} directions: device time {k_ms:.4f} ms a launch "
               f"({'torch.profiler, 20 launches' if parts else 'profiler saw none: the events median'}); "
               f"CUDA events around one call {summary(t_k)}; "
-              f"plain {summary(t_p)}; bound: {ops:.4g} ops ({ops / PEAK_F32 * 1e3:.4f} ms), "
-              f"{moved} bytes of which {texels} of distinct texels "
-              f"({moved / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}")
+              f"plain {summary(t_p)}; bound: {fetches} bilinear fetches, {ops:.4g} ops "
+              f"({ops / PEAK_F32 * 1e3:.4f} ms), {moved} bytes of which {texels} of distinct texels "
+              f"({moved / PEAK_BYTES * 1e3:.4f} ms): {b_ms:.4f} ms, by {b_by}"
+              + (f"; lod on a level: {on_a_level(R, aniso, fetches)}" if grad else ""))
         out[grad] = (k_ms, float(np.median(t_p)), b_ms, b_by)
     k_ms, p_ms, b_ms, b_by = out[False]
     g_ms, g_p_ms, g_b_ms, g_b_by = out[True]
@@ -1034,6 +1046,23 @@ def main() -> int:
                   + ", ".join(f"{k} {ms:.3f} ms in {cnt:.0f} launches" for k, (ms, cnt) in parts.items())
                   + f"; busy {busy:.3f} ms = {busy / float(np.median(t_u)):.1%} of the frame's "
                   f"host-clock median")
+        if st.which == 1:
+            # the rays of the frame's env call, caught from one more frame
+            caught = []
+
+            def catch(env, D, dDdx=None, dDdy=None, grad=False, aniso=1):
+                caught.append((D, dDdx, dDdy, aniso))
+                return ek.env_sample(env, D, dDdx, dDdy, grad=grad, aniso=aniso)
+
+            engine_trace.env_sample = catch
+            try:
+                frame_u(params)
+            finally:
+                engine_trace.env_sample = ek.env_sample
+            D1, gx1, gy1, aniso1 = caught[0]
+            _, fetches = env_needs(D1, gx1, gy1, True, aniso1)
+            print(f"    its env call, {D1.shape[0]} rays at aniso={aniso1}: lod on a level: "
+                  f"{on_a_level(D1.shape[0], aniso1, fetches)}")
     print(f"  which=5 frame, unfused wide (host clock, one call): {t_which5 * 1e3:.1f} ms")
 
     print(f"card: {card}")

@@ -48,14 +48,21 @@ def env_sample_plain(
     grad: bool = False,
     aniso: int = 1,
     touched: torch.Tensor | None = None,
+    fetches: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``env_sample`` in plain PyTorch (envwin.py:664-701 for the lod,
     envmap.py:145-176 of the reference for the per-ray trilinear).
-    ``touched``, a bool tensor over ``env.texels``' rows, gets True at
-    every texel these rays read (the bytes a bound charges)."""
+    What the function needs of the pyramid, for a bound: ``fetches``, an
+    int64 scalar tensor, gets the number of bilinear fetches made at a
+    non-zero weight added, and ``touched``, a bool tensor over
+    ``env.texels``' rows, gets True at the four texels of each.  The
+    upper level of a trilinear fetch whose lod lies exactly on a level
+    has weight 0 and is not needed (the kernel skips it)."""
     u, v = env_coords(D)
     table = env.table
     if not grad:
+        if fetches is not None:
+            fetches.add_(u.numel())
         return bilinear_level(env.texels, table, torch.zeros_like(u, dtype=torch.long), u, v,
                               touched)
     dudx, dvdx, dudy, dvdy = env_derivatives(D, dDdx, dDdy)
@@ -69,8 +76,12 @@ def env_sample_plain(
         lf = torch.floor(lod)
         frac = (lod - lf)[..., None]
         l0 = torch.nan_to_num(lf, nan=0.0).long()  # a NaN lod reads level 0 at weight NaN
+        upper = frac[..., 0] > 0.0
+        if fetches is not None:
+            fetches.add_(ui.numel() + upper.sum())
         c0 = bilinear_level(env.texels, table, l0, ui, vi, touched)
-        c1 = bilinear_level(env.texels, table, torch.clamp(l0 + 1, max=top), ui, vi, touched)
+        c1 = bilinear_level(env.texels, table, torch.clamp(l0 + 1, max=top), ui, vi, touched,
+                            upper)
         return c0 * (1 - frac) + c1 * frac
 
     if aniso <= 1:

@@ -22,7 +22,7 @@ radiance is NaN as in the reference, whose gathers clamp their indices.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -41,11 +41,11 @@ class EnvPyramid:
 
     texels: torch.Tensor                       # (texels, TEXEL) f32, level 0 first
     levels: tuple[tuple[int, int, int], ...]   # per level: texel offset, height, width
+    table: torch.Tensor = field(init=False)    # (NL, 3) i32 of ``levels`` on the texels'
+                                               # device, for the plain versions' gathers
 
-    @property
-    def table(self) -> torch.Tensor:
-        """(NL, 3) i32 of ``levels`` on the texels' device."""
-        return torch.tensor(self.levels, dtype=torch.int32, device=self.texels.device)
+    def __post_init__(self):
+        self.table = torch.tensor(self.levels, dtype=torch.int32, device=self.texels.device)
 
     @property
     def base(self) -> tuple[int, int]:
@@ -130,11 +130,13 @@ def wrap(x: torch.Tensor, n) -> torch.Tensor:
 def bilinear_level(
     pyramid: torch.Tensor, table: torch.Tensor, level: torch.Tensor,
     u: torch.Tensor, v: torch.Tensor, touched: torch.Tensor | None = None,
+    need: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Bilinear REPEAT-wrapped fetch at a per-ray pyramid level
     (``level`` int64, same shape as u) -> (..., 3); the +1 neighbour is
     wrapped from x0 + 1 in f32.  ``touched``, a bool tensor over the
-    pyramid's texels, gets True at every texel read."""
+    pyramid's texels, gets True at every texel read by the rays in
+    ``need`` (a bool mask like u; all rays if None)."""
     tbl = table.long()[level]
     off, h, w = tbl[..., 0], tbl[..., 1], tbl[..., 2]
     hf, wf = h.float(), w.float()
@@ -149,7 +151,7 @@ def bilinear_level(
     taps = [off + yi0 * w + xi0, off + yi0 * w + xi1, off + yi1 * w + xi0, off + yi1 * w + xi1]
     if touched is not None:
         for i in taps:
-            touched[i] = True
+            touched[i if need is None else i[need]] = True
     c00, c10, c01, c11 = (pyramid[i, :3] for i in taps)
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx

@@ -225,14 +225,22 @@ def test_plain_sampler_marks_the_texels_it_reads(sky, grad, aniso):
     """``touched`` holds exactly the texels the lookup depends on: the
     result is unchanged (bit for bit) when every other texel is
     overwritten, mode 0 touches level 0 only, and one direction touches
-    at most 4 texels per fetch."""
+    at most 4 texels per fetch.  ``fetches`` counts one fetch a ray in
+    mode 0 and, in grad mode, one or two a probe."""
     from shader_ray_tpu_torch.ops.env_kernel import env_sample_plain
 
     pyr = envmap.EnvPyramid.pack(sky)
     D, gx, gy = (torch.from_numpy(x) for x in _rays(47, 500))
     touched = torch.zeros(pyr.texels.shape[0], dtype=torch.bool)
-    want = env_sample_plain(pyr, D, gx, gy, grad=grad, aniso=aniso, touched=touched)
+    fetches = torch.zeros((), dtype=torch.long)
+    want = env_sample_plain(pyr, D, gx, gy, grad=grad, aniso=aniso, touched=touched,
+                            fetches=fetches)
     assert touched.any() and not touched.all()
+    probes = envmap.ANISO_PROBES if aniso > 1 else 1
+    if grad:
+        assert probes * 500 < int(fetches) < 2 * probes * 500
+    else:
+        assert int(fetches) == 500
     if not grad:
         h, w = pyr.base
         assert not touched[h * w:].any()
@@ -242,3 +250,25 @@ def test_plain_sampler_marks_the_texels_it_reads(sky, grad, aniso):
     env_sample_plain(pyr, D[:1], gx[:1], gy[:1], grad=grad, aniso=aniso, touched=one)
     fetches = (2 * (envmap.ANISO_PROBES if aniso > 1 else 1)) if grad else 1
     assert 1 <= int(one.sum()) <= 4 * fetches
+
+
+@pytest.mark.parametrize("aniso", [1, 4])
+def test_lod_on_a_level_needs_no_upper_level(sky, aniso):
+    """A footprint whose lod clamps to level 0 gives the upper level of
+    its trilinear weight 0: the lookup needs level 0 only (one fetch a
+    probe), and equals the level-0 bilinear fetch at the probes."""
+    from shader_ray_tpu_torch.ops.env_kernel import env_sample_plain
+
+    pyr = envmap.EnvPyramid.pack(sky)
+    D, gx, gy = (torch.from_numpy(x) for x in _rays(53, 500))
+    gx, gy = gx * 1e-6, gy * 1e-6   # rho < 1 at every ray: lod 0
+    touched = torch.zeros(pyr.texels.shape[0], dtype=torch.bool)
+    fetches = torch.zeros((), dtype=torch.long)
+    got = env_sample_plain(pyr, D, gx, gy, grad=True, aniso=aniso, touched=touched,
+                           fetches=fetches)
+    h, w = pyr.base
+    assert touched[: h * w].any() and not touched[h * w:].any()
+    assert int(fetches) == 500 * (envmap.ANISO_PROBES if aniso > 1 else 1)
+    if aniso == 1:
+        u, v = envmap.env_coords(D)
+        torch.testing.assert_close(got, envmap.bilinear_level0(pyr.level0, u, v), rtol=0, atol=0)
