@@ -9,23 +9,31 @@ port's two paths through the Renderer's entry points:
 
 * the fused path (``frame_kernel``): make_fn, make_progressive_fn,
   make_count_fn at which=0, gated on tests/golden/bench_which0.npy;
+  make_fn at which=1 (env_aniso=4) and which=2, one launch a frame, held
+  to the unfused route's frames, and which=1's progressive and count;
+  make_stats_fn, its per-tile rows summed against the frame's counter
+  row and the count;
 * the unfused path (``trace_wide``, ``trace_binary``, ``env_sample``):
   ``Config(packet_fused=False)`` and ``Config(packet_kernel="binary")``
   at which=0 (held to the fused frame and the same golden), which=5
   (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3.
 
-The frame kernel is also held to its plain version on the control-flow
-cases of its wave compaction (FRAME_CASES), the two trace kernels on the
+The frame kernel is also held to its plain version in each of its env
+modes and on the control-flow cases of its wave compaction (FRAME_CASES,
+a ray exactly along +y among them: NaN in the grad modes exactly where
+the plain version has it), the two trace kernels on the
 edges of their active masks and ray layouts (TRACE_CASES), the env sampler
 on directions exactly along +-y (NaN in grad mode exactly where the plain
-version has it, env_disagreement), and the four kernels' launch resources
-(registers, shared memory, blocks an SM) are printed.  Each path runs
+version has it, env_disagreement), and the kernels' launch resources
+(registers, shared memory, blocks an SM; the frame kernel's for each env
+mode) are printed.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times every kernel with CUDA events at the main path's shapes
 beside its bound and its plain version (the trace kernels also beside
 the bytes their loads move through the caches, counted from the plain
 walks' work), the frame kernel also beside
-the same frame's six walks as separate trace_wide launches, and prints
+the same frame's six walks as separate trace_wide launches and in its
+grad modes beside the unfused which=1 frame, and prints
 one JSON line with the kernel table plus a final status line.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one NVIDIA GPU
@@ -52,6 +60,7 @@ TIMED = 100  # timed calls per series
 GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_which0.npy")
 GOLDEN5 = os.path.join(ROOT, "tests", "golden", "bench_which5_oracle.npy")
 KERNEL_SOURCES = ("frame_kernel", "trace_kernel", "trace_binary_kernel", "env_kernel")
+GRAD_MODES = ((1, 4), (2, 1))  # (which, env_aniso) of the fused grad-mode frames
 
 # bound model (ops a sequential walk with early exits executes on this
 # run's rays, f32, FMA = 2; counted by the plain versions).  A slab test
@@ -198,10 +207,12 @@ def golden_gate(img, path: str, what: str) -> None:
         raise AssertionError(f"golden gate failed: {what} against {path}")
 
 # cases of the frame kernel's control flow (wave compaction, ragged
-# tiles, early exits), held to frame_plain here and in
-# tests/test_torch_isolation.py
+# tiles, early exits) and of its env modes (which = 1 with aniso 1 and 4,
+# which = 2; a ray exactly along +y in both, NaN in the plain version),
+# held to frame_plain here and in tests/test_torch_isolation.py
 FRAME_CASES = ("all-miss", "all-hit", "bad", "bounces0", "bounces1-noshadow",
-               "nodiffuse", "k3-ragged")
+               "nodiffuse", "k3-ragged", "which1", "which1-aniso4", "which2",
+               "which1-aniso4-pole", "which2-pole")
 
 
 @functools.cache
@@ -221,7 +232,9 @@ def _case_tables(inside: bool):
 def frame_case(name: str, device):
     """(packed tables, uniforms, jitters, FrameSettings) of one control
     flow case on ``device``: a 5000-triangle bench-like scene (the inside
-    of a closed sphere for "all-hit")."""
+    of a closed sphere for "all-hit").  A pole case looks up +y from
+    beside the scene at a 64 x 64 frame with the jitter (0.5, 0.5): the
+    centre pixel's ray is exactly (0, 1, 0)."""
     import dataclasses
 
     import numpy as np
@@ -247,6 +260,15 @@ def frame_case(name: str, device):
             mat4.make_rotation(np.pi, 0.0, 1.0, 0.0)))
     fs = FrameSettings(width=64, height=48)
     k = 1
+    if name.startswith("which"):
+        fs = fs._replace(which=int(name[5]), env_aniso=4 if "aniso4" in name else 1)
+    if name.endswith("-pole"):
+        # eye -z to world +y, exactly: the centre ray's direction is (0, 1, 0)
+        up = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+        params = params._replace(camera_normal_matrix=torch.from_numpy(up))
+        fs = fs._replace(height=64)
+        return packed.to(device), pack_uniforms(params).to(device), \
+            torch.tensor([[0.5, 0.5]], device=device), fs
     if name == "bounces0":
         fs = fs._replace(bounce_count=0)
     elif name == "bounces1-noshadow":
@@ -262,13 +284,23 @@ def frame_case(name: str, device):
 
 def case_unmet(name: str, fs, colour, counters) -> str | None:
     """What a case's plain frame fails to show of the path it is for,
-    or None."""
+    or None.  An env-mode case bounces some rays (their differentials
+    are transferred) and is finite; a pole case is NaN at exactly one
+    pixel, the centre one."""
     import torch
 
     k = 3 if name == "k3-ragged" else 1
     primaries = k * fs.width * fs.height
     cast = int(counters[0])
     painted = int((colour == torch.tensor([1.0, 0.0, 0.0], device=colour.device)).all(-1).sum())
+    nan = torch.isnan(colour).any(-1)
+    if name.startswith("which"):
+        pole = name.endswith("-pole")
+        centre = bool(nan[fs.height // 2 - 1, fs.width // 2 - 1]) if nan.shape[:2] == (
+            fs.height, fs.width) else False
+        unmet = (int(nan.sum()) != (1 if pole else 0) or (pole and not centre)
+                 or (not pole and cast <= primaries))
+        return f"case {name}: cast {cast}, {int(nan.sum())} NaN pixels" if unmet else None
     unmet = {
         "all-miss": cast != primaries,
         "all-hit": cast < fs.bounce_count * primaries or painted != 0,
@@ -308,12 +340,17 @@ def frame_disagreement(kc, kn, pc, pn) -> str | None:
     plain version does not, so a grazing ray may flip: mean abs colour
     <= 1e-4, rays cast within 1e-4 (one ray on a small frame), each walk
     counter within its limit (walk_counter_excess), the same counter row
-    length and finite colour."""
+    length, and colour NaN exactly where the plain version's is (a
+    grad-mode ray along +-y) and finite everywhere else."""
     import torch
 
     cast_k, cast_p = int(kn[0]), int(pn[0])
     if kc.shape != pc.shape or kn.shape != pn.shape:
         return f"shapes {tuple(kc.shape)} {tuple(kn.shape)} vs {tuple(pc.shape)} {tuple(pn.shape)}"
+    nan = torch.isnan(pc)
+    if not torch.equal(torch.isnan(kc), nan):
+        return "NaN where the plain version has none, or none where it has"
+    kc, pc = kc[~nan], pc[~nan]
     if not torch.isfinite(kc).all():
         return "non-finite colour"
     if float((kc - pc).abs().mean()) > 1e-4:
@@ -591,11 +628,13 @@ def main() -> int:
           f"{packed.n_wide} wide nodes, stack {packed.stack_depth}, "
           f"{pyramid.n_levels} env levels from {pyramid.base}; "
           f"build {t_build:.2f} s, 3 packs+uploads {t_pack:.2f} s")
-    info = fk.launch_info(packed.stack_depth)
-    print(f"frame_kernel launch at stack {packed.stack_depth}: {info['registers']} registers, "
-          f"{info['local_bytes']} B local a thread, shared {info['static_smem']} B static + "
-          f"{info['dynamic_smem']} B stack a block, {info['threads']} threads a block "
-          f"({info['tile_w']}x{info['tile_h']} tile), {info['blocks_per_sm']} blocks an SM")
+    frame_info = {mode: fk.launch_info(packed.stack_depth, mode) for mode in fk.FRAME_MODES}
+    for mode, info in frame_info.items():
+        print(f"frame_kernel launch, {mode}, at stack {packed.stack_depth}: {info['registers']} "
+              f"registers, {info['local_bytes']} B local a thread, shared {info['static_smem']} B "
+              f"static + {info['dynamic_smem']} B dynamic (stack{' and differentials' if mode != 'bilinear' else ''}) "
+              f"a block, {info['threads']} threads a block ({info['tile_w']}x{info['tile_h']} tile), "
+              f"{info['blocks_per_sm']} blocks an SM")
     for name in ("trace_wide", "trace_binary"):
         info = tk.launch_info(name, packed.stack_depth)
         print(f"{name} launch at stack {packed.stack_depth}: {info['registers']} registers, "
@@ -614,27 +653,31 @@ def main() -> int:
     errs = dict.fromkeys(("frame_kernel", "trace_wide", "trace_binary", "env_sample"), 0.0)
 
     # 4. each kernel vs its plain version on the card
-    def compare(w: int, h: int, jit: torch.Tensor, probe: dict | None = None):
+    def compare(w: int, h: int, jit: torch.Tensor, probe: dict | None = None, which: int = 0,
+                aniso: int = 1):
         k = jit.shape[0]
-        fs = fk.FrameSettings(width=w, height=h)
+        fs = fk.FrameSettings(width=w, height=h, which=which, env_aniso=aniso)
         kc, kn = fk.frame_kernel(packed, uni, jit, fs)
         pc, pn = fk.frame_plain(packed, uni, jit, fs, probe)
         torch.cuda.synchronize()
         diff = (kc - pc).abs()
-        errs["frame_kernel"] = max(errs["frame_kernel"], float(diff.max()))
+        errs["frame_kernel"] = max(errs["frame_kernel"], float(diff.nan_to_num(0.0).max()))
         kn, pn = kn.cpu(), pn.cpu()
         cast_rel = abs(int(kn[0]) - int(pn[0])) / max(int(pn[0]), 1)
         excess, i = walk_counter_excess(kn, pn)
-        print(f"frame_kernel vs plain {w}x{h} K={k}: max abs {float(diff.max()):.3e}, "
-              f"mean abs {float(diff.mean()):.3e}; cast {int(kn[0])} vs {int(pn[0])} "
-              f"(rel {cast_rel:.2e}); walk counters: worst {int(kn[i])} vs {int(pn[i])} "
-              f"(counter {i}), {excess:.3f} of its limit")
+        print(f"frame_kernel vs plain {w}x{h} K={k} which={which} aniso={aniso}: max abs "
+              f"{float(diff.max()):.3e}, mean abs {float(diff.mean()):.3e}; cast {int(kn[0])} vs "
+              f"{int(pn[0])} (rel {cast_rel:.2e}); walk counters: worst {int(kn[i])} vs "
+              f"{int(pn[i])} (counter {i}), {excess:.3f} of its limit")
         why = frame_disagreement(kc, kn, pc, pn)
         if why:
-            raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k}: {why}")
+            raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k} "
+                                 f"which={which} aniso={aniso}: {why}")
 
     compare(*SMALL, torch.from_numpy(halton_jitters(1)).cuda())
     compare(*SMALL, torch.from_numpy(halton_jitters(4)).cuda())
+    for which, aniso in ((1, 1), (1, 4), (2, 1)):
+        compare(*SMALL, torch.from_numpy(halton_jitters(2)).cuda(), which=which, aniso=aniso)
     red = torch.tensor([1.0, 0.0, 0.0], device="cuda")
     for name in FRAME_CASES:
         c_packed, c_uni, c_jit, c_fs = frame_case(name, torch.device("cuda"))
@@ -644,7 +687,9 @@ def main() -> int:
         painted = int((kc == red).all(-1).sum()), int((pc == red).all(-1).sum())
         print(f"frame_kernel vs plain, case {name} ({c_fs.width}x{c_fs.height} K={c_jit.shape[0]}, "
               f"{c_fs.bounce_count} bounces, shadows {c_fs.cast_shadows}, diffuse "
-              f"{c_fs.enable_diffuse}): mean abs {float((kc - pc).abs().mean()):.3e}, cast "
+              f"{c_fs.enable_diffuse}, which {c_fs.which}, aniso {c_fs.env_aniso}): NaN pixels "
+              f"{int(torch.isnan(kc).any(-1).sum())} vs {int(torch.isnan(pc).any(-1).sum())}, "
+              f"mean abs {float((kc - pc).abs().nanmean()):.3e}, cast "
               f"{int(kn[0])} vs {int(pn[0])}, walk counters {kn[1:].sum().item()} vs "
               f"{pn[1:].sum().item()} (worst {walk_counter_excess(kn.cpu(), pn.cpu())[0]:.3f} "
               f"of its limit), bad-painted pixels {painted[0]} vs {painted[1]}")
@@ -811,6 +856,49 @@ def main() -> int:
     print(f"count: {cast} rays cast of {W * H * 6} potential")
     if not W * H <= cast <= W * H * 6:
         raise AssertionError(f"cast count {cast} outside [W*H, 6*W*H]")
+
+    # the grad-env modes on the same route: one frame-kernel launch a
+    # frame, no trace and no env launch; held to the unfused route below
+    fused_grad = {}
+    for which, aniso in GRAD_MODES:
+        before = dict(_build.LAUNCHES)
+        f = renderer.make_fn(linear._replace(which=which, env_aniso=aniso))(params)
+        torch.cuda.synchronize()
+        added = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items() if n != before.get(k, 0)}
+        print(f"fused path: make_fn {W}x{H} which={which} aniso={aniso}: launches {added}, "
+              f"shape {tuple(f.shape)}, finite {bool(torch.isfinite(f).all())}, "
+              f"mean {float(f.mean()):.4f}")
+        if added != {"frame_kernel": 1} or tuple(f.shape) != (H, W, 3) or not torch.isfinite(f).all():
+            raise AssertionError(f"fused which={which}: one frame_kernel launch and a finite frame")
+        fused_grad[which] = f
+    grad1 = linear._replace(which=1, env_aniso=4)
+    prog1 = renderer.make_progressive_fn(grad1, 4)(params)
+    mean1 = sum(renderer.make_fn(grad1)(params._replace(pixel_jitter=torch.from_numpy(j)))
+                for j in halton_jitters(4)) / 4
+    rel1 = float(((prog1 - mean1).abs() / mean1.abs().clamp_min(1e-6)).max())
+    cast1 = renderer.make_count_fn(grad1)(params)
+    print(f"progressive which=1 aniso=4 K=4: max rel diff vs mean of 4 frames {rel1:.3e} "
+          f"(limit 1e-5); count at which=1 {cast1} (which=0: {cast})")
+    if rel1 > 1e-5 or cast1 != cast:
+        raise AssertionError("fused which=1: progressive or count disagrees")
+
+    # the stats fn: a which=0 frame's counter row per 16x16 tile
+    rows = renderer.make_stats_fn(statics)(params)
+    fs0 = fk.FrameSettings(width=W, height=H)
+    frame_row = fk.frame_kernel(packed, uni, torch.zeros((1, 2), device="cuda"), fs0)[1]
+    torch.cuda.synchronize()
+    phases = fk.stats_phases(statics.bounce_count, statics.cast_shadows, statics.enable_diffuse)
+    print(f"stats fn: rows {tuple(rows.shape)} ({fs0.n_tiles()} tiles x 1 + 3 x {len(phases)} "
+          f"phases); column sums equal the frame's row: {bool(torch.equal(rows.sum(0), frame_row))}; "
+          f"rays cast {int(rows[:, 0].sum())} (make_count_fn {cast})")
+    for p, name in enumerate(phases):
+        pops = rows[:, 1 + 3 * p].double()
+        print(f"  {name}: node pops a tile mean {float(pops.mean()):.1f} (max {int(pops.max())}), "
+              f"leaf visits {float(rows[:, 2 + 3 * p].double().mean()):.1f}, triangle tests "
+              f"{float(rows[:, 3 + 3 * p].double().mean()):.1f}")
+    if (tuple(rows.shape) != (fs0.n_tiles(), 1 + 3 * len(phases))
+            or not torch.equal(rows.sum(0), frame_row) or int(rows[:, 0].sum()) != cast):
+        raise AssertionError("stats fn rows disagree with the frame's counter row or the count")
     torch.cuda.synchronize()
     launches = {"frame_kernel": _build.LAUNCHES["frame_kernel"]}
     print(f"fused path launches: {dict(_build.LAUNCHES)}")
@@ -874,6 +962,17 @@ def main() -> int:
     if min(launches.values()) < 1 or _build.LAUNCHES["frame_kernel"] != 0:
         raise AssertionError("the unfused path must launch trace_wide, trace_binary and "
                              "env_sample, and never frame_kernel")
+    # the fused grad-mode frames against the unfused route's (the same
+    # walk; FMA contraction in raygen, shading and the lookup): mean abs
+    # <= 1e-5 of the frame's mean magnitude (at least 1)
+    for which, aniso in GRAD_MODES:
+        u = unfused.make_fn(linear._replace(which=which, env_aniso=aniso))(params)
+        scale = max(1.0, float(u.abs().mean()))
+        diff = float((fused_grad[which] - u).abs().mean())
+        print(f"fused vs unfused which={which} aniso={aniso}: mean abs {diff:.3e} on linear colour "
+              f"(limit {1e-5 * scale:.3e})")
+        if not torch.isfinite(u).all() or diff > 1e-5 * scale:
+            raise AssertionError(f"the fused which={which} frame disagrees with the unfused one")
 
     # 7. timing at the main paths' shapes
     print(f"timing on {card}:")
@@ -936,6 +1035,46 @@ def main() -> int:
     print(f"  A/B on {card}: frame_kernel {W}x{H} K=1 {summary(ab['fused'])}; the same "
           f"frame's {len(recorded)} walks as separate trace_wide launches (rays cast "
           f"{sum(int(a.sum()) for _, _, a, _ in recorded)}) {summary(ab['walks'])}")
+
+    # the grad-mode instantiations on the bench frame: kernel, plain
+    # version, make_fn end to end, and the bound with the env term's work
+    # (which=1: the lookup's fetches at a non-zero weight and the distinct
+    # texels they read, counted by the plain version on the env call's
+    # rays; which=2: derivative math, no texel)
+    grad_entry, grad_e2e = {}, {}
+    for which, aniso in GRAD_MODES:
+        fsg = fk.FrameSettings(width=W, height=H, which=which, env_aniso=aniso)
+        t_k = cuda_times(lambda: fk.frame_kernel(packed, uni, one, fsg), TIMED)
+        t_p = cuda_times(lambda: fk.frame_plain(packed, uni, one, fsg), 2)
+        frame_g = renderer.make_fn(statics._replace(which=which, env_aniso=aniso))
+        grad_e2e[which] = host_times(lambda: frame_g(params), TIMED)
+        probe = {}
+        compare(W, H, one, probe, which, aniso)
+        g_ops, work = walk_ops(probe["walks"], 0, OPS_WOOP)
+        n_env = probe["env_D"].shape[0]
+        if which == 1:
+            texels, fetches = env_needs(probe["env_D"], probe["env_dDdx"], probe["env_dDdy"], True,
+                                        aniso)
+            g_ops += n_env * (OPS_ENV_COORDS + OPS_ENV_GRAD) + fetches * OPS_PER_FETCH
+        else:
+            texels, fetches = 0, 0
+            g_ops += n_env * OPS_ENV_GRAD
+        g_moved = wide_tables + texels + nbytes(uni) + W * H * 3 * 4
+        del probe
+        g_ms = float(np.median(t_k))
+        g_b_ms, g_b_by = bound(g_ops, g_moved)
+        info = frame_info[fsg.mode()]
+        print(f"  frame_kernel {W}x{H} K=1 which={which} aniso={aniso} ({fsg.mode()}; "
+              f"{info['registers']} registers, {info['blocks_per_sm']} blocks an SM), CUDA events: "
+              f"{summary(t_k)}; make_fn end to end (host clock): {summary(grad_e2e[which])}; "
+              f"frame_plain {summary(t_p)}; bound: {work}, {fetches} env fetches -> "
+              f"{g_ops:.4g} ops ({g_ops / PEAK_F32 * 1e3:.4f} ms), {g_moved} bytes of which "
+              f"{texels} of distinct texels ({g_moved / PEAK_BYTES * 1e3:.4f} ms): {g_b_ms:.4f} ms, "
+              f"by {g_b_by}; {g_b_ms / g_ms:.2%} of the kernel's median")
+        key = f"which{which}" + (f"_aniso{aniso}" if which == 1 else "")
+        grad_entry.update({f"{key}_ms": g_ms, f"{key}_plain_ms": float(np.median(t_p)),
+                           f"{key}_bound_ms": g_b_ms, f"{key}_bound_by": g_b_by,
+                           f"{key}_registers": info["registers"]})
     table = [{
         "name": "frame_kernel", "route": "cuda",
         "source": "shader_ray_tpu_torch/csrc/frame_kernel.cu",
@@ -943,6 +1082,8 @@ def main() -> int:
         "launches": launches["frame_kernel"], "max_abs_err": errs["frame_kernel"],
         "ms": ms, "plain_ms": float(np.median(plain_t)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "registers": frame_info["bilinear"]["registers"],
+        **grad_entry,
     }]
 
     # the trace kernels on the bench primaries: closest hit is the entry's
@@ -1047,6 +1188,10 @@ def main() -> int:
                   + f"; busy {busy:.3f} ms = {busy / float(np.median(t_u)):.1%} of the frame's "
                   f"host-clock median")
         if st.which == 1:
+            print(f"    beside it, the fused which=1 aniso=4 frame: kernel "
+                  f"{grad_entry['which1_aniso4_ms']:.3f} ms (CUDA events, median), make_fn "
+                  f"{float(np.median(grad_e2e[1])):.3f} ms end to end; which=2: kernel "
+                  f"{grad_entry['which2_ms']:.3f} ms, make_fn {float(np.median(grad_e2e[2])):.3f} ms")
             # the rays of the frame's env call, caught from one more frame
             caught = []
 

@@ -8,7 +8,19 @@
 // packet_mega.packet_shade) with its walker make_wide_walker
 // (kernel_wide.py), leaf math slot_hit/slot_normal/safe_inv
 // (kernel_body.py) and fused env sampler env_window_body /
-// env_coords_kernel (envwin.py, trig.py), for which = 0.
+// env_coords_kernel (envwin.py, trig.py), in both of its forms:
+//   which = 0        level-0 bilinear env term, no ray differentials;
+//   which = 1        with_grads: raygen seeds dDdx / dDdy
+//                    (kernel_mega.py:221-232), each hit transfers them
+//                    with the fs:92-93 quirk (:356-366), and the env term
+//                    is textureGrad's trilinear, with aniso probes when
+//                    aniso > 1 (:407-453);
+//   which = 2        with_grads, the dY-differential picture (:393-404).
+// One kernel a mode (template argument ENV), so the which = 0 kernel
+// carries no differential state.  The grad modes keep the six
+// differential floats of each slot in shared memory after the stack
+// (+6 KB a block) and read the env through env.cuh's radiance<>, after
+// the last barrier of a sample, where the walk's registers are dead.
 //
 // What bounds it here: operations and the latency of dependent loads in
 // divergent walks, not bytes.  The scene (node table + Woop records,
@@ -38,16 +50,18 @@
 //     leave the block with one 64-bit atomic per counter;
 //   * nodes and Woop test rows are read with 16-byte loads, a hit's
 //     normal terms once a walk (walk.cuh).
-// What holds it now: 108 registers and the 64 KB stack allow 2 blocks
-// (16 warps) an SM, and a block waits at each phase's barrier for its
-// slowest walk.  Tiles of 16x8, 16x4, 32x8, 32x16 and 16x32, part of
+// What holds it now: 106 registers (which = 0; 108-125 in the grad
+// modes) and the 64 KB stack (+6 KB of differentials in the grad modes)
+// allow 2 blocks (16 warps) an SM, and a block waits at each phase's
+// barrier for its slowest walk.  Tiles of 16x8, 16x4, 32x8, 32x16 and 16x32, part of
 // the stack in local memory, fewer registers and persistent blocks were
 // all slower or no faster (PERF.md section 6).
 //
 // Sums are deterministic: a pixel's owner thread adds its samples in
 // order k = 0..K-1 and writes their mean (no atomics on colour).
 // Counters (rays cast; per walk phase node pops, leaf visits, triangle
-// tests) are exact.
+// tests) are exact; a block can also write its own tile's row of them
+// (the stats fn), which needs no atomics.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (accurate atan2f/acosf/sqrtf/div:
@@ -72,6 +86,18 @@ constexpr int WARPS = BLOCK / 32;
 constexpr int MAX_PHASES = 16;
 constexpr int N_COUNTERS = 1 + 3 * MAX_PHASES;
 static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "a tile is whole warps");
+
+// the env modes of a frame: BILINEAR (which = 0), GRAD and PROBES
+// (which = 1, aniso 1 or more; env.cuh), and the dY picture (which = 2)
+constexpr int DY_PICTURE = 3;
+constexpr int N_MODES = 4;
+constexpr int N_GRAD = 6;  // differential floats a ray: dDdx.xyz, dDdy.xyz
+
+// dynamic shared bytes of a block: the stack, then in the grad modes
+// the slots' differentials
+constexpr size_t smem_bytes(int mode, int stack_depth) {
+    return ((size_t)stack_depth + (mode == BILINEAR ? 0 : N_GRAD)) * BLOCK * sizeof(int);
+}
 
 // uniform table layout (kernel_mega.py:43-54)
 constexpr int UNI_OBJECT_MATRIX = 0;
@@ -133,16 +159,20 @@ __device__ __forceinline__ void count(unsigned long long* cnt, int ph,
     }
 }
 
-// (BLOCK, 1): ptxas then keeps the walk's loads in flight in 107
-// registers without spilling; with (BLOCK) alone it chose 80 registers
-// and spilled 76 bytes in an earlier form of this kernel
+// (BLOCK, 1): ptxas then keeps the walk's loads in flight without
+// spilling (106-125 registers over the modes); with (BLOCK) alone it
+// chose 80 registers and spilled 76 bytes in an earlier form of this
+// kernel
+template <int ENV>
 __global__ void __launch_bounds__(BLOCK, 1)
-frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
+frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
       const float* __restrict__ uni_g, const float* __restrict__ jit, int K,
       int W, int H, int tiles_x,
       float inv_w, float inv_h, float aspect, int bounces,
       bool shadows, bool diffuse, float fudge, int n_counters,
-      float* __restrict__ out, unsigned long long* __restrict__ counters) {
+      float* __restrict__ out, unsigned long long* __restrict__ counters,
+      unsigned long long* __restrict__ rows) {
+    constexpr bool GRADS = ENV != BILINEAR;
     __shared__ float u[UNI_SIZE];
     __shared__ unsigned long long cnt[N_COUNTERS];
     // ray state of the tile's slots (slot = owner thread = pixel)
@@ -151,7 +181,9 @@ frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
     __shared__ unsigned char sFlag[BLOCK], sBad[BLOCK];
     __shared__ short q[BLOCK];
     __shared__ int wcount[WARPS];
-    extern __shared__ int stack_sh[];  // (stack_depth, BLOCK)
+    extern __shared__ int stack_sh[];  // (stack_depth, BLOCK); grad modes: then (N_GRAD, BLOCK) floats
+    // grad modes: the slots' dDdx (rows 0-2) and dDdy (rows 3-5)
+    float* const sG = reinterpret_cast<float*>(stack_sh + s.stack_depth * BLOCK);
 
     const int tid = threadIdx.x;
     for (int i = tid; i < UNI_SIZE; i += BLOCK) u[i] = uni_g[i];
@@ -192,9 +224,27 @@ frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
                 float Dy = cmx[3] * dex + cmx[4] * dey + cmx[5] * dez;
                 float Dz = cmx[6] * dex + cmx[7] * dey + cmx[8] * dez;
                 const float inv_d = 1.0f / sqrtf(Dx * Dx + Dy * Dy + Dz * Dz);
-                sD[0][tid] = Dx * inv_d;
-                sD[1][tid] = Dy * inv_d;
-                sD[2][tid] = Dz * inv_d;
+                Dx *= inv_d;
+                Dy *= inv_d;
+                Dz *= inv_d;
+                sD[0][tid] = Dx;
+                sD[1][tid] = Dy;
+                sD[2][tid] = Dz;
+                if constexpr (GRADS) {
+                    // seeded differentials (kernel_mega.py:221-232): the camera
+                    // matrix's columns at the image plane's pixel spacing
+                    const float sx = ipw * inv_w, sy = (ipw * aspect) * inv_h;
+                    const float rx = cmx[0] * sx, ry = cmx[3] * sx, rz = cmx[6] * sx;
+                    const float ux = cmx[1] * sy, uy = cmx[4] * sy, uz = cmx[7] * sy;
+                    const float dr = Dx * rx + Dy * ry + Dz * rz;
+                    const float du = Dx * ux + Dy * uy + Dz * uz;
+                    sG[0 * BLOCK + tid] = rx - dr * Dx;
+                    sG[1 * BLOCK + tid] = ry - dr * Dy;
+                    sG[2 * BLOCK + tid] = rz - dr * Dz;
+                    sG[3 * BLOCK + tid] = ux - du * Dx;
+                    sG[4 * BLOCK + tid] = uy - du * Dy;
+                    sG[5 * BLOCK + tid] = uz - du * Dz;
+                }
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
                     sP[c][tid] = u[UNI_CAM_ORIGIN + c];
@@ -256,6 +306,18 @@ frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
                         sD[0][r] = rDx;
                         sD[1][r] = rDy;
                         sD[2][r] = rDz;
+                        if constexpr (GRADS) {
+                            // the fs:92-93 quirk kept verbatim: the SCALAR
+                            // 2 dot(dD, n) off each component (kernel_mega.py:356-366)
+#pragma unroll
+                            for (int g = 0; g < N_GRAD; g += 3) {
+                                float* d = sG + g * BLOCK + r;
+                                const float gd = d[0] * wnx + d[BLOCK] * wny + d[2 * BLOCK] * wnz;
+                                d[0] = d[0] - 2.0f * gd;
+                                d[BLOCK] = d[BLOCK] - 2.0f * gd;
+                                d[2 * BLOCK] = d[2 * BLOCK] - 2.0f * gd;
+                            }
+                        }
 
                         flag = ALIVE;
                         if (diffuse) {
@@ -312,10 +374,23 @@ frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
                 float col0 = 1.0f, col1 = 0.0f, col2 = 0.0f;  // bad-ray paint
                 if (!sBad[tid]) {
                     const float Dx = sD[0][tid], Dy = sD[1][tid], Dz = sD[2][tid];
-                    // env term: level-0 bilinear at the direction's (u, v) (env.cuh)
-                    float eu, ev;
-                    env_uv(sD[0][tid], sD[1][tid], sD[2][tid], eu, ev);
-                    const float3 e = bilinear<false>(env, env0, eu, ev);
+                    float g[N_GRAD] = {};
+                    if constexpr (GRADS) {
+#pragma unroll
+                        for (int c = 0; c < N_GRAD; ++c) g[c] = sG[c * BLOCK + tid];
+                    }
+                    float3 e;
+                    if constexpr (ENV == DY_PICTURE) {
+                        // |du/dy|, |dv/dy| x 100 (kernel_mega.py:393-404, fs:147-149)
+                        const float denom_u = TAU_REF * (Dx * Dx + Dz * Dz);
+                        const float denom_v = PI_REF * sqrtf(max_nan(1.0f - Dy * Dy, 1e-12f));
+                        e = make_float3(fabsf((Dx * g[5] - Dz * g[3]) / denom_u) * 100.0f,
+                                        fabsf(g[4] / denom_v) * 100.0f, 0.0f);
+                    } else {
+                        // the env lookup of this mode (env.cuh)
+                        e = radiance<ENV>(env, lv, Dx, Dy, Dz, g[0], g[1], g[2], g[3], g[4], g[5],
+                                          aniso);
+                    }
                     col0 = sAcc[0][tid] + sMod[0][tid] * e.x;
                     col1 = sAcc[1][tid] + sMod[1][tid] * e.y;
                     col2 = sAcc[2][tid] + sMod[2][tid] * e.z;
@@ -333,16 +408,24 @@ frame(Scene s, const float4* __restrict__ env, EnvLevel env0,
         }
     }
 
-    // counters: one 64-bit atomic per counter and block
+    // counters: the block's row where asked, and one 64-bit atomic per
+    // counter and block into the frame's
     __syncthreads();
     for (int c = tid; c < n_counters; c += BLOCK) {
+        if (rows) rows[(size_t)blockIdx.x * n_counters + c] = cnt[c];
         if (cnt[c]) atomicAdd(counters + c, cnt[c]);
     }
 }
 
+using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, int, int,
+                        int, int, float, float, float, int, bool, bool, float, int, float*,
+                        unsigned long long*, unsigned long long*);
+const Kernel KERNELS[N_MODES] = {frame<BILINEAR>, frame<GRAD>, frame<PROBES>, frame<DY_PICTURE>};
+
 // The stack's dynamic shared memory is above the 48 KB a launch gets
-// without asking: raise the kernel's limit to what MAX_STACK entries
-// take, once a device (a launch still asks only for its scene's depth).
+// without asking: raise each kernel's limit to what MAX_STACK entries
+// (and its differentials) take, once a device (a launch still asks only
+// for its scene's depth).
 cudaError_t allow_stack_smem() {
     static std::atomic<unsigned long long> raised{0};  // bit d: device d
     int dev = 0;
@@ -350,56 +433,70 @@ cudaError_t allow_stack_smem() {
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
     if (raised.load() & bit) return cudaSuccess;
-    err = cudaFuncSetAttribute(frame, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               MAX_STACK * BLOCK * (int)sizeof(int));
+    for (int mode = 0; mode < N_MODES && err == cudaSuccess; ++mode)
+        err = cudaFuncSetAttribute(KERNELS[mode], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes(mode, MAX_STACK));
     if (err == cudaSuccess) raised.fetch_or(bit);
     return err;
 }
 
+// the kernel of a frame's which (0, 1, 2) and aniso; -1 if none
+int env_mode(int which, int aniso) {
+    if (aniso < 1) return -1;
+    return which == 0 ? BILINEAR : which == 1 ? (aniso > 1 ? PROBES : GRAD)
+         : which == 2 ? DY_PICTURE : -1;
+}
+
 }  // namespace
 
+// env: the pyramid's texels; levels: host array of n_levels (texel
+// offset, height, width) rows, level 0 first.  rows: null, or the
+// (tiles, 1 + 3 * phases) per-tile counter rows.
 extern "C" int srt_frame_kernel(
     const float* nodes, const float* leaves, const float* normals,
-    const void* env, int env_h, int env_w,
+    const void* env, const int* levels, int n_levels, int which, int aniso,
     const float* uni, const float* jitters, int K, int W, int H,
     float inv_w, float inv_h, float aspect,
     int bounces, int shadows, int diffuse, float fudge, float mt_eps,
     int max_steps, int stack_depth,
-    float* out, unsigned long long* counters, void* stream) {
+    float* out, unsigned long long* counters, unsigned long long* rows, void* stream) {
     const bool cast = shadows != 0 && diffuse != 0;
     const int phases = bounces * (cast ? 2 : 1);
+    const int mode = env_mode(which, aniso);
+    Levels lv;
     if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
-        stack_depth < 1 || stack_depth > MAX_STACK || env_h < 1 || (env_h & (env_h - 1)) ||
-        env_w < 1 || (env_w & (env_w - 1)))
+        stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv))
         return (int)cudaErrorInvalidValue;
-    // the stack takes stack_depth * BLOCK ints: up to 128 KB
-    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     const int tiles_x = (W + TILE_W - 1) / TILE_W;
     const unsigned grid = (unsigned)tiles_x * (unsigned)((H + TILE_H - 1) / TILE_H);
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
-    frame<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
-        s, static_cast<const float4*>(env), env_level(0, env_h, env_w), uni, jitters, K, W, H, tiles_x,
+    KERNELS[mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
+        s, static_cast<const float4*>(env), lv, (float)aniso, uni, jitters, K, W, H, tiles_x,
         inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, 1 + 3 * phases,
-        out, counters);
+        out, counters, rows);
     return (int)cudaGetLastError();
 }
 
-// The launch's resources for a scene's stack bound, into info[0..8):
-// registers a thread, static shared bytes, local bytes a thread (stack
-// frame), dynamic shared bytes (the stack), resident blocks an SM,
-// threads a block, tile width, tile height.
-extern "C" int srt_frame_kernel_info(int stack_depth, int* info) {
-    if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)stack_depth * BLOCK * sizeof(int);
+// The launch's resources of the kernel of env mode 0 (which = 0), 1
+// (which = 1, aniso 1), 2 (which = 1, aniso > 1) or 3 (which = 2) for a
+// scene's stack bound, into info[0..8): registers a thread, static
+// shared bytes, local bytes a thread (stack frame), dynamic shared bytes
+// (the stack and the differentials), resident blocks an SM, threads a
+// block, tile width, tile height.
+extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int* info) {
+    if (stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || mode >= N_MODES)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(mode, stack_depth);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;
-    if ((err = cudaFuncGetAttributes(&a, frame)) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&a, KERNELS[mode])) != cudaSuccess) return (int)err;
     int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frame, BLOCK, smem)) != cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNELS[mode], BLOCK, smem)) !=
+        cudaSuccess)
         return (int)err;
     info[0] = a.numRegs;
     info[1] = (int)a.sharedSizeBytes;

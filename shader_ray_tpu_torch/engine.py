@@ -3,7 +3,8 @@ scene onto the device — the 8-wide tables or, with
 ``Config.packet_kernel = "binary"``, the binary ones — and hands out
 frame functions per static render configuration.  A frame function runs
 the fused frame kernel once per call (wide tables, ``Config.packet_fused``,
-``which = 0``) or the unfused trace engine; ops/engine_frame.py routes.
+``which`` 0, 1 or 2) or the unfused trace engine; ops/engine_frame.py
+routes.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.
@@ -18,9 +19,11 @@ from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
 from shader_ray_tpu_torch.ops.engine_frame import (
     count_cast,
+    fused_route,
     halton_jitters,
     render_frame,
     render_progressive,
+    tile_stats,
 )
 from shader_ray_tpu_torch.ops.pack import pack_scene
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
@@ -97,5 +100,22 @@ class Renderer:
 
         def fn(params: FrameParams) -> int:
             return count_cast(self.packed, params, statics, self.max_steps, self.fused)
+
+        return fn
+
+    def make_stats_fn(self, statics: RenderStatics):
+        """``fn(params) -> (n_tiles, 1 + 3 * phases)`` int64 per-tile walk
+        counters of one ``which = 0`` frame at params.pixel_jitter from
+        the fused frame kernel, one row a 16 x 16 pixel tile: column 0
+        rays cast, columns 1+3p / 2+3p / 3+3p phase p's node pops, leaf
+        visits and triangle tests (``frame_kernel.stats_phases`` names
+        the phases).  None where there is no fused route (binary tables,
+        ``packet_fused=False``), as the reference's without the fused
+        packet engine."""
+        if not fused_route(self.packed, statics._replace(which=0), self.fused):
+            return None
+
+        def fn(params: FrameParams) -> torch.Tensor:
+            return tile_stats(self.packed, params, statics, self.max_steps)
 
         return fn

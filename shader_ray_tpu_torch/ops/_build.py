@@ -132,17 +132,18 @@ INFO_KEYS = ("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_
              "threads")
 
 
-def launch_info(name: str, entry: str, arg: int, keys: tuple[str, ...] = INFO_KEYS) -> dict[str, int]:
+def launch_info(name: str, entry: str, *args: int,
+                keys: tuple[str, ...] = INFO_KEYS) -> dict[str, int]:
     """A kernel's launch resources on the current card, from the C entry
-    ``entry(arg, int* info)`` of library ``name``, which fills ``keys``
+    ``entry(*args, int* info)`` of library ``name``, which fills ``keys``
     in order: registers a thread, static shared bytes a block, local
     bytes a thread, dynamic shared bytes a block, resident blocks an SM,
     threads a block, then any of the kernel's own."""
     fn = getattr(library(name)[0], entry)
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * len(keys))()
-    err = fn(arg, ctypes.addressof(info))
+    err = fn(*args, ctypes.addressof(info))
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return dict(zip(keys, info))

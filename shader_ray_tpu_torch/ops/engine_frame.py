@@ -4,19 +4,25 @@ render_progressive_packet).
 
 Routing is by configuration, decided in ``fused_route``:
 
-* ``which = 0``, ``fused`` and wide tables: the fused frame kernel
-  (ops/frame_kernel.py).  One frame or a progressive batch is ONE
-  launch; the kernel averages the K jittered samples in linear space.
-* ``fused=False``, binary tables, or ``which`` in (1, 2): primary rays
-  as tensors (``generate_rays``) through the unfused trace engine
-  (ops/engine_trace.py).  The reference runs ``which = 1/2`` inside its
-  fused kernel when ``fused`` is set; the port's frame kernel does not
-  carry ray differentials yet, so these modes take the unfused engine
-  whatever ``fused`` says.
+* ``which`` 0, 1 or 2, ``fused`` and wide tables: the fused frame kernel
+  (ops/frame_kernel.py), as the reference runs these modes in its fused
+  kernel (engine_pallas.py:555, :606-612, :755-760).  One frame or a
+  progressive batch is ONE launch; the kernel averages the K jittered
+  samples in linear space.  ``which = 1`` and ``2`` run its
+  ``with_grads`` form (ray differentials, textureGrad env or the dY
+  picture).
+* ``fused=False`` or binary tables: primary rays as tensors
+  (``generate_rays``) through the unfused trace engine
+  (ops/engine_trace.py), every ``which``.
 * ``which = 3``: pure math on the primary rays, no trace (fs:642-650).
 * ``which = 5``: the 25 sub-sample offsets of the supersample oracle
-  (fs:654-673), each through the unfused engine, averaged.
+  (fs:654-673), each through the unfused engine, averaged.  The
+  reference traces them in its fused kernel over given rays
+  (engine_pallas.py:229-236); the port's frame kernel generates its rays.
 * any other ``which`` renders as ``which = 0`` does, as in the reference.
+
+``tile_stats`` is the stats fn's frame: the fused kernel's counter row
+of each 16 x 16 pixel tile of a ``which = 0`` frame.
 
 A progressive batch off the fused route renders its K frames one after
 the other and sums them in order.  The tonemap runs once on the linear
@@ -93,18 +99,17 @@ Packed = PackedWide | PackedBinary
 def fused_route(packed: Packed, statics: RenderStatics, fused: bool) -> bool:
     """Whether this configuration renders through the fused frame
     kernel (module docstring)."""
-    return fused and isinstance(packed, PackedWide) and statics.which not in (1, 2, 3, 5)
+    return fused and isinstance(packed, PackedWide) and statics.which not in (3, 5)
 
 
 def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
-    """The fused frame kernel's settings.  The kernel renders no debug
-    mode: ``which`` 1, 2, 3 and 5 have their route in ``unfused_linear``
-    and must not arrive here."""
-    if statics.which in (1, 2, 3, 5):
+    """The fused frame kernel's settings.  ``which`` 3 and 5 have their
+    route in ``unfused_linear`` and must not arrive here; a ``which``
+    the kernel does not know renders as 0."""
+    if statics.which in (3, 5):
         raise NotImplementedError(
-            f"which={statics.which}: the fused frame kernel carries no ray "
-            "differentials; this mode renders through ops/engine_trace "
-            "(render_linear routes it there)"
+            f"which={statics.which} is not a mode of the fused frame kernel; it "
+            "renders through ops/engine_trace (render_linear routes it there)"
         )
     return FrameSettings(
         width=statics.width,
@@ -115,6 +120,8 @@ def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
         surface_fudge=statics.surface_fudge,
         mt_eps=statics.mt_eps,
         max_steps=max_steps,
+        which=statics.which if statics.which in (1, 2) else 0,
+        env_aniso=statics.env_aniso,
     )
 
 
@@ -203,6 +210,23 @@ def count_cast(
     params = _on(params, packed.env_pyramid.texels.device)
     rays = generate_rays(statics, params)
     return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
+
+
+def tile_stats(
+    packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0
+) -> torch.Tensor:
+    """The per-tile counter rows of one ``which = 0`` frame at
+    ``params.pixel_jitter`` through the fused frame kernel:
+    (n_tiles, 1 + 3 * phases) int64, one row a 16 x 16 pixel tile,
+    tiles row-major.  Column 0 rays cast; columns 1+3p, 2+3p, 3+3p phase
+    p's node pops, leaf visits and triangle tests (phases in
+    ``frame_kernel.stats_phases`` order), summed over the tile's rays."""
+    fs = frame_settings(statics._replace(which=0), max_steps)
+    dev = packed.leaves.device
+    rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long, device=dev)
+    frame_kernel(packed, pack_uniforms(params).to(dev), frame_jitter(params).to(dev), fs,
+                 tile_rows=rows)
+    return rows
 
 
 def frame_jitter(params: FrameParams) -> torch.Tensor:

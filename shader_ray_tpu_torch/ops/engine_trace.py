@@ -8,10 +8,10 @@ shadow trace through ``ops/trace_kernel.trace`` — the table type picks
 the 8-wide or the binary kernel — with plain elementwise shading
 (ops/shading.py, ops/vecmath.py) and ray-differential transport between
 them, then the environment term through ``ops/env_kernel.env_sample``.
-It is the A/B engine for the fused frame kernel, the only engine for
-binary tables, and, because it carries ray differentials, the engine of
-the debug modes ``which = 1`` (textureGrad env), ``2`` (dY derivative)
-and ``5`` (supersample oracle, looped by ops/engine_frame.py).
+It is the A/B engine for the fused frame kernel (``packet_fused=False``,
+every ``which``), the only engine for binary tables, and the engine of
+the supersample oracle ``which = 5`` (its 25 sub-frames looped by
+ops/engine_frame.py), whose rays are given, not generated.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from shader_ray_tpu_torch.ops.env_kernel import env_sample
-from shader_ray_tpu_torch.ops.envmap import EnvPyramid, env_derivatives
+from shader_ray_tpu_torch.ops.envmap import EnvPyramid, dy_picture
 from shader_ray_tpu_torch.ops.pack import PackedBinary
 from shader_ray_tpu_torch.ops.pack_wide import PackedWide
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
@@ -37,10 +37,7 @@ def env_lookup(
     mode 2 the dY differential visualization (fs:147-149), no lookup;
     any other mode level-0 bilinear (fs:153)."""
     if statics.which == 2:
-        _, _, dudy, dvdy = env_derivatives(D, dDdx, dDdy)
-        return torch.stack(
-            [torch.abs(dudy) * 100.0, torch.abs(dvdy) * 100.0, torch.zeros_like(dudy)], dim=-1
-        )
+        return dy_picture(D, dDdx, dDdy)
     if statics.which == 1:
         return env_sample(
             env, D.contiguous(), dDdx.contiguous(), dDdy.contiguous(),

@@ -93,6 +93,14 @@ def env_derivatives(D: torch.Tensor, dDdx: torch.Tensor, dDdy: torch.Tensor):
     return dudx, dvdx, dudy, dvdy
 
 
+def dy_picture(D: torch.Tensor, dDdx: torch.Tensor, dDdy: torch.Tensor) -> torch.Tensor:
+    """``which = 2``: the dY differential visualization (fs:147-149),
+    (|du/dy| x 100, |dv/dy| x 100, 0) -> (..., 3).  NaN along +-y."""
+    _, _, dudy, dvdy = env_derivatives(D, dDdx, dDdy)
+    return torch.stack([torch.abs(dudy) * 100.0, torch.abs(dvdy) * 100.0, torch.zeros_like(dudy)],
+                       dim=-1)
+
+
 def aniso_lod_and_probes(rho_x, rho_y, dudx, dvdx, dudy, dvdy, aniso: int):
     """The anisotropic-sampler approximation (envmap.py:91-117 of the
     reference):

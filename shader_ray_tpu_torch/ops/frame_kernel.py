@@ -7,7 +7,12 @@ Replaces the TPU kernel ``mega_kernel``
 packet_mega.packet_shade) with its walker ``make_wide_walker``
 (kernel_wide.py), the leaf math ``slot_hit``/``slot_normal``/
 ``safe_inv`` (kernel_body.py) and the fused env sampler
-(envwin.env_window_body, trig.env_coords_kernel), for ``which = 0``.
+(envwin.env_window_body, trig.env_coords_kernel), in both its forms:
+``which = 0`` (level-0 bilinear env term), and ``with_grads``, where
+raygen seeds the ray differentials, each hit transfers them (the fs:92-93
+quirk kept) and the env term is ``which = 1`` textureGrad (trilinear,
+``env_aniso`` probes) or the ``which = 2`` dY picture.  The kernel has
+one instantiation a mode (``FRAME_MODES``).
 
 ``frame_kernel`` is the wrapper: CPU tensors run ``frame_plain``, the
 same function in plain PyTorch; CUDA tensors launch the hand-written
@@ -17,7 +22,10 @@ colour mean over the jitter samples and an int64 counter row:
 ``[0]`` rays cast (live bounce rays + lcos-gated shadow rays), then per
 walk phase p (bounce walks and shadow walks interleaved, as the
 reference stats row) ``[1+3p]`` node pops, ``[2+3p]`` leaf visits,
-``[3+3p]`` triangle tests.
+``[3+3p]`` triangle tests.  Given ``tile_rows``, an int64
+(n_tiles, 1 + 3 * phases) tensor, both also write the same counts of
+each 16 x 16 pixel tile (all K samples) into its row, tiles row-major;
+the rows' column sums are the frame's row.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ import numpy as np
 import torch
 
 from shader_ray_tpu_torch.ops import _build
-from shader_ray_tpu_torch.ops.envmap import TEXEL, sample_env
+from shader_ray_tpu_torch.ops.env_kernel import MAX_LEVELS, env_sample_plain
+from shader_ray_tpu_torch.ops.envmap import TEXEL, dy_picture, sample_env
 from shader_ray_tpu_torch.ops.pack_wide import LEAF_STRIDE, WIDE, PackedWide
 from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
 
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
+TILE = 16                # a block renders a TILE x TILE pixel tile
+FRAME_MODES = ("bilinear", "grad", "probes", "dy")  # the kernel's instantiations
 
 # uniform table layout (kernel_mega.py:43-54; ops/engine_frame.pack_uniforms)
 UNI_OBJECT_MATRIX = 0    # [:3,:4] row-major, world->object points
@@ -49,6 +60,18 @@ UNI_IPW = 51             # () image plane width = 2*tan(fov/2)
 UNI_SIZE = 52
 
 
+def stats_phases(bounce_count: int, cast_shadows: bool, enable_diffuse: bool) -> list[str]:
+    """The walk phases of the counter row, in order (packet_mega.py:70-81
+    of the reference): each bounce's closest-hit walk, then its shadow
+    walk where shadows are cast (``cast_shadows and enable_diffuse``)."""
+    phases = []
+    for b in range(bounce_count):
+        phases.append(f"bounce{b}")
+        if cast_shadows and enable_diffuse:
+            phases.append(f"shadow{b}")
+    return phases
+
+
 class FrameSettings(NamedTuple):
     """The frame kernel's static arguments."""
 
@@ -60,10 +83,23 @@ class FrameSettings(NamedTuple):
     surface_fudge: float = 1.0e-4
     mt_eps: float = 1.0e-7
     max_steps: int = 0          # node pops per walk; 0 = n_wide + 2
+    which: int = 0              # env term: 0 level-0 bilinear, 1 textureGrad, 2 dY picture
+    env_aniso: int = 1          # which = 1: probes when > 1
 
     def phases(self) -> int:
-        shadows = self.cast_shadows and self.enable_diffuse
-        return self.bounce_count * (2 if shadows else 1)
+        return len(stats_phases(self.bounce_count, self.cast_shadows, self.enable_diffuse))
+
+    def mode(self) -> str:
+        """The kernel instantiation of this frame (``FRAME_MODES``)."""
+        if self.which not in (0, 1, 2) or self.env_aniso < 1:
+            raise ValueError(f"frame_kernel: which={self.which} env_aniso={self.env_aniso}: "
+                             "need which 0, 1 or 2 and env_aniso >= 1")
+        if self.which == 1:
+            return "probes" if self.env_aniso > 1 else "grad"
+        return "dy" if self.which == 2 else "bilinear"
+
+    def n_tiles(self) -> int:
+        return -(-self.width // TILE) * -(-self.height // TILE)
 
 
 def frame_plain(
@@ -72,15 +108,19 @@ def frame_plain(
     jitters: torch.Tensor,
     fs: FrameSettings,
     probe: dict | None = None,
+    tile_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frame kernel's function in plain PyTorch, vectorized over all
     K * H * W sample rays (ray r = k * H * W + pixel): returns the
     (H, W, 3) linear colour mean over the K jitters and the counter
-    row (module docstring).  Arithmetic follows the kernel op by op
-    (kernel_mega.py:174-367 with which = 0).  A ``probe`` dict receives
-    what an operation and byte count of the frame needs: ``"walks"``,
-    each walk phase's ``WalkResult`` in order, and ``"env_D"``, the
-    (K * H * W, 3) directions of the env lookup."""
+    row, and fills ``tile_rows`` if given (module docstring).
+    Arithmetic follows the kernel op by op (kernel_mega.py:174-453).  A
+    ``probe`` dict receives what an operation and byte count of the
+    frame needs: ``"walks"``, each walk phase's ``WalkResult`` in order,
+    and ``"env_D"``, the (K * H * W, 3) directions of the env lookup,
+    with ``"env_dDdx"`` and ``"env_dDdy"``, their differentials, in the
+    grad modes."""
+    fs.mode()  # a mode the kernel has
     W, H = fs.width, fs.height
     K = jitters.shape[0]
     HW = W * H
@@ -114,7 +154,31 @@ def frame_plain(
     Dz = cm[6] * dex + cm[7] * dey + cm[8] * dez
     inv_d = 1.0 / torch.sqrt(Dx * Dx + Dy * Dy + Dz * Dz)
     Dx, Dy, Dz = Dx * inv_d, Dy * inv_d, Dz * inv_d
+    grads = fs.which in (1, 2)
+    if grads:
+        # seeded differentials (kernel_mega.py:221-232): the camera
+        # matrix's columns at the image plane's pixel spacing
+        sx = ipw * inv_w
+        sy = (ipw * aspect) * inv_h
+        rx, ry, rz = cm[0] * sx, cm[3] * sx, cm[6] * sx
+        ux, uy, uz = cm[1] * sy, cm[4] * sy, cm[7] * sy
+        dr = Dx * rx + Dy * ry + Dz * rz
+        du = Dx * ux + Dy * uy + Dz * uz
+        gx = [rx - dr * Dx, ry - dr * Dy, rz - dr * Dz]
+        gy = [ux - du * Dx, uy - du * Dy, uz - du * Dz]
     R = K * HW
+    # the tile of each ray's pixel, for the per-tile rows
+    tiles_x = -(-W // TILE)
+    tile = (pix // W) // TILE * tiles_x + (pix % W) // TILE
+    if tile_rows is not None:
+        _build.check("frame_plain", "tile_rows", tile_rows, torch.long,
+                     (fs.n_tiles(), 1 + 3 * fs.phases()))
+        tile_rows.zero_()
+
+    def count(col: int, per_ray: torch.Tensor) -> None:
+        counters[col] += per_ray.sum()
+        if tile_rows is not None:
+            tile_rows[:, col].index_add_(0, tile, per_ray.long())
     Px, Py, Pz = (u[UNI_CAM_ORIGIN + i].expand(R) for i in range(3))
 
     oLx = nm[0] * Lx + nm[1] * Ly + nm[2] * Lz
@@ -131,15 +195,15 @@ def frame_plain(
 
     def record(w: WalkResult) -> None:
         nonlocal phase
-        counters[1 + 3 * phase] += w.steps.sum()
-        counters[2 + 3 * phase] += w.leafs.sum()
-        counters[3 + 3 * phase] += w.tris.sum()
+        count(1 + 3 * phase, w.steps)
+        count(2 + 3 * phase, w.leafs)
+        count(3 + 3 * phase, w.tris)
         phase += 1
         if probe is not None:
             probe.setdefault("walks", []).append(w)
 
     for _ in range(fs.bounce_count):
-        counters[0] += act.sum()
+        count(0, act)
         oP = torch.stack([
             m[0] * Px + m[1] * Py + m[2] * Pz + m[3],
             m[4] * Px + m[5] * Py + m[6] * Pz + m[7],
@@ -185,7 +249,7 @@ def frame_plain(
                 # light-facing hits only (fs:454-464 cast unconditionally;
                 # lcos == 0 adds no diffuse either way)
                 sact = hit_ok & (lcos > 0.0)
-                counters[0] += sact.sum()
+                count(0, sact)
                 sP = torch.stack([
                     m[0] * rPx + m[1] * rPy + m[2] * rPz + m[3],
                     m[4] * rPx + m[5] * rPy + m[6] * rPz + m[7],
@@ -206,12 +270,29 @@ def frame_plain(
         Dx = torch.where(hit_ok, rDx, Dx)
         Dy = torch.where(hit_ok, rDy, Dy)
         Dz = torch.where(hit_ok, rDz, Dz)
+        if grads:
+            # the fs:92-93 quirk kept verbatim: the SCALAR 2 dot(dD, n)
+            # off each component (kernel_mega.py:356-366)
+            gdx = gx[0] * wnx + gx[1] * wny + gx[2] * wnz
+            gdy = gy[0] * wnx + gy[1] * wny + gy[2] * wnz
+            gx = [torch.where(hit_ok, c - 2.0 * gdx, c) for c in gx]
+            gy = [torch.where(hit_ok, c - 2.0 * gdy, c) for c in gy]
         act = hit_ok
 
     env_D = torch.stack([Dx, Dy, Dz], dim=1)
     if probe is not None:
         probe["env_D"] = env_D
-    env = sample_env(packed.env, env_D)
+    if grads:
+        env_gx, env_gy = torch.stack(gx, dim=1), torch.stack(gy, dim=1)
+        if probe is not None:
+            probe["env_dDdx"], probe["env_dDdy"] = env_gx, env_gy
+        if fs.which == 1:
+            env = env_sample_plain(packed.env_pyramid, env_D, env_gx, env_gy, grad=True,
+                                   aniso=fs.env_aniso)
+        else:
+            env = dy_picture(env_D, env_gx, env_gy)
+    else:
+        env = sample_env(packed.env, env_D)
     col = torch.stack([a + mo * env[:, c] for c, (a, mo) in enumerate(zip(acc, mod))], dim=1)
     red = torch.tensor([1.0, 0.0, 0.0], device=dev)
     col = torch.where(badv[:, None], red, col).reshape(K, HW, 3)
@@ -235,23 +316,25 @@ def _entry():
     I = ctypes.c_int
     F = ctypes.c_float
     fn.argtypes = [
-        P, P, P, P, I, I,          # nodes, leaves, normals, env, env_h, env_w
+        P, P, P,                   # nodes, leaves, normals
+        P, P, I, I, I,             # env texels, level table, levels, which, aniso
         P, P, I, I, I,             # uni, jitters, K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
         I, I, I, F, F, I, I,       # bounces, shadows, diffuse, fudge, eps, max_steps, stack
-        P, P, P,                   # out, counters, stream
+        P, P, P, P,                # out, counters, tile rows, stream
     ]
     fn.restype = I
     return fn
 
 
-def launch_info(stack_depth: int) -> dict[str, int]:
-    """The frame kernel's launch on the current card for a scene's stack
-    bound: registers a thread, static and dynamic (stack) shared bytes a
-    block, local bytes a thread, resident blocks an SM, threads a block
-    and the tile."""
+def launch_info(stack_depth: int, mode: str = "bilinear") -> dict[str, int]:
+    """The launch of the frame kernel of ``mode`` (one of ``FRAME_MODES``)
+    on the current card for a scene's stack bound: registers a thread,
+    static and dynamic (stack, and the differentials in the grad modes)
+    shared bytes a block, local bytes a thread, resident blocks an SM,
+    threads a block and the tile."""
     return _build.launch_info("frame_kernel", "srt_frame_kernel_info", stack_depth,
-                              (*_build.INFO_KEYS, "tile_w", "tile_h"))
+                              FRAME_MODES.index(mode), keys=(*_build.INFO_KEYS, "tile_w", "tile_h"))
 
 
 def frame_kernel(
@@ -259,25 +342,33 @@ def frame_kernel(
     uni: torch.Tensor,
     jitters: torch.Tensor,
     fs: FrameSettings,
+    tile_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render K jittered samples of a W x H frame: (H, W, 3) f32 linear
-    colour mean and the int64 counter row.  CPU tensors run
-    ``frame_plain``; CUDA tensors launch the CUDA kernel."""
+    colour mean and the int64 counter row; fills ``tile_rows`` if given
+    (module docstring).  CPU tensors run ``frame_plain``; CUDA tensors
+    launch the CUDA kernel."""
+    env = packed.env_pyramid
     tensors = dict(
-        nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=packed.env,
+        nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
         uni=uni, jitters=jitters,
     )
+    if tile_rows is not None:
+        tensors["tile_rows"] = tile_rows
     device = _build.one_device("frame_kernel", tensors)
     if device.type == "cpu":
-        return frame_plain(packed, uni, jitters, fs)
+        return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows)
+    fs.mode()  # a mode the kernel has
     Nw = packed.n_wide
     check = functools.partial(_build.check, "frame_kernel")
     check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
     check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
     check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
-    check("env", packed.env, torch.float32, (None, None, TEXEL))
+    check("env", env.texels, torch.float32, (None, TEXEL))
     check("uni", uni, torch.float32, (UNI_SIZE,))
     check("jitters", jitters, torch.float32, (None, 2))
+    if tile_rows is not None:
+        check("tile_rows", tile_rows, torch.long, (fs.n_tiles(), 1 + 3 * fs.phases()))
     K = jitters.shape[0]
     if K < 1 or fs.width < 1 or fs.height < 1:
         raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
@@ -285,23 +376,26 @@ def frame_kernel(
         raise ValueError(f"frame_kernel: stack depth {packed.stack_depth} > {MAX_STACK}")
     if fs.phases() > MAX_PHASES:
         raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
+    if not 1 <= env.n_levels <= MAX_LEVELS:
+        raise ValueError(f"frame_kernel: {env.n_levels} env levels, the kernel takes 1 to {MAX_LEVELS}")
 
     fn = _entry()
     out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
     counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
+    levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
     inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
-            packed.env.data_ptr(),
-            packed.env.shape[0], packed.env.shape[1],
+            env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
             uni.data_ptr(), jitters.data_ptr(), K, fs.width, fs.height,
             inv_w, inv_h, aspect,
             fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
             fs.surface_fudge, fs.mt_eps, fs.max_steps or Nw + 2,
             packed.stack_depth,
-            out.data_ptr(), counters.data_ptr(), stream,
+            out.data_ptr(), counters.data_ptr(),
+            None if tile_rows is None else tile_rows.data_ptr(), stream,
         )
     _build.launched("frame_kernel", err)
     return out, counters

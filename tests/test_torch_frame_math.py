@@ -131,7 +131,9 @@ def test_default_statics_match():
     port = RenderStatics()
     for name in port._fields:
         assert getattr(port, name) == getattr(ref, name), name
-    with pytest.raises(NotImplementedError):
-        from shader_ray_tpu_torch.ops.engine_frame import frame_settings
+    from shader_ray_tpu_torch.ops.engine_frame import frame_settings
 
-        frame_settings(port._replace(which=1))
+    # the frame kernel renders which 0, 1 and 2; 3 and 5 are not its modes
+    assert frame_settings(port._replace(which=1)).which == 1
+    with pytest.raises(NotImplementedError):
+        frame_settings(port._replace(which=5))

@@ -120,6 +120,10 @@ def test_wrappers_do_not_fall_back_when_the_kernel_cannot_build(monkeypatch):
         lambda: env_kernel.env_sample(binary.env_pyramid, D, D, D, grad=True, aniso=4),
         lambda: frame_kernel.frame_kernel(wide, torch.zeros(52), torch.zeros((1, 2)),
                                           frame_kernel.FrameSettings(width=4, height=4)),
+        lambda: frame_kernel.frame_kernel(
+            wide, torch.zeros(52), torch.zeros((1, 2)),
+            frame_kernel.FrameSettings(width=4, height=4, which=1, env_aniso=4),
+            tile_rows=torch.zeros((1, 19), dtype=torch.long)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -392,12 +396,13 @@ def test_case_check_refuses_a_frame_off_its_path(name):
 
 
 @pytest.mark.parametrize("fault", ["shape", "counter-row", "non-finite", "colour", "cast",
-                                   "walk-counters", "walk-phase"])
+                                   "walk-counters", "walk-phase", "finite-at-a-plain-nan"])
 def test_frame_gate_refuses_each_fault(fault):
     """chip_smoke's gate of a kernel frame against its plain version
     passes differences inside its limits (mean abs colour 1e-4, one ray
     cast on a small frame, a walk counter 1e-3 of its count or 1e-4 of
-    the frame's walk total) and refuses each kind beyond them."""
+    the frame's walk total, NaN where the plain version has it) and
+    refuses each kind beyond them."""
     colour = torch.full((6, 8, 3), 0.5)
     # rays cast; node pops, leaf visits, triangle tests of two phases
     counters = torch.tensor([1000, 500000, 200000, 800000, 20000, 8000, 30000])
@@ -406,8 +411,14 @@ def test_frame_gate_refuses_each_fault(fault):
     near_n[1] -= 400   # under 1e-3 of its count
     near_n[5] += 120   # under 1e-4 of the walk total, above 1e-3 of its count
     assert chip_smoke.frame_disagreement(near_c, near_n, colour, counters) is None
+    pole = colour.clone()
+    pole[3, 4] = float("nan")  # a grad-mode ray along +-y, NaN in both
+    near_c[3, 4] = float("nan")
+    assert chip_smoke.frame_disagreement(near_c, near_n, pole, counters) is None
     kc, kn = colour.clone(), counters.clone()
-    if fault == "shape":
+    if fault == "finite-at-a-plain-nan":
+        colour = pole
+    elif fault == "shape":
         kc = kc[:, :7]
     elif fault == "counter-row":
         kn = kn[:1]
@@ -445,6 +456,28 @@ def test_frame_kernel_control_flow_on_card(cuda_device, name):
     assert chip_smoke.case_unmet(name, fs, kc, kn.cpu()) is None
     red = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
     assert int(((kc == red).all(-1) != (pc == red).all(-1)).sum()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "grad", "probes", "dy"])
+def test_frame_kernel_tile_rows_on_card(cuda_device, mode):
+    """Each instantiation's per-tile counter rows on the card sum to its
+    frame row exactly, and its frame row is the plain version's within
+    chip_smoke's limits (FRAME_CASES "which1" sets the scene)."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    packed, uni, jit, fs = chip_smoke.frame_case("which1", cuda_device)
+    fs = fs._replace(which={"bilinear": 0, "dy": 2}.get(mode, 1),
+                     env_aniso=4 if mode == "probes" else 1)
+    assert fs.mode() == mode
+    rows = torch.full((fs.n_tiles(), 1 + 3 * fs.phases()), -1, dtype=torch.long, device=cuda_device)
+    kc, kn = fk.frame_kernel(packed, uni, jit, fs, tile_rows=rows)
+    pc, pn = fk.frame_plain(packed, uni, jit, fs)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.sum(0), kn)
+    assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None
+    info = fk.launch_info(packed.stack_depth, mode)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
 
 
 @functools.cache

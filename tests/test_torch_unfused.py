@@ -142,7 +142,15 @@ def test_renderer_packs_by_config(sphere):
     assert route(renderers["fused"].packed, st, True)
     assert not route(renderers["fused"].packed, st, False)
     assert not route(renderers["binary"].packed, st, True)
-    for which in (1, 2, 3, 5):
+    # which 1 and 2 run the fused kernel's with_grads form, as the
+    # reference's fused kernel does; 3 and 5 keep the unfused route
+    for which in (1, 2):
+        assert route(renderers["fused"].packed, st._replace(which=which), True)
+        assert not route(renderers["fused"].packed, st._replace(which=which), False)
+        assert not route(renderers["binary"].packed, st._replace(which=which), True)
+        fs = engine_frame.frame_settings(st._replace(which=which, env_aniso=4))
+        assert (fs.which, fs.env_aniso) == (which, 4)
+    for which in (3, 5):
         assert not route(renderers["fused"].packed, st._replace(which=which), True)
         with pytest.raises(NotImplementedError, match="engine_trace"):
             engine_frame.frame_settings(st._replace(which=which))
