@@ -12,28 +12,37 @@ port's two paths through the Renderer's entry points:
   make_fn at which=1 (env_aniso=4) and which=2, one launch a frame, held
   to the unfused route's frames, and which=1's progressive and count;
   make_stats_fn, its per-tile rows summed against the frame's counter
-  row and the count;
+  row and the count; make_fn at which=5, one launch of the kernel's
+  given-rays form over the 25 sub-ray sets, gated on
+  tests/golden/bench_which5_oracle.npy and held to the unfused frame; a
+  frame and a count at Config.min_contrib = 0.004 (lane retirement);
 * the unfused path (``trace_wide``, ``trace_binary``, ``env_sample``):
   ``Config(packet_fused=False)`` and ``Config(packet_kernel="binary")``
   at which=0 (held to the fused frame and the same golden), which=5
-  (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3.
+  (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3;
+* the app: the REPL (``app/main.repl``) over an ``App`` on the bench
+  scene at 1024x768 (APP_SCRIPT, its ``b`` histogram's median and p95),
+  and the CLI ``python -m shader_ray_tpu_torch`` once as a subprocess.
 
 The frame kernel is also held to its plain version in each of its env
 modes and on the control-flow cases of its wave compaction (FRAME_CASES,
 a ray exactly along +y among them: NaN in the grad modes exactly where
-the plain version has it), the two trace kernels on the
+the plain version has it; given rays; min_contrib 0.004, 0.2 and 1.0,
+the last also equal to the kernel's own one-bounce frame), the two trace kernels on the
 edges of their active masks and ray layouts (TRACE_CASES), the env sampler
 on directions exactly along +-y (NaN in grad mode exactly where the plain
 version has it, env_disagreement), and the kernels' launch resources
 (registers, shared memory, blocks an SM; the frame kernel's for each env
-mode) are printed.  Each path runs
+mode and form) are printed.  Each path runs
 with the launch counts set to 0 just before it and read just after.
 Then it times every kernel with CUDA events at the main path's shapes
 beside its bound and its plain version (the trace kernels also beside
 the bytes their loads move through the caches, counted from the plain
 walks' work), the frame kernel also beside
-the same frame's six walks as separate trace_wide launches and in its
-grad modes beside the unfused which=1 frame, and prints
+the same frame's six walks as separate trace_wide launches, in its
+grad modes beside the unfused which=1 frame, in its given-rays form (the
+which=5 frame) beside the unfused which=5 frame, and at min_contrib =
+0.004, and prints
 one JSON line with the kernel table plus a final status line.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one NVIDIA GPU
@@ -207,12 +216,18 @@ def golden_gate(img, path: str, what: str) -> None:
         raise AssertionError(f"golden gate failed: {what} against {path}")
 
 # cases of the frame kernel's control flow (wave compaction, ragged
-# tiles, early exits) and of its env modes (which = 1 with aniso 1 and 4,
-# which = 2; a ray exactly along +y in both, NaN in the plain version),
-# held to frame_plain here and in tests/test_torch_isolation.py
+# tiles, early exits), of its env modes (which = 1 with aniso 1 and 4,
+# which = 2; a ray exactly along +y in both, NaN in the plain version), of
+# its given-rays form (its own raygen's rays handed in, K = 2; the 25
+# which = 5 sub-ray sets; a grad-mode ray exactly along +y) and of lane
+# retirement (min_contrib 0.004, 0.2 and 1.0), held to frame_plain here
+# and in tests/test_torch_isolation.py
 FRAME_CASES = ("all-miss", "all-hit", "bad", "bounces0", "bounces1-noshadow",
                "nodiffuse", "k3-ragged", "which1", "which1-aniso4", "which2",
-               "which1-aniso4-pole", "which2-pole")
+               "which1-aniso4-pole", "which2-pole", "given-raygen", "given-which5",
+               "given-which1-aniso4-pole", "min-contrib-0.004", "min-contrib-0.2",
+               "min-contrib-1")
+CASE_SAMPLES = {"k3-ragged": 3, "given-raygen": 2, "given-which5": 25}  # K, where not 1
 
 
 @functools.cache
@@ -230,46 +245,56 @@ def _case_tables(inside: bool):
 
 
 def frame_case(name: str, device):
-    """(packed tables, uniforms, jitters, FrameSettings) of one control
-    flow case on ``device``: a 5000-triangle bench-like scene (the inside
+    """(packed tables, uniforms, jitters, FrameSettings, given rays) of
+    one case on ``device``: a 5000-triangle bench-like scene (the inside
     of a closed sphere for "all-hit").  A pole case looks up +y from
     beside the scene at a 64 x 64 frame with the jitter (0.5, 0.5): the
-    centre pixel's ray is exactly (0, 1, 0)."""
+    centre pixel's ray is exactly (0, 1, 0).  A given-rays case hands its
+    rays to the kernel (``GivenRays``, jitters None): the kernel's own
+    raygen rays of its settings, or the which = 5 sub-ray sets of the
+    primaries.  A min-contrib case renders a specular 0.05 (bench-like)
+    scene with that retirement threshold."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
-    from shader_ray_tpu_torch.ops.frame_kernel import FrameSettings
-    from shader_ray_tpu_torch.ops.render import default_frame_params
+    from shader_ray_tpu_torch.ops.engine_frame import (
+        halton_jitters,
+        pack_uniforms,
+        primary_rays,
+        supersample_directions,
+    )
+    from shader_ray_tpu_torch.ops.frame_kernel import FrameSettings, GivenRays, raygen_rays
+    from shader_ray_tpu_torch.ops.render import RenderStatics, default_frame_params
     from shader_ray_tpu_torch.utils import mat4
 
     inside = name == "all-hit"
+    base = name.removeprefix("given-")
     packed = _case_tables(inside)
     if name == "bad":
         packed = dataclasses.replace(packed, stack_depth=2)
+    spec = 0.05 if name.startswith("min-contrib") else 0.3
     params = default_frame_params()._replace(
         camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, 0.0 if inside else 3.8)),
         light_dir=torch.tensor([0.36, 0.48, 0.8]),
         diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
-        specular_color=torch.tensor([0.3, 0.3, 0.3]),
+        specular_color=torch.tensor([spec, spec, spec]),
     )
     if name == "all-miss":  # the camera turned away from the scene
         params = params._replace(camera_normal_matrix=torch.from_numpy(
             mat4.make_rotation(np.pi, 0.0, 1.0, 0.0)))
     fs = FrameSettings(width=64, height=48)
-    k = 1
-    if name.startswith("which"):
-        fs = fs._replace(which=int(name[5]), env_aniso=4 if "aniso4" in name else 1)
-    if name.endswith("-pole"):
+    jit = torch.from_numpy(halton_jitters(CASE_SAMPLES.get(name, 1)))
+    if base.startswith("which") and base != "which5":
+        fs = fs._replace(which=int(base[5]), env_aniso=4 if "aniso4" in base else 1)
+    if base.endswith("-pole"):
         # eye -z to world +y, exactly: the centre ray's direction is (0, 1, 0)
         up = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
         params = params._replace(camera_normal_matrix=torch.from_numpy(up))
         fs = fs._replace(height=64)
-        return packed.to(device), pack_uniforms(params).to(device), \
-            torch.tensor([[0.5, 0.5]], device=device), fs
-    if name == "bounces0":
+        jit = torch.tensor([[0.5, 0.5]])
+    elif name == "bounces0":
         fs = fs._replace(bounce_count=0)
     elif name == "bounces1-noshadow":
         fs = fs._replace(bounce_count=1, cast_shadows=False)
@@ -277,30 +302,61 @@ def frame_case(name: str, device):
         fs = fs._replace(enable_diffuse=False)
     elif name == "k3-ragged":
         fs = fs._replace(width=37, height=29)
-        k = 3
-    jit = torch.from_numpy(halton_jitters(k)).to(device)
-    return packed.to(device), pack_uniforms(params).to(device), jit, fs
+    elif name.startswith("min-contrib"):
+        fs = fs._replace(min_contrib=float(name.removeprefix("min-contrib-")))
+    packed, uni, jit = packed.to(device), pack_uniforms(params).to(device), jit.to(device)
+    if not name.startswith("given-"):
+        return packed, uni, jit, fs, None
+    if base == "which5":
+        on = type(params)(*[x.to(device) for x in params])
+        rays, (right, up) = primary_rays(RenderStatics(width=fs.width, height=fs.height), on)
+        given = GivenRays(rays.P.contiguous(), supersample_directions(rays.D, right, up))
+    else:
+        given = raygen_rays(uni, jit, fs)
+    return packed, uni, None, fs, given
+
+
+def _retired_unmet(name: str, fs, colour, counters) -> bool:
+    """Whether a min-contrib case's plain frame fails to show lane
+    retirement.  At 1.0 every hit lane retires after bounce 0 (no later
+    walk); below, fewer rays are cast than in the same frame at
+    min_contrib 0, and the colour stays within 3 x min_contrib of it (the
+    reference's bound, tests/test_fused.py)."""
+    import torch
+
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    later = 1 + 3 * (2 if fs.cast_shadows and fs.enable_diffuse else 1)  # after bounce 0's walks
+    if fs.min_contrib >= 1.0:
+        return int(counters[0]) <= fs.width * fs.height or bool(counters[later:].any())
+    packed, uni, jit, _, _ = frame_case(name, colour.device)
+    exact, exact_n = fk.frame_plain(packed, uni, jit, fs._replace(min_contrib=0.0))
+    err = float((colour - exact).abs().max()) if colour.shape == exact.shape else float("inf")
+    return not int(counters[0]) < int(exact_n[0]) or err > 3 * fs.min_contrib
 
 
 def case_unmet(name: str, fs, colour, counters) -> str | None:
     """What a case's plain frame fails to show of the path it is for,
     or None.  An env-mode case bounces some rays (their differentials
     are transferred) and is finite; a pole case is NaN at exactly one
-    pixel, the centre one."""
+    pixel, the centre one; a given-rays case bounces some of its K sets'
+    rays; a min-contrib case retires lanes (_retired_unmet)."""
     import torch
 
-    k = 3 if name == "k3-ragged" else 1
-    primaries = k * fs.width * fs.height
+    primaries = CASE_SAMPLES.get(name, 1) * fs.width * fs.height
     cast = int(counters[0])
     painted = int((colour == torch.tensor([1.0, 0.0, 0.0], device=colour.device)).all(-1).sum())
     nan = torch.isnan(colour).any(-1)
-    if name.startswith("which"):
+    if name.startswith(("which", "given-")):
         pole = name.endswith("-pole")
         centre = bool(nan[fs.height // 2 - 1, fs.width // 2 - 1]) if nan.shape[:2] == (
             fs.height, fs.width) else False
         unmet = (int(nan.sum()) != (1 if pole else 0) or (pole and not centre)
                  or (not pole and cast <= primaries))
         return f"case {name}: cast {cast}, {int(nan.sum())} NaN pixels" if unmet else None
+    if name.startswith("min-contrib"):
+        unmet = _retired_unmet(name, fs, colour, counters)
+        return f"case {name}: cast {cast}, counters {counters.tolist()}" if unmet else None
     unmet = {
         "all-miss": cast != primaries,
         "all-hit": cast < fs.bounce_count * primaries or painted != 0,
@@ -539,6 +595,17 @@ def cache_bytes(tree: str, walk, hit_rays: int) -> tuple[int, int]:
             steps * 32 + leafs * 4 + tris * 36 + hit_rays * 36)
 
 
+@functools.cache
+def bench_world():
+    """The World of the bench scene (bench.py:289-331): the 69k-triangle
+    bunny-class scene with its BVH."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import make_world
+
+    return make_world(TriangleSet.from_arrays(*bunny_class_scene(69000)))
+
+
 def bench_inputs():
     """The bench configuration (bench.py:289-331): the 69k-triangle
     bunny-class scene, procedural_sky(2048) and the bench camera, as
@@ -546,14 +613,12 @@ def bench_inputs():
     import numpy as np
     import torch
 
-    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
-    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
-    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky
+    from shader_ray_tpu_torch.models.world import get_shader_data
     from shader_ray_tpu_torch.ops.render import default_frame_params
     from shader_ray_tpu_torch.utils import mat4
 
-    pos, nrm = bunny_class_scene(69000)
-    data = get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm)))
+    data = get_shader_data(bench_world())
     fov = np.deg2rad(40.0)
     zoom = 2.6 / 2.0 / np.sin(fov / 2.0)
     params = default_frame_params(fov=fov)._replace(
@@ -562,6 +627,93 @@ def bench_inputs():
         specular_color=torch.tensor([0.05, 0.05, 0.05]),
     )
     return data, procedural_sky(2048), params
+
+
+APP_SCRIPT = ("m", "d", "drag 30 10", "zoom -20", "[", *["."] * 5, *[","] * 5, "prog 4", "stats",
+              "s", "b", "q")
+
+
+def app_phase(renderer, card: str) -> list[float]:
+    """Drive the App's REPL (APP_SCRIPT) on the bench scene at W x H
+    through ``renderer`` in a temporary working directory, then the CLI
+    once as a subprocess.  Every frame must be (H, W, 3) and finite, the
+    which = 5 frame equal to ``make_fn``'s for the same params, and the
+    launches only frame_kernel's.  Returns the ``b`` benchmark's
+    durations in ms."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.app.driver import App
+    from shader_ray_tpu_torch.app.main import repl
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+    from shader_ray_tpu_torch.utils.ppm import read_ppm
+
+    app = App(bench_world(), renderer, renderer.cfg, width=W, height=H)
+    frames, runs = [], []
+
+    def recorded(fn, what):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if what == "benchmark":
+                runs.append([d * 1e3 for d in out])
+            else:
+                frames.append((what, app.which, app.frame_params(), out))
+            return out
+        return call
+
+    app.draw_frame = recorded(app.draw_frame, "frame")
+    app.render_progressive = recorded(app.render_progressive, "progressive")
+    app.benchmark = recorded(app.benchmark, "benchmark")
+    cwd = os.getcwd()
+    _build.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            repl(app, "frame.ppm", io.StringIO("\n".join(APP_SCRIPT) + "\n"))
+            torch.cuda.synchronize()
+            t_repl = time.perf_counter() - t0
+            shot = read_ppm("color.ppm")
+        finally:
+            os.chdir(cwd)
+    app_launches = dict(_build.LAUNCHES)
+    whiches = [w for _, w, _, _ in frames]
+    print(f"app: REPL script of {len(APP_SCRIPT)} commands in {t_repl:.2f} s: {len(frames)} frames "
+          f"(which {whiches}), screenshot {shot.shape}, launches {app_launches}")
+    bad = [(what, w) for what, w, _, f in frames if f.shape != (H, W, 3) or not np.isfinite(f).all()]
+    if bad or shot.shape != (H, W, 3) or set(app_launches) != {"frame_kernel"} or 5 not in whiches:
+        raise AssertionError(f"app: frames off shape or non-finite {bad}, or launches {app_launches}")
+    _, _, p5, f5 = next(x for x in frames if x[1] == 5)
+    want = renderer.make_fn(RenderStatics.from_config(renderer.cfg, width=W, height=H, which=5))(p5)
+    d5 = float(np.abs(f5 - want.cpu().numpy()).max())
+    print(f"app: its which=5 frame vs make_fn's for the same params: max abs {d5:.3e} (limit 1e-6)")
+    if d5 > 1e-6:
+        raise AssertionError("app: the which=5 frame is not make_fn's")
+    (b_ms,) = runs
+    print(f"app: b histogram on {card}: median {np.median(b_ms):.3f} ms, p95 "
+          f"{np.percentile(b_ms, 95):.3f} ms, n={len(b_ms)} (host clock, a device synchronize "
+          f"each frame, which={app.which})")
+
+    # the CLI once, as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.ppm")
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "shader_ray_tpu_torch",
+             os.path.join(ROOT, "tests", "assets", "knot.obj"), "grid", "--once", "--out", out],
+            capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+        img = read_ppm(out) if proc.returncode == 0 else None
+    print(f"CLI: python -m shader_ray_tpu_torch knot.obj grid --once: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s, frame {None if img is None else img.shape}, "
+          f"std {0.0 if img is None else float(img.std()):.1f}")
+    if img is None or img.shape != (512, 512, 3) or img.std() < 10:
+        raise AssertionError(f"CLI failed: {proc.stderr[-2000:]}")
+    return b_ms
 
 
 def main() -> int:
@@ -628,9 +780,11 @@ def main() -> int:
           f"{packed.n_wide} wide nodes, stack {packed.stack_depth}, "
           f"{pyramid.n_levels} env levels from {pyramid.base}; "
           f"build {t_build:.2f} s, 3 packs+uploads {t_pack:.2f} s")
-    frame_info = {mode: fk.launch_info(packed.stack_depth, mode) for mode in fk.FRAME_MODES}
-    for mode, info in frame_info.items():
-        print(f"frame_kernel launch, {mode}, at stack {packed.stack_depth}: {info['registers']} "
+    frame_info = {(mode, given): fk.launch_info(packed.stack_depth, mode, given)
+                  for given in (False, True) for mode in fk.FRAME_MODES}
+    for (mode, given), info in frame_info.items():
+        print(f"frame_kernel launch, {mode}, {'given rays' if given else 'raygen'}, at stack "
+              f"{packed.stack_depth}: {info['registers']} "
               f"registers, {info['local_bytes']} B local a thread, shared {info['static_smem']} B "
               f"static + {info['dynamic_smem']} B dynamic (stack{' and differentials' if mode != 'bilinear' else ''}) "
               f"a block, {info['threads']} threads a block ({info['tile_w']}x{info['tile_h']} tile), "
@@ -680,14 +834,16 @@ def main() -> int:
         compare(*SMALL, torch.from_numpy(halton_jitters(2)).cuda(), which=which, aniso=aniso)
     red = torch.tensor([1.0, 0.0, 0.0], device="cuda")
     for name in FRAME_CASES:
-        c_packed, c_uni, c_jit, c_fs = frame_case(name, torch.device("cuda"))
-        kc, kn = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs)
-        pc, pn = fk.frame_plain(c_packed, c_uni, c_jit, c_fs)
+        c_packed, c_uni, c_jit, c_fs, c_rays = frame_case(name, torch.device("cuda"))
+        kc, kn = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
+        pc, pn = fk.frame_plain(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
         torch.cuda.synchronize()
         painted = int((kc == red).all(-1).sum()), int((pc == red).all(-1).sum())
-        print(f"frame_kernel vs plain, case {name} ({c_fs.width}x{c_fs.height} K={c_jit.shape[0]}, "
+        print(f"frame_kernel vs plain, case {name} ({c_fs.width}x{c_fs.height} "
+              f"K={CASE_SAMPLES.get(name, 1)}{', given rays' if c_rays else ''}, "
               f"{c_fs.bounce_count} bounces, shadows {c_fs.cast_shadows}, diffuse "
-              f"{c_fs.enable_diffuse}, which {c_fs.which}, aniso {c_fs.env_aniso}): NaN pixels "
+              f"{c_fs.enable_diffuse}, which {c_fs.which}, aniso {c_fs.env_aniso}, min_contrib "
+              f"{c_fs.min_contrib}): NaN pixels "
               f"{int(torch.isnan(kc).any(-1).sum())} vs {int(torch.isnan(pc).any(-1).sum())}, "
               f"mean abs {float((kc - pc).abs().nanmean()):.3e}, cast "
               f"{int(kn[0])} vs {int(pn[0])}, walk counters {kn[1:].sum().item()} vs "
@@ -696,6 +852,16 @@ def main() -> int:
         why = frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) or case_unmet(name, c_fs, pc, pn.cpu())
         if why or abs(painted[0] - painted[1]) > max(1e-4 * kc[..., 0].numel(), 1):
             raise AssertionError(f"frame_kernel disagrees with frame_plain on case {name}: {why}")
+        if c_fs.min_contrib >= 1.0:
+            # every hit lane retires after bounce 0: the kernel's own
+            # one-bounce frame, bit for bit, and no later walk
+            oc, on = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs._replace(bounce_count=1))
+            same = torch.equal(kc, oc) and torch.equal(kn[:on.numel()], on) and \
+                not kn[on.numel():].any()
+            print(f"  case {name}: the kernel's frame equals its bounce_count=1 frame bit for bit, "
+                  f"colour and counters: {same}")
+            if not same:
+                raise AssertionError(f"case {name}: not the kernel's bounce_count=1 frame")
 
     def rays_at(w: int, h: int):
         """Object-space primary rays of the bench camera (the object
@@ -899,6 +1065,40 @@ def main() -> int:
     if (tuple(rows.shape) != (fs0.n_tiles(), 1 + 3 * len(phases))
             or not torch.equal(rows.sum(0), frame_row) or int(rows[:, 0].sum()) != cast):
         raise AssertionError("stats fn rows disagree with the frame's counter row or the count")
+
+    # which=5 on the same route: ONE frame_kernel launch of its given-rays
+    # form over the 25 sub-ray sets of the primaries
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    img5_f = renderer.make_fn(statics._replace(which=5))(params)
+    torch.cuda.synchronize()
+    added = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items() if n != before.get(k, 0)}
+    print(f"fused path: make_fn {W}x{H} which=5: launches {added}, first frame "
+          f"{time.perf_counter() - t0:.3f} s")
+    if added != {"frame_kernel": 1}:
+        raise AssertionError("fused which=5: one frame_kernel launch a frame")
+    golden_gate(img5_f.cpu().numpy(), GOLDEN5, "fused which=5")
+    lin5_f = renderer.make_fn(linear._replace(which=5))(params)  # held to the unfused route below
+    cast5 = renderer.make_count_fn(statics._replace(which=5))(params)
+    print(f"count at which=5: {cast5} (which=0: {cast})")
+    if cast5 != cast:
+        raise AssertionError("fused which=5 counts another frame than which=0's")
+
+    # lane retirement through the Renderer's entry points: Config.min_contrib
+    # is read at each call
+    renderer.cfg.min_contrib = 0.004
+    try:
+        lin_mc = renderer.make_fn(linear)(params)
+        cast_mc = renderer.make_count_fn(statics)(params)
+    finally:
+        renderer.cfg.min_contrib = 0.0
+    err_mc = float((lin_mc - fused_linear).abs().max())
+    print(f"fused path, min_contrib=0.004: rays cast {cast_mc} of {cast} ({cast_mc / cast - 1:+.2%}); "
+          f"linear colour vs min_contrib=0: max abs {err_mc:.3e} (limit 3 x 0.004 x the env's "
+          f"largest radiance {float(pyramid.texels.max()):.2f}), mean abs "
+          f"{float((lin_mc - fused_linear).abs().mean()):.3e}")
+    if not cast_mc < cast or err_mc > 3 * 0.004 * float(pyramid.texels.max()):
+        raise AssertionError("min_contrib=0.004 retired no lane or strayed beyond its bound")
     torch.cuda.synchronize()
     launches = {"frame_kernel": _build.LAUNCHES["frame_kernel"]}
     print(f"fused path launches: {dict(_build.LAUNCHES)}")
@@ -927,6 +1127,11 @@ def main() -> int:
     t_which5 = time.perf_counter() - t0
     print(f"unfused path: which=5 (25 sub-frames) {t_which5:.3f} s")
     golden_gate(img5.cpu().numpy(), GOLDEN5, "unfused which=5")
+    lin5_u = unfused.make_fn(linear._replace(which=5))(params)
+    diff5 = float((lin5_f - lin5_u).abs().mean())
+    print(f"fused vs unfused which=5: mean abs {diff5:.3e} on linear colour (limit 1e-5)")
+    if diff5 > 1e-5:
+        raise AssertionError("the fused which=5 frame disagrees with the unfused one")
 
     frames = {0: unfused.make_fn(statics)(params)}
     for which in (1, 2, 3):
@@ -973,6 +1178,10 @@ def main() -> int:
               f"(limit {1e-5 * scale:.3e})")
         if not torch.isfinite(u).all() or diff > 1e-5 * scale:
             raise AssertionError(f"the fused which={which} frame disagrees with the unfused one")
+
+    # 6c. the app: the REPL over an App on the bench scene at W x H, and
+    # the CLI as a subprocess
+    app_b = app_phase(renderer, card)
 
     # 7. timing at the main paths' shapes
     print(f"timing on {card}:")
@@ -1063,7 +1272,7 @@ def main() -> int:
         del probe
         g_ms = float(np.median(t_k))
         g_b_ms, g_b_by = bound(g_ops, g_moved)
-        info = frame_info[fsg.mode()]
+        info = frame_info[fsg.mode(), False]
         print(f"  frame_kernel {W}x{H} K=1 which={which} aniso={aniso} ({fsg.mode()}; "
               f"{info['registers']} registers, {info['blocks_per_sm']} blocks an SM), CUDA events: "
               f"{summary(t_k)}; make_fn end to end (host clock): {summary(grad_e2e[which])}; "
@@ -1075,6 +1284,69 @@ def main() -> int:
         grad_entry.update({f"{key}_ms": g_ms, f"{key}_plain_ms": float(np.median(t_p)),
                            f"{key}_bound_ms": g_b_ms, f"{key}_bound_by": g_b_by,
                            f"{key}_registers": info["registers"]})
+    # the given-rays form on the bench frame: the fused which=5 frame (25
+    # sets, one launch), its plain version set by set, its bound (25 x the
+    # walks' counted work and the env fetches of each set, the rays read
+    # once), make_fn by host clock beside the unfused which=5 frame's
+    from shader_ray_tpu_torch.ops.engine_frame import primary_rays, supersample_directions
+
+    def sets5():
+        rays_p, (right, up) = primary_rays(statics, params_cuda)
+        return fk.GivenRays(rays_p.P.contiguous(), supersample_directions(rays_p.D, right, up))
+
+    t5_sets = cuda_times(sets5, 10)
+    given5 = sets5()
+    t5_k = cuda_times(lambda: fk.frame_kernel(packed, uni, None, fs, rays=given5), 20)
+    k5, n5 = fk.frame_kernel(packed, uni, None, fs, rays=given5)
+    ops5, moved5, t5_p, pops5 = 0, nbytes(given5.P, given5.D, uni) + W * H * 3 * 4 + wide_tables, 0.0, 0
+    sum5 = torch.zeros((H, W, 3), device="cuda")
+    touched5 = torch.zeros(pyramid.texels.shape[0], dtype=torch.bool, device="cuda")
+    for k in range(given5.D.shape[0]):
+        probe = {}
+        one_set = fk.GivenRays(given5.P, given5.D[k:k + 1])
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        c_k, _ = fk.frame_plain(packed, uni, None, fs, probe, rays=one_set)
+        stop.record()
+        torch.cuda.synchronize()
+        t5_p += start.elapsed_time(stop)
+        sum5 += c_k
+        o, _ = walk_ops(probe["walks"], 0, OPS_WOOP)
+        fetches = torch.zeros((), dtype=torch.long, device="cuda")
+        ek.env_sample_plain(pyramid, probe["env_D"], touched=touched5, fetches=fetches)
+        ops5 += o + probe["env_D"].shape[0] * OPS_ENV_COORDS + int(fetches) * OPS_PER_FETCH
+        pops5 += sum(int(w.steps.sum()) for w in probe["walks"])
+        del probe
+    moved5 += int(touched5.sum()) * 12
+    err5 = float((k5 - sum5 / given5.D.shape[0]).abs().mean())
+    b5_ms, b5_by = bound(ops5, moved5)
+    ms5 = float(np.median(t5_k))
+    frame5 = renderer.make_fn(statics._replace(which=5))
+    e2e5 = host_times(lambda: frame5(params), 10)
+    frame5_u = unfused.make_fn(statics._replace(which=5))
+    e2e5_u = host_times(lambda: frame5_u(params), 3)
+    info5 = frame_info["bilinear", True]
+    print(f"  frame_kernel {W}x{H} which=5, given rays K=25 (one launch; {info5['registers']} "
+          f"registers, {info5['blocks_per_sm']} blocks an SM), CUDA events: {summary(t5_k)}; rays "
+          f"cast {int(n5[0])}, node pops {int(n5[1::3].sum())} (plain {pops5}); vs the plain sets' "
+          f"mean: mean abs {err5:.3e}; frame_plain, 25 sets one by one: {t5_p:.1f} ms; bound: "
+          f"{ops5:.4g} ops ({ops5 / PEAK_F32 * 1e3:.4f} ms), {moved5} bytes ({moved5 / PEAK_BYTES * 1e3:.4f} "
+          f"ms): {b5_ms:.4f} ms, by {b5_by}; {b5_ms / ms5:.2%} of the kernel's median")
+    print(f"  make_fn {W}x{H} which=5 end to end (host clock, synchronized per frame) on {card}: fused "
+          f"{summary(e2e5)}, of which building the 25 direction sets {summary(t5_sets)} (CUDA "
+          f"events); unfused wide {summary(e2e5_u)}")
+    if err5 > 1e-4:
+        raise AssertionError("frame_kernel which=5 disagrees with its plain sets")
+
+    # lane retirement on the bench frame: min_contrib = 0.004
+    fs_mc = fs._replace(min_contrib=0.004)
+    t_mc = cuda_times(lambda: fk.frame_kernel(packed, uni, one, fs_mc), TIMED)
+    c_mc, n_mc = fk.frame_kernel(packed, uni, one, fs_mc)
+    n0 = fk.frame_kernel(packed, uni, one, fs)[1]
+    phases_n = fk.stats_phases(3, True, True)
+    print(f"  frame_kernel {W}x{H} K=1 min_contrib=0.004 (CUDA events): {summary(t_mc)} (0: "
+          f"{summary(kernel_t)}); rays cast {int(n_mc[0])} (0: {int(n0[0])}); node pops by phase "
+          + ", ".join(f"{p} {int(n_mc[1 + 3 * i])} ({int(n0[1 + 3 * i])})" for i, p in enumerate(phases_n)))
     table = [{
         "name": "frame_kernel", "route": "cuda",
         "source": "shader_ray_tpu_torch/csrc/frame_kernel.cu",
@@ -1082,8 +1354,13 @@ def main() -> int:
         "launches": launches["frame_kernel"], "max_abs_err": errs["frame_kernel"],
         "ms": ms, "plain_ms": float(np.median(plain_t)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "registers": frame_info["bilinear"]["registers"],
+        "registers": frame_info["bilinear", False]["registers"],
         **grad_entry,
+        "which5_ms": ms5, "which5_plain_ms": t5_p, "which5_bound_ms": b5_ms, "which5_bound_by": b5_by,
+        "which5_registers": info5["registers"], "which5_make_fn_ms": float(np.median(e2e5)),
+        "which5_unfused_make_fn_ms": float(np.median(e2e5_u)),
+        "min_contrib_0.004_ms": float(np.median(t_mc)), "min_contrib_0.004_cast": int(n_mc[0]),
+        "app_b_median_ms": float(np.median(app_b)), "app_b_p95_ms": float(np.percentile(app_b, 95)),
     }]
 
     # the trace kernels on the bench primaries: closest hit is the entry's

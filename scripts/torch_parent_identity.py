@@ -2,8 +2,9 @@
 """Hold this checkout's CUDA kernels bit for bit against another
 checkout's on one card: env_sample in its three modes (seeded directions
 over the whole sphere with wide footprints, and directions exactly along
-+-y, NaN in grad mode) and the frame kernel's which=0 bench frame (colour
-and counter row).  Each checkout builds its own kernels in a process of
++-y, NaN in grad mode) and the frame kernel's bench frame in each of its
+raygen modes, which=0, which=1 with aniso 1 and 4, which=2 (colour and
+counter row).  Each checkout builds its own kernels in a process of
 its own; the outputs are compared here with NaN equal to NaN.
 
     python3 scripts/torch_parent_identity.py OTHER_CHECKOUT   # on a machine with one NVIDIA GPU
@@ -53,10 +54,12 @@ def dump(root: str, path: str) -> None:
                                                                    aniso=aniso)
     data, sky, params = chip_smoke.bench_inputs()
     packed = Renderer(data, sky).packed
-    fs = fk.FrameSettings(width=chip_smoke.W, height=chip_smoke.H)
-    colour, counters = fk.frame_kernel(packed, pack_uniforms(params).cuda(),
-                                       torch.zeros((1, 2), device="cuda"), fs)
-    out["frame_kernel which=0 colour"], out["frame_kernel which=0 counters"] = colour, counters
+    for which, aniso in ((0, 1), (1, 1), (1, 4), (2, 1)):
+        fs = fk.FrameSettings(width=chip_smoke.W, height=chip_smoke.H, which=which, env_aniso=aniso)
+        colour, counters = fk.frame_kernel(packed, pack_uniforms(params).cuda(),
+                                           torch.zeros((1, 2), device="cuda"), fs)
+        mode = f"which={which} aniso={aniso}"
+        out[f"frame_kernel {mode} colour"], out[f"frame_kernel {mode} counters"] = colour, counters
     np.savez(path, **{k: v.cpu().numpy() for k, v in out.items()})
 
 

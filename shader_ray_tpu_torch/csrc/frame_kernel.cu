@@ -17,7 +17,16 @@
 //                    aniso > 1 (:407-453);
 //   which = 2        with_grads, the dY-differential picture (:393-404).
 // One kernel a mode (template argument ENV), so the which = 0 kernel
-// carries no differential state.  The grad modes keep the six
+// carries no differential state.  Each mode also has a given-rays form
+// (template argument GIVEN; kernel_mega.py:172-173, :233-241): instead of
+// raygen, sample k of pixel p reads P[p] (shared by the K sets), D[k][p]
+// and, in the grad modes, dDdx[k][p] and dDdy[k][p] from memory; the
+// fused which = 5 frame sends its 25 sub-ray sets through it as one
+// launch (the reference's engine_pallas.py:665-702).  Lane retirement
+// (min_contrib > 0, kernel_mega.py:368-381): after a bounce before the
+// last, a hit lane whose Schlick modulation is <= min_contrib in every
+// component leaves the live set; its shadow ray of that bounce was cast,
+// and its env term uses its current direction and modulation.  The grad modes keep the six
 // differential floats of each slot in shared memory after the stack
 // (+6 KB a block) and read the env through env.cuh's radiance<>, after
 // the last barrier of a sample, where the walk's registers are dead.
@@ -112,8 +121,9 @@ constexpr int UNI_IPW = 51;
 constexpr int UNI_SIZE = 52;
 
 // ray flags a walker leaves for the slot's owner
-constexpr unsigned char ALIVE = 1;   // hit: bounces on
-constexpr unsigned char SHADOW = 2;  // and casts a shadow ray first
+constexpr unsigned char ALIVE = 1;    // hit: bounces on
+constexpr unsigned char SHADOW = 2;   // and casts a shadow ray first
+constexpr unsigned char RETIRED = 4;  // but its modulation is spent: no next bounce
 
 // A thread's stack in shared memory: entry i at sh[i * BLOCK], so the
 // lanes of a warp touch 32 different banks whatever their depths.
@@ -163,13 +173,22 @@ __device__ __forceinline__ void count(unsigned long long* cnt, int ph,
 // spilling (106-125 registers over the modes); with (BLOCK) alone it
 // chose 80 registers and spilled 76 bytes in an earlier form of this
 // kernel
-template <int ENV>
+// GIVEN: the given-rays form; rays = P (W*H, 3), D and in the grad modes
+// dDdx, dDdy (K, W*H, 3), pixel-major rows
+struct GivenRays {
+    const float* P;
+    const float* D;
+    const float* gx;
+    const float* gy;
+};
+
+template <int ENV, bool GIVEN>
 __global__ void __launch_bounds__(BLOCK, 1)
 frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
-      const float* __restrict__ uni_g, const float* __restrict__ jit, int K,
+      const float* __restrict__ uni_g, const float* __restrict__ jit, GivenRays rays, int K,
       int W, int H, int tiles_x,
       float inv_w, float inv_h, float aspect, int bounces,
-      bool shadows, bool diffuse, float fudge, int n_counters,
+      bool shadows, bool diffuse, float fudge, float min_contrib, int n_counters,
       float* __restrict__ out, unsigned long long* __restrict__ counters,
       unsigned long long* __restrict__ rows) {
     constexpr bool GRADS = ENV != BILINEAR;
@@ -212,7 +231,23 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
         const float iif = (float)px, jf = (float)py;
         float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f;
         for (int k = 0; k < K; ++k) {
-            if (valid) {
+            if (valid && GIVEN) {
+                // given rays (kernel_mega.py:233-241): P of the pixel, D and
+                // the differentials of sample k
+                const size_t pix = (size_t)py * W + px;
+                const size_t r = (size_t)k * W * H + pix;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    sP[c][tid] = __ldg(rays.P + 3 * pix + c);
+                    sD[c][tid] = __ldg(rays.D + 3 * r + c);
+                    if constexpr (GRADS) {
+                        sG[c * BLOCK + tid] = __ldg(rays.gx + 3 * r + c);
+                        sG[(3 + c) * BLOCK + tid] = __ldg(rays.gy + 3 * r + c);
+                    }
+                    sAcc[c][tid] = 0.0f;
+                    sMod[c][tid] = 1.0f;
+                }
+            } else if (valid) {
                 // pinhole raygen (kernel_mega.py:203-220), two normalisations
                 const float uu = (iif + 0.5f + __ldg(jit + 2 * k)) * inv_w;
                 const float vv = 1.0f - (jf + 0.5f + __ldg(jit + 2 * k + 1)) * inv_h;
@@ -334,21 +369,30 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                                     sAcc[c][r] = sAcc[c][r] + sMod[c][r] * u[UNI_DIFFUSE + c] * lcos;
                             }
                         }
+                        float mo[3];
 #pragma unroll
                         for (int c = 0; c < 3; ++c) {
                             const float sc = u[UNI_SPECULAR + c];
-                            sMod[c][r] = sMod[c][r] * (sc + (1.0f - sc) * fres);
+                            mo[c] = sMod[c][r] * (sc + (1.0f - sc) * fres);
+                            sMod[c][r] = mo[c];
                         }
+                        // throughput cutoff (kernel_mega.py:368-381): a NaN
+                        // modulation retires too, as the reference's `>` tests
+                        if (min_contrib > 0.0f && b + 1 < bounces &&
+                            !(mo[0] > min_contrib || mo[1] > min_contrib || mo[2] > min_contrib))
+                            flag |= RETIRED;
                     }
                     sFlag[r] = flag;
                 }
                 count(cnt, ph, st, lf, tr);
                 __syncthreads();
-                live = live && (sFlag[tid] & ALIVE);
+                const unsigned char f = sFlag[tid];
+                const bool hit = live && (f & ALIVE);
+                live = hit && !(f & RETIRED);
                 if (!shadows) continue;
 
-                // any-hit phase over the light-facing hits
-                const int ns = compact(live && (sFlag[tid] & SHADOW), q, wcount);
+                // any-hit phase over the light-facing hits, retired ones included
+                const int ns = compact(hit && (f & SHADOW), q, wcount);
                 if (ns == 0) continue;
                 if (tid == 0) cnt[0] += (unsigned long long)ns;
                 st = lf = tr = 0;
@@ -417,10 +461,14 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
     }
 }
 
-using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, int, int,
-                        int, int, float, float, float, int, bool, bool, float, int, float*,
-                        unsigned long long*, unsigned long long*);
-const Kernel KERNELS[N_MODES] = {frame<BILINEAR>, frame<GRAD>, frame<PROBES>, frame<DY_PICTURE>};
+using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, GivenRays,
+                        int, int, int, int, float, float, float, int, bool, bool, float, float, int,
+                        float*, unsigned long long*, unsigned long long*);
+// [form][mode]: form 0 raygen, 1 given rays
+const Kernel KERNELS[2][N_MODES] = {
+    {frame<BILINEAR, false>, frame<GRAD, false>, frame<PROBES, false>, frame<DY_PICTURE, false>},
+    {frame<BILINEAR, true>, frame<GRAD, true>, frame<PROBES, true>, frame<DY_PICTURE, true>},
+};
 
 // The stack's dynamic shared memory is above the 48 KB a launch gets
 // without asking: raise each kernel's limit to what MAX_STACK entries
@@ -433,9 +481,10 @@ cudaError_t allow_stack_smem() {
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
     if (raised.load() & bit) return cudaSuccess;
-    for (int mode = 0; mode < N_MODES && err == cudaSuccess; ++mode)
-        err = cudaFuncSetAttribute(KERNELS[mode], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_bytes(mode, MAX_STACK));
+    for (int i = 0; i < 2 * N_MODES && err == cudaSuccess; ++i)
+        err = cudaFuncSetAttribute(KERNELS[i / N_MODES][i % N_MODES],
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes(i % N_MODES, MAX_STACK));
     if (err == cudaSuccess) raised.fetch_or(bit);
     return err;
 }
@@ -450,22 +499,33 @@ int env_mode(int which, int aniso) {
 }  // namespace
 
 // env: the pyramid's texels; levels: host array of n_levels (texel
-// offset, height, width) rows, level 0 first.  rows: null, or the
-// (tiles, 1 + 3 * phases) per-tile counter rows.
+// offset, height, width) rows, level 0 first.  jitters: (K, 2) for
+// raygen, or null with given rays: rays_P (W*H, 3), rays_D (K, W*H, 3) and
+// in the grad modes rays_gx, rays_gy (K, W*H, 3).  min_contrib: the lane
+// retirement threshold, 0 = none.  rows: null, or the (tiles, 1 + 3 *
+// phases) per-tile counter rows.
 extern "C" int srt_frame_kernel(
     const float* nodes, const float* leaves, const float* normals,
     const void* env, const int* levels, int n_levels, int which, int aniso,
-    const float* uni, const float* jitters, int K, int W, int H,
+    const float* uni, const float* jitters,
+    const float* rays_P, const float* rays_D, const float* rays_gx, const float* rays_gy,
+    int K, int W, int H,
     float inv_w, float inv_h, float aspect,
-    int bounces, int shadows, int diffuse, float fudge, float mt_eps,
+    int bounces, int shadows, int diffuse, float fudge, float mt_eps, float min_contrib,
     int max_steps, int stack_depth,
     float* out, unsigned long long* counters, unsigned long long* rows, void* stream) {
     const bool cast = shadows != 0 && diffuse != 0;
     const int phases = bounces * (cast ? 2 : 1);
     const int mode = env_mode(which, aniso);
+    const bool given = rays_D != nullptr;
+    const bool grads = mode != BILINEAR;
     Levels lv;
     if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
-        stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv))
+        stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv) ||
+        !(min_contrib >= 0.0f) ||
+        (given ? (rays_P == nullptr || jitters != nullptr ||
+                  (grads && (rays_gx == nullptr || rays_gy == nullptr)))
+               : jitters == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
@@ -473,29 +533,33 @@ extern "C" int srt_frame_kernel(
     const unsigned grid = (unsigned)tiles_x * (unsigned)((H + TILE_H - 1) / TILE_H);
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
-    KERNELS[mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
-        s, static_cast<const float4*>(env), lv, (float)aniso, uni, jitters, K, W, H, tiles_x,
-        inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, 1 + 3 * phases,
+    const GivenRays rays{rays_P, rays_D, rays_gx, rays_gy};
+    KERNELS[given][mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
+        s, static_cast<const float4*>(env), lv, (float)aniso, uni, jitters, rays, K, W, H, tiles_x,
+        inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, min_contrib, 1 + 3 * phases,
         out, counters, rows);
     return (int)cudaGetLastError();
 }
 
 // The launch's resources of the kernel of env mode 0 (which = 0), 1
-// (which = 1, aniso 1), 2 (which = 1, aniso > 1) or 3 (which = 2) for a
-// scene's stack bound, into info[0..8): registers a thread, static
-// shared bytes, local bytes a thread (stack frame), dynamic shared bytes
-// (the stack and the differentials), resident blocks an SM, threads a
-// block, tile width, tile height.
-extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int* info) {
-    if (stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || mode >= N_MODES)
+// (which = 1, aniso 1), 2 (which = 1, aniso > 1) or 3 (which = 2) in
+// form 0 (raygen) or 1 (given rays) for a scene's stack bound, into
+// info[0..8): registers a thread, static shared bytes, local bytes a
+// thread (stack frame), dynamic shared bytes (the stack and the
+// differentials), resident blocks an SM, threads a block, tile width,
+// tile height.
+extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int* info) {
+    if (stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || mode >= N_MODES || given < 0 ||
+        given > 1)
         return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(mode, stack_depth);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;
-    if ((err = cudaFuncGetAttributes(&a, KERNELS[mode])) != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&a, KERNELS[given][mode])) != cudaSuccess) return (int)err;
     int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNELS[mode], BLOCK, smem)) !=
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNELS[given][mode], BLOCK,
+                                                             smem)) !=
         cudaSuccess)
         return (int)err;
     info[0] = a.numRegs;

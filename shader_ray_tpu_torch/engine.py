@@ -3,8 +3,9 @@ scene onto the device — the 8-wide tables or, with
 ``Config.packet_kernel = "binary"``, the binary ones — and hands out
 frame functions per static render configuration.  A frame function runs
 the fused frame kernel once per call (wide tables, ``Config.packet_fused``,
-``which`` 0, 1 or 2) or the unfused trace engine; ops/engine_frame.py
-routes.
+every ``which`` but 3; ``which = 5`` over its 25 given sub-ray sets) or
+the unfused trace engine; ops/engine_frame.py routes.  Every fused route
+retires spent lanes at ``Config.min_contrib``, read at each call.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.
@@ -63,14 +64,23 @@ class Renderer:
         self.cfg = (config or Config()).validate()
         pack = pack_scene_wide if self.cfg.packet_kernel == "wide" else pack_scene
         self.packed = pack(data, background, self.cfg).to(self.device)
-        self.max_steps = self.cfg.packet_max_steps
-        self.fused = self.cfg.packet_fused
+
+    # the render knobs are read from the config at each call, so a live
+    # edit (app.driver.App.set_knob) reaches the next frame
+    @property
+    def max_steps(self) -> int:
+        return self.cfg.packet_max_steps
+
+    @property
+    def fused(self) -> bool:
+        return self.cfg.packet_fused
 
     def make_fn(self, statics: RenderStatics):
         """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter."""
 
         def fn(params: FrameParams) -> torch.Tensor:
-            return render_frame(self.packed, params, statics, self.max_steps, self.fused)
+            return render_frame(self.packed, params, statics, self.max_steps, self.fused,
+                                self.cfg.min_contrib)
 
         return fn
 
@@ -87,7 +97,8 @@ class Renderer:
 
         def fn(params: FrameParams) -> torch.Tensor:
             out = render_progressive(
-                self.packed, params, statics, jitters, self.max_steps, self.fused
+                self.packed, params, statics, jitters, self.max_steps, self.fused,
+                self.cfg.min_contrib,
             )
             return out.sum() if reduce_sum else out
 
@@ -99,7 +110,8 @@ class Renderer:
         Mrays/s denominator vs the W*H*6 potential."""
 
         def fn(params: FrameParams) -> int:
-            return count_cast(self.packed, params, statics, self.max_steps, self.fused)
+            return count_cast(self.packed, params, statics, self.max_steps, self.fused,
+                              self.cfg.min_contrib)
 
         return fn
 
@@ -116,6 +128,6 @@ class Renderer:
             return None
 
         def fn(params: FrameParams) -> torch.Tensor:
-            return tile_stats(self.packed, params, statics, self.max_steps)
+            return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib)
 
         return fn

@@ -4,30 +4,35 @@ render_progressive_packet).
 
 Routing is by configuration, decided in ``fused_route``:
 
-* ``which`` 0, 1 or 2, ``fused`` and wide tables: the fused frame kernel
-  (ops/frame_kernel.py), as the reference runs these modes in its fused
-  kernel (engine_pallas.py:555, :606-612, :755-760).  One frame or a
-  progressive batch is ONE launch; the kernel averages the K jittered
-  samples in linear space.  ``which = 1`` and ``2`` run its
-  ``with_grads`` form (ray differentials, textureGrad env or the dY
-  picture).
+* every ``which`` but 3, ``fused`` and wide tables: the fused frame
+  kernel (ops/frame_kernel.py), as the reference runs ``which`` 0, 1, 2
+  and 5 in its fused kernel (engine_pallas.py:229-239, :555, :606-612,
+  :755-760).  One frame or a progressive batch is ONE launch; the kernel
+  averages the K jittered samples in linear space.  ``which = 1`` and
+  ``2`` run its ``with_grads`` form (ray differentials, textureGrad env
+  or the dY picture).  ``which = 5`` (the supersample oracle, fs:654-673)
+  builds the 25 sub-sample directions from the primary rays
+  (``supersample_directions``) and runs them as ONE launch of the
+  kernel's given-rays form, K = 25, bilinear env: the mean of the 25
+  sets is the reference's ``acc / (n * n)`` (engine_pallas.py:665-702).
+  ``min_contrib`` > 0 retires spent lanes in the kernel (Config.
+  min_contrib, as the reference's packet_shade reads it).
 * ``fused=False`` or binary tables: primary rays as tensors
   (``generate_rays``) through the unfused trace engine
-  (ops/engine_trace.py), every ``which``.
+  (ops/engine_trace.py), every ``which``, ``which = 5`` as 25 sub-frames
+  over the same directions; this route ignores ``min_contrib``, as the
+  reference's unfused loop does.
 * ``which = 3``: pure math on the primary rays, no trace (fs:642-650).
-* ``which = 5``: the 25 sub-sample offsets of the supersample oracle
-  (fs:654-673), each through the unfused engine, averaged.  The
-  reference traces them in its fused kernel over given rays
-  (engine_pallas.py:229-236); the port's frame kernel generates its rays.
 * any other ``which`` renders as ``which = 0`` does, as in the reference.
 
 ``tile_stats`` is the stats fn's frame: the fused kernel's counter row
 of each 16 x 16 pixel tile of a ``which = 0`` frame.
 
-A progressive batch off the fused route renders its K frames one after
-the other and sums them in order.  The tonemap runs once on the linear
-mean, in plain PyTorch, as it runs in plain XLA outside the Pallas
-kernels in the reference.
+A progressive batch renders its K frames one after the other and sums
+them in order, except on the fused route outside ``which = 5``, where it
+is one launch.  The tonemap runs once on the linear mean, in plain
+PyTorch, as it runs in plain XLA outside the Pallas kernels in the
+reference.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     UNI_SIZE,
     UNI_SPECULAR,
     FrameSettings,
+    GivenRays,
     frame_kernel,
 )
 from shader_ray_tpu_torch.ops.engine_trace import trace_rays
@@ -99,17 +105,20 @@ Packed = PackedWide | PackedBinary
 def fused_route(packed: Packed, statics: RenderStatics, fused: bool) -> bool:
     """Whether this configuration renders through the fused frame
     kernel (module docstring)."""
-    return fused and isinstance(packed, PackedWide) and statics.which not in (3, 5)
+    return fused and isinstance(packed, PackedWide) and statics.which != 3
 
 
-def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
-    """The fused frame kernel's settings.  ``which`` 3 and 5 have their
-    route in ``unfused_linear`` and must not arrive here; a ``which``
-    the kernel does not know renders as 0."""
-    if statics.which in (3, 5):
+def frame_settings(
+    statics: RenderStatics, max_steps: int = 0, min_contrib: float = 0.0
+) -> FrameSettings:
+    """The fused frame kernel's settings.  ``which = 3`` traces nothing
+    and must not arrive here; ``which = 5`` is the bilinear mode over
+    given rays (``fused_supersample``); a ``which`` the kernel does not
+    know renders as 0."""
+    if statics.which == 3:
         raise NotImplementedError(
-            f"which={statics.which} is not a mode of the fused frame kernel; it "
-            "renders through ops/engine_trace (render_linear routes it there)"
+            "which=3 is not a mode of the fused frame kernel; it is math on the "
+            "primary rays in unfused_linear (render_linear routes it there)"
         )
     return FrameSettings(
         width=statics.width,
@@ -122,11 +131,21 @@ def frame_settings(statics: RenderStatics, max_steps: int = 0) -> FrameSettings:
         max_steps=max_steps,
         which=statics.which if statics.which in (1, 2) else 0,
         env_aniso=statics.env_aniso,
+        min_contrib=min_contrib,
     )
 
 
 def _on(params: FrameParams, device) -> FrameParams:
     return FrameParams(*[None if x is None else torch.as_tensor(x).to(device) for x in params])
+
+
+def primary_rays(statics: RenderStatics, params: FrameParams) -> tuple[Rays, tuple]:
+    """The frame's pinhole rays at ``params.pixel_jitter`` where the
+    params live, (H*W, 3) row-major, and the pixel spacing (right, up)."""
+    dev = params.camera_matrix.device
+    jj = torch.arange(statics.height, dtype=torch.float32, device=dev)[:, None]
+    ii = torch.arange(statics.width, dtype=torch.float32, device=dev)[None, :]
+    return rays_for_pixels(statics, params, jj, ii)
 
 
 def unfused_linear(
@@ -135,10 +154,7 @@ def unfused_linear(
     """One frame at ``params.pixel_jitter`` off the fused route: linear
     (H, W, 3) colour."""
     params = _on(params, packed.env_pyramid.texels.device)
-    dev = params.camera_matrix.device
-    jj = torch.arange(statics.height, dtype=torch.float32, device=dev)[:, None]
-    ii = torch.arange(statics.width, dtype=torch.float32, device=dev)[None, :]
-    rays, (right, up) = rays_for_pixels(statics, params, jj, ii)
+    rays, (right, up) = primary_rays(statics, params)
     if statics.which == 3:
         # this pixel's env-coordinate differentials (fs:642-650)
         below = torch.stack(env_coords(rays.D - rays.dDdy / 2.0), dim=-1)
@@ -146,26 +162,33 @@ def unfused_linear(
         delta = torch.abs(above - below) * 100.0
         color = torch.cat([delta, torch.zeros_like(delta[..., :1])], dim=-1)
     elif statics.which == 5:
-        n = SUPERSAMPLE
         color = torch.zeros_like(rays.P)
         zeros = torch.zeros_like(rays.P)
-        for i in range(n):
-            for j in range(n):
-                Ds = normalize(rays.D + (i / n - 0.5) * 0.2 * right + (j / n - 0.5) * 0.2 * up)
-                sub = Rays(
-                    P=rays.P, D=Ds, dPdx=zeros, dDdx=right - dot(Ds, right)[..., None] * Ds,
-                    dPdy=zeros, dDdy=up - dot(Ds, up)[..., None] * Ds,
-                )
-                color = color + trace_rays(packed, sub, params, statics, max_steps)
-        color = color / (n * n)
+        for Ds in supersample_directions(rays.D, right, up):
+            sub = Rays(
+                P=rays.P, D=Ds, dPdx=zeros, dDdx=right - dot(Ds, right)[..., None] * Ds,
+                dPdy=zeros, dDdy=up - dot(Ds, up)[..., None] * Ds,
+            )
+            color = color + trace_rays(packed, sub, params, statics, max_steps)
+        color = color / SUPERSAMPLE**2
     else:
         color = trace_rays(packed, rays, params, statics, max_steps)
     return color.reshape(statics.height, statics.width, 3)
 
 
+def supersample_directions(D: torch.Tensor, right: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """(25, N, 3): the which = 5 sub-sample directions of the (N, 3)
+    primary directions, set i * 5 + j offset by (i / 5 - 0.5, j / 5 -
+    0.5) x 0.2 pixel spacings (fs:654-673, engine_pallas.py:686-699)."""
+    n = SUPERSAMPLE
+    offs = torch.tensor([[(i / n - 0.5) * 0.2, (j / n - 0.5) * 0.2] for i in range(n)
+                         for j in range(n)], dtype=torch.float32, device=D.device)
+    return normalize(D + offs[:, 0, None, None] * right + offs[:, 1, None, None] * up)
+
+
 def fused_linear(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
-    jitters: torch.Tensor, max_steps: int = 0,
+    jitters: torch.Tensor, max_steps: int = 0, min_contrib: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE frame-kernel launch: the linear (H, W, 3) mean over the
     (K, 2) jitters + the kernel's counter row (ops/frame_kernel.py).  The
@@ -174,8 +197,23 @@ def fused_linear(
     dev = packed.leaves.device
     return frame_kernel(
         packed, pack_uniforms(params).to(dev), jitters.to(dev),
-        frame_settings(statics, max_steps),
+        frame_settings(statics, max_steps, min_contrib),
     )
+
+
+def fused_supersample(
+    packed: PackedWide, params: FrameParams, statics: RenderStatics,
+    max_steps: int = 0, min_contrib: float = 0.0,
+) -> torch.Tensor:
+    """The which = 5 frame at ``params.pixel_jitter`` as ONE launch of
+    the frame kernel's given-rays form: the primaries' origins and their
+    25 sub-sample direction sets, built on the scene's device; the
+    linear (H, W, 3) mean of the 25 sub-frames."""
+    params = _on(params, packed.leaves.device)
+    rays, (right, up) = primary_rays(statics, params)
+    given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
+    return frame_kernel(packed, pack_uniforms(params), None,
+                        frame_settings(statics, max_steps, min_contrib), rays=given)[0]
 
 
 def render_linear(
@@ -185,35 +223,43 @@ def render_linear(
     jitters: torch.Tensor,
     max_steps: int = 0,
     fused: bool = True,
+    min_contrib: float = 0.0,
 ) -> torch.Tensor:
     """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
     the configuration (module docstring)."""
-    if fused_route(packed, statics, fused):
-        return fused_linear(packed, params, statics, jitters, max_steps)[0]
+    on_kernel = fused_route(packed, statics, fused)
+    if on_kernel and statics.which != 5:
+        return fused_linear(packed, params, statics, jitters, max_steps, min_contrib)[0]
     total = None
     for jit in jitters:
-        frame = unfused_linear(packed, params._replace(pixel_jitter=jit), statics, max_steps)
+        jittered = params._replace(pixel_jitter=jit)
+        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib) if on_kernel
+                 else unfused_linear(packed, jittered, statics, max_steps))
         total = frame if total is None else total + frame
     return total / jitters.shape[0]
 
 
 def count_cast(
     packed: Packed, params: FrameParams, statics: RenderStatics,
-    max_steps: int = 0, fused: bool = True,
+    max_steps: int = 0, fused: bool = True, min_contrib: float = 0.0,
 ) -> int:
     """Rays actually cast for one frame at ``params.pixel_jitter``: live
-    bounce rays + shadow rays from light-facing hits.  Off the fused
-    route it is one trace of the primary rays, whatever ``which``
-    (shader_ray_tpu/engine.py:339-371)."""
+    bounce rays + shadow rays from light-facing hits.  It is one trace of
+    the primary rays, whatever ``which``: the fused route counts the
+    ``which = 0`` frame at ``which = 5`` (shader_ray_tpu/engine.py:339-371)."""
     if fused_route(packed, statics, fused):
-        return int(fused_linear(packed, params, statics, frame_jitter(params), max_steps)[1][0])
+        if statics.which == 5:
+            statics = statics._replace(which=0)
+        return int(fused_linear(packed, params, statics, frame_jitter(params), max_steps,
+                                min_contrib)[1][0])
     params = _on(params, packed.env_pyramid.texels.device)
     rays = generate_rays(statics, params)
     return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
 
 
 def tile_stats(
-    packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0
+    packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
+    min_contrib: float = 0.0,
 ) -> torch.Tensor:
     """The per-tile counter rows of one ``which = 0`` frame at
     ``params.pixel_jitter`` through the fused frame kernel:
@@ -221,7 +267,7 @@ def tile_stats(
     tiles row-major.  Column 0 rays cast; columns 1+3p, 2+3p, 3+3p phase
     p's node pops, leaf visits and triangle tests (phases in
     ``frame_kernel.stats_phases`` order), summed over the tile's rays."""
-    fs = frame_settings(statics._replace(which=0), max_steps)
+    fs = frame_settings(statics._replace(which=0), max_steps, min_contrib)
     dev = packed.leaves.device
     rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long, device=dev)
     frame_kernel(packed, pack_uniforms(params).to(dev), frame_jitter(params).to(dev), fs,
@@ -242,11 +288,12 @@ def _finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
 
 def render_frame(
     packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
-    fused: bool = True,
+    fused: bool = True, min_contrib: float = 0.0,
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
     unless ``statics.do_tonemap`` is off."""
-    color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused)
+    color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused,
+                          min_contrib)
     return _finish(color, statics)
 
 
@@ -257,7 +304,9 @@ def render_progressive(
     jitters: torch.Tensor,
     max_steps: int = 0,
     fused: bool = True,
+    min_contrib: float = 0.0,
 ) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
-    return _finish(render_linear(packed, params, statics, jitters, max_steps, fused), statics)
+    return _finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib),
+                   statics)

@@ -12,7 +12,14 @@ packet_mega.packet_shade) with its walker ``make_wide_walker``
 raygen seeds the ray differentials, each hit transfers them (the fs:92-93
 quirk kept) and the env term is ``which = 1`` textureGrad (trilinear,
 ``env_aniso`` probes) or the ``which = 2`` dY picture.  The kernel has
-one instantiation a mode (``FRAME_MODES``).
+one instantiation a mode (``FRAME_MODES``) and form: raygen, or given
+rays (``GivenRays``: the K sample sets of the frame read from memory
+instead of generated, kernel_mega.py:172-173, :233-241; the fused
+``which = 5`` frame runs its 25 sub-ray sets so).  ``FrameSettings.
+min_contrib`` > 0 retires a lane after a bounce before the last once its
+Schlick modulation is at or below it in every component
+(kernel_mega.py:368-381): its shadow ray of that bounce is cast, its env
+term uses its current direction, and it casts no further ray.
 
 ``frame_kernel`` is the wrapper: CPU tensors run ``frame_plain``, the
 same function in plain PyTorch; CUDA tensors launch the hand-written
@@ -85,6 +92,7 @@ class FrameSettings(NamedTuple):
     max_steps: int = 0          # node pops per walk; 0 = n_wide + 2
     which: int = 0              # env term: 0 level-0 bilinear, 1 textureGrad, 2 dY picture
     env_aniso: int = 1          # which = 1: probes when > 1
+    min_contrib: float = 0.0    # lane retirement threshold (Config.min_contrib); 0 = none
 
     def phases(self) -> int:
         return len(stats_phases(self.bounce_count, self.cast_shadows, self.enable_diffuse))
@@ -102,18 +110,30 @@ class FrameSettings(NamedTuple):
         return -(-self.width // TILE) * -(-self.height // TILE)
 
 
+class GivenRays(NamedTuple):
+    """The K sample sets of a frame handed to the kernel instead of its
+    raygen (pixel p = row * width + column)."""
+
+    P: torch.Tensor                    # (W*H, 3) origins, shared by the K sets
+    D: torch.Tensor                    # (K, W*H, 3) directions
+    dDdx: torch.Tensor | None = None   # (K, W*H, 3), read in the grad modes only
+    dDdy: torch.Tensor | None = None
+
+
 def frame_plain(
     packed: PackedWide,
     uni: torch.Tensor,
-    jitters: torch.Tensor,
+    jitters: torch.Tensor | None,
     fs: FrameSettings,
     probe: dict | None = None,
     tile_rows: torch.Tensor | None = None,
+    rays: GivenRays | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frame kernel's function in plain PyTorch, vectorized over all
     K * H * W sample rays (ray r = k * H * W + pixel): returns the
-    (H, W, 3) linear colour mean over the K jitters and the counter
-    row, and fills ``tile_rows`` if given (module docstring).
+    (H, W, 3) linear colour mean over the K jitters (or the K given ray
+    sets, ``jitters`` None) and the counter row, and fills ``tile_rows``
+    if given (module docstring).
     Arithmetic follows the kernel op by op (kernel_mega.py:174-453).  A
     ``probe`` dict receives what an operation and byte count of the
     frame needs: ``"walks"``, each walk phase's ``WalkResult`` in order,
@@ -122,7 +142,7 @@ def frame_plain(
     grad modes."""
     fs.mode()  # a mode the kernel has
     W, H = fs.width, fs.height
-    K = jitters.shape[0]
+    K = _samples(jitters, rays, fs)
     HW = W * H
     dev = uni.device
     u = [uni[i] for i in range(UNI_SIZE)]
@@ -132,41 +152,19 @@ def frame_plain(
     Lx, Ly, Lz = u[UNI_LIGHT_DIR : UNI_LIGHT_DIR + 3]
     csp = u[UNI_SPECULAR : UNI_SPECULAR + 3]
     cdf = u[UNI_DIFFUSE : UNI_DIFFUSE + 3]
-    cm = u[UNI_CAM_NORMAL : UNI_CAM_NORMAL + 9]
-    ipw = u[UNI_IPW]
     counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=dev)
 
-    # pinhole raygen (kernel_mega.py:203-220): two normalisations
     pix = torch.arange(HW, device=dev).repeat(K)
-    iif = (pix % W).float()
-    jf = (pix // W).float()
-    jx = jitters[:, 0].repeat_interleave(HW)
-    jy = jitters[:, 1].repeat_interleave(HW)
-    inv_w, inv_h, aspect = _raygen_scalars(W, H)
-    uu = (iif + 0.5 + jx) * inv_w
-    vv = 1.0 - (jf + 0.5 + jy) * inv_h
-    ex = ipw * (uu - 0.5)
-    ey = (ipw * aspect) * (vv - 0.5)
-    inv_e = 1.0 / torch.sqrt(ex * ex + ey * ey + 1.0)
-    dex, dey, dez = ex * inv_e, ey * inv_e, -inv_e
-    Dx = cm[0] * dex + cm[1] * dey + cm[2] * dez
-    Dy = cm[3] * dex + cm[4] * dey + cm[5] * dez
-    Dz = cm[6] * dex + cm[7] * dey + cm[8] * dez
-    inv_d = 1.0 / torch.sqrt(Dx * Dx + Dy * Dy + Dz * Dz)
-    Dx, Dy, Dz = Dx * inv_d, Dy * inv_d, Dz * inv_d
     grads = fs.which in (1, 2)
-    if grads:
-        # seeded differentials (kernel_mega.py:221-232): the camera
-        # matrix's columns at the image plane's pixel spacing
-        sx = ipw * inv_w
-        sy = (ipw * aspect) * inv_h
-        rx, ry, rz = cm[0] * sx, cm[3] * sx, cm[6] * sx
-        ux, uy, uz = cm[1] * sy, cm[4] * sy, cm[7] * sy
-        dr = Dx * rx + Dy * ry + Dz * rz
-        du = Dx * ux + Dy * uy + Dz * uz
-        gx = [rx - dr * Dx, ry - dr * Dy, rz - dr * Dz]
-        gy = [ux - du * Dx, uy - du * Dy, uz - du * Dz]
     R = K * HW
+    if rays is None:
+        rays = raygen_rays(uni, jitters, fs)
+    # the rays of sample k of pixel p (kernel_mega.py:233-241)
+    Px, Py, Pz = rays.P[pix].unbind(1)
+    Dx, Dy, Dz = rays.D.reshape(R, 3).unbind(1)
+    if grads:
+        gx = list(rays.dDdx.reshape(R, 3).unbind(1))
+        gy = list(rays.dDdy.reshape(R, 3).unbind(1))
     # the tile of each ray's pixel, for the per-tile rows
     tiles_x = -(-W // TILE)
     tile = (pix // W) // TILE * tiles_x + (pix % W) // TILE
@@ -179,7 +177,6 @@ def frame_plain(
         counters[col] += per_ray.sum()
         if tile_rows is not None:
             tile_rows[:, col].index_add_(0, tile, per_ray.long())
-    Px, Py, Pz = (u[UNI_CAM_ORIGIN + i].expand(R) for i in range(3))
 
     oLx = nm[0] * Lx + nm[1] * Ly + nm[2] * Lz
     oLy = nm[3] * Lx + nm[4] * Ly + nm[5] * Lz
@@ -202,7 +199,7 @@ def frame_plain(
         if probe is not None:
             probe.setdefault("walks", []).append(w)
 
-    for _ in range(fs.bounce_count):
+    for b in range(fs.bounce_count):
         count(0, act)
         oP = torch.stack([
             m[0] * Px + m[1] * Py + m[2] * Pz + m[3],
@@ -278,6 +275,11 @@ def frame_plain(
             gx = [torch.where(hit_ok, c - 2.0 * gdx, c) for c in gx]
             gy = [torch.where(hit_ok, c - 2.0 * gdy, c) for c in gy]
         act = hit_ok
+        if fs.min_contrib > 0.0 and b + 1 < fs.bounce_count:
+            # throughput cutoff (kernel_mega.py:368-381): a retired lane's
+            # env term uses its current direction and modulation
+            mc = fs.min_contrib
+            act = act & ((mod[0] > mc) | (mod[1] > mc) | (mod[2] > mc))
 
     env_D = torch.stack([Dx, Dy, Dz], dim=1)
     if probe is not None:
@@ -302,6 +304,69 @@ def frame_plain(
     return (total / K).reshape(H, W, 3), counters
 
 
+def raygen_rays(uni: torch.Tensor, jitters: torch.Tensor, fs: FrameSettings) -> GivenRays:
+    """The rays the kernel generates for the (K, 2) ``jitters``, in plain
+    PyTorch: pinhole raygen (kernel_mega.py:203-220, two normalisations)
+    and, in the grad modes, the seeded differentials (:221-232)."""
+    W, H = fs.width, fs.height
+    K, HW = jitters.shape[0], W * H
+    u = [uni[i] for i in range(UNI_SIZE)]
+    cm = u[UNI_CAM_NORMAL : UNI_CAM_NORMAL + 9]
+    ipw = u[UNI_IPW]
+    pix = torch.arange(HW, device=uni.device).repeat(K)
+    iif = (pix % W).float()
+    jf = (pix // W).float()
+    jx = jitters[:, 0].repeat_interleave(HW)
+    jy = jitters[:, 1].repeat_interleave(HW)
+    inv_w, inv_h, aspect = _raygen_scalars(W, H)
+    uu = (iif + 0.5 + jx) * inv_w
+    vv = 1.0 - (jf + 0.5 + jy) * inv_h
+    ex = ipw * (uu - 0.5)
+    ey = (ipw * aspect) * (vv - 0.5)
+    inv_e = 1.0 / torch.sqrt(ex * ex + ey * ey + 1.0)
+    dex, dey, dez = ex * inv_e, ey * inv_e, -inv_e
+    Dx = cm[0] * dex + cm[1] * dey + cm[2] * dez
+    Dy = cm[3] * dex + cm[4] * dey + cm[5] * dez
+    Dz = cm[6] * dex + cm[7] * dey + cm[8] * dez
+    inv_d = 1.0 / torch.sqrt(Dx * Dx + Dy * Dy + Dz * Dz)
+    Dx, Dy, Dz = Dx * inv_d, Dy * inv_d, Dz * inv_d
+    P = uni[UNI_CAM_ORIGIN : UNI_CAM_ORIGIN + 3].expand(HW, 3).contiguous()
+    sets = lambda *c: torch.stack(c, dim=1).reshape(K, HW, 3)
+    if fs.which not in (1, 2):
+        return GivenRays(P, sets(Dx, Dy, Dz))
+    # seeded differentials: the camera matrix's columns at the image
+    # plane's pixel spacing
+    sx = ipw * inv_w
+    sy = (ipw * aspect) * inv_h
+    rx, ry, rz = cm[0] * sx, cm[3] * sx, cm[6] * sx
+    ux, uy, uz = cm[1] * sy, cm[4] * sy, cm[7] * sy
+    dr = Dx * rx + Dy * ry + Dz * rz
+    du = Dx * ux + Dy * uy + Dz * uz
+    return GivenRays(P, sets(Dx, Dy, Dz), sets(rx - dr * Dx, ry - dr * Dy, rz - dr * Dz),
+                     sets(ux - du * Dx, uy - du * Dy, uz - du * Dz))
+
+
+def _samples(jitters: torch.Tensor | None, rays: GivenRays | None, fs: FrameSettings) -> int:
+    """K, the sample sets of the frame: the jitters' rows for raygen, the
+    given rays' sets otherwise (exactly one of the two); raises on given
+    rays of the wrong shape."""
+    if (jitters is None) == (rays is None):
+        raise ValueError("frame_kernel: pass either jitters (raygen) or given rays, not both")
+    if rays is None:
+        return jitters.shape[0]
+    K = rays.D.shape[0]
+    n = fs.width * fs.height
+    check = functools.partial(_build.check, "frame_kernel")
+    check("rays.P", rays.P, torch.float32, (n, 3))
+    check("rays.D", rays.D, torch.float32, (None, n, 3))
+    if fs.which in (1, 2):
+        if rays.dDdx is None or rays.dDdy is None:
+            raise ValueError(f"frame_kernel: which={fs.which} reads the given rays' dDdx and dDdy")
+        check("rays.dDdx", rays.dDdx, torch.float32, (K, n, 3))
+        check("rays.dDdy", rays.dDdy, torch.float32, (K, n, 3))
+    return K
+
+
 def _raygen_scalars(W: int, H: int) -> tuple[float, float, float]:
     """1/W, 1/H and H/W rounded to f32 once, shared by both versions."""
     return (float(np.float32(1.0 / W)), float(np.float32(1.0 / H)),
@@ -318,47 +383,52 @@ def _entry():
     fn.argtypes = [
         P, P, P,                   # nodes, leaves, normals
         P, P, I, I, I,             # env texels, level table, levels, which, aniso
-        P, P, I, I, I,             # uni, jitters, K, W, H
+        P, P,                      # uni, jitters
+        P, P, P, P,                # given rays: P, D, dDdx, dDdy
+        I, I, I,                   # K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
-        I, I, I, F, F, I, I,       # bounces, shadows, diffuse, fudge, eps, max_steps, stack
+        I, I, I, F, F, F, I, I,    # bounces, shadows, diffuse, fudge, eps, min_contrib, max_steps, stack
         P, P, P, P,                # out, counters, tile rows, stream
     ]
     fn.restype = I
     return fn
 
 
-def launch_info(stack_depth: int, mode: str = "bilinear") -> dict[str, int]:
+def launch_info(stack_depth: int, mode: str = "bilinear", given: bool = False) -> dict[str, int]:
     """The launch of the frame kernel of ``mode`` (one of ``FRAME_MODES``)
-    on the current card for a scene's stack bound: registers a thread,
-    static and dynamic (stack, and the differentials in the grad modes)
-    shared bytes a block, local bytes a thread, resident blocks an SM,
-    threads a block and the tile."""
+    in its raygen or given-rays form on the current card for a scene's
+    stack bound: registers a thread, static and dynamic (stack, and the
+    differentials in the grad modes) shared bytes a block, local bytes a
+    thread, resident blocks an SM, threads a block and the tile."""
     return _build.launch_info("frame_kernel", "srt_frame_kernel_info", stack_depth,
-                              FRAME_MODES.index(mode), keys=(*_build.INFO_KEYS, "tile_w", "tile_h"))
+                              FRAME_MODES.index(mode), int(given),
+                              keys=(*_build.INFO_KEYS, "tile_w", "tile_h"))
 
 
 def frame_kernel(
     packed: PackedWide,
     uni: torch.Tensor,
-    jitters: torch.Tensor,
+    jitters: torch.Tensor | None,
     fs: FrameSettings,
     tile_rows: torch.Tensor | None = None,
+    rays: GivenRays | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Render K jittered samples of a W x H frame: (H, W, 3) f32 linear
-    colour mean and the int64 counter row; fills ``tile_rows`` if given
-    (module docstring).  CPU tensors run ``frame_plain``; CUDA tensors
-    launch the CUDA kernel."""
+    """Render K samples of a W x H frame, from the (K, 2) ``jitters`` or
+    from the K sets of given ``rays`` (``jitters`` None): (H, W, 3) f32
+    linear colour mean and the int64 counter row; fills ``tile_rows`` if
+    given (module docstring).  CPU tensors run ``frame_plain``; CUDA
+    tensors launch the CUDA kernel."""
     env = packed.env_pyramid
     tensors = dict(
         nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
-        uni=uni, jitters=jitters,
+        uni=uni, jitters=jitters, tile_rows=tile_rows,
+        **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()}),
     )
-    if tile_rows is not None:
-        tensors["tile_rows"] = tile_rows
-    device = _build.one_device("frame_kernel", tensors)
+    device = _build.one_device("frame_kernel", {k: v for k, v in tensors.items() if v is not None})
     if device.type == "cpu":
-        return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows)
+        return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows, rays=rays)
     fs.mode()  # a mode the kernel has
+    K = _samples(jitters, rays, fs)
     Nw = packed.n_wide
     check = functools.partial(_build.check, "frame_kernel")
     check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
@@ -366,12 +436,14 @@ def frame_kernel(
     check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
     check("env", env.texels, torch.float32, (None, TEXEL))
     check("uni", uni, torch.float32, (UNI_SIZE,))
-    check("jitters", jitters, torch.float32, (None, 2))
+    if jitters is not None:
+        check("jitters", jitters, torch.float32, (None, 2))
     if tile_rows is not None:
         check("tile_rows", tile_rows, torch.long, (fs.n_tiles(), 1 + 3 * fs.phases()))
-    K = jitters.shape[0]
     if K < 1 or fs.width < 1 or fs.height < 1:
         raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
+    if not fs.min_contrib >= 0.0:
+        raise ValueError(f"frame_kernel: min_contrib={fs.min_contrib}: need >= 0")
     if not 1 <= packed.stack_depth <= MAX_STACK:
         raise ValueError(f"frame_kernel: stack depth {packed.stack_depth} > {MAX_STACK}")
     if fs.phases() > MAX_PHASES:
@@ -384,15 +456,17 @@ def frame_kernel(
     counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
     levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
     inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    given = rays or GivenRays(None, None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
             env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
-            uni.data_ptr(), jitters.data_ptr(), K, fs.width, fs.height,
+            uni.data_ptr(), ptr(jitters), *(ptr(x) for x in given), K, fs.width, fs.height,
             inv_w, inv_h, aspect,
             fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
-            fs.surface_fudge, fs.mt_eps, fs.max_steps or Nw + 2,
+            fs.surface_fudge, fs.mt_eps, fs.min_contrib, fs.max_steps or Nw + 2,
             packed.stack_depth,
             out.data_ptr(), counters.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(), stream,

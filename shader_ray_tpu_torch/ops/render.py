@@ -55,8 +55,22 @@ class RenderStatics(NamedTuple):
 
     @staticmethod
     def from_config(cfg: Config | None = None, **overrides) -> "RenderStatics":
-        """Statics with the configured ``env_aniso``."""
-        return RenderStatics(**{"env_aniso": (cfg or Config()).env_aniso, **overrides})
+        """Statics from the configured frame size, render constants and
+        ``env_aniso`` (the reference's from_config, ops/render.py:87-103),
+        then ``overrides``."""
+        cfg = cfg or Config()
+        base = dict(
+            width=cfg.window_width,
+            height=cfg.window_height,
+            bounce_count=cfg.bounce_count,
+            cast_shadows=cfg.cast_shadows,
+            use_filmic=cfg.use_filmic,
+            do_tonemap=cfg.do_tonemap,
+            mt_eps=cfg.mt_epsilon,
+            surface_fudge=cfg.surface_fudge,
+            env_aniso=cfg.env_aniso,
+        )
+        return RenderStatics(**{**base, **overrides})
 
 
 def rays_for_pixels(

@@ -111,7 +111,7 @@ def test_config_defaults_equal():
     ref = RefConfig()
     port = Config()
     fields = [f.name for f in dataclasses.fields(Config)]
-    assert len(fields) == 10
+    assert len(fields) == 23
     for name in fields:
         assert getattr(ref, name) == getattr(port, name), name
     for bad in (dict(env_base=100), dict(max_leaf_tests=32), dict(packet_max_steps=-1),

@@ -124,6 +124,10 @@ def test_wrappers_do_not_fall_back_when_the_kernel_cannot_build(monkeypatch):
             wide, torch.zeros(52), torch.zeros((1, 2)),
             frame_kernel.FrameSettings(width=4, height=4, which=1, env_aniso=4),
             tile_rows=torch.zeros((1, 19), dtype=torch.long)),
+        lambda: frame_kernel.frame_kernel(
+            wide, torch.zeros(52), None,
+            frame_kernel.FrameSettings(width=4, height=4, min_contrib=0.5),
+            rays=frame_kernel.GivenRays(torch.zeros((16, 3)), torch.ones((25, 16, 3)))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -365,8 +369,8 @@ def test_frame_cases_show_their_paths(name):
     diffuse, three samples on a frame that is no whole number of tiles."""
     from shader_ray_tpu_torch.ops import frame_kernel as fk
 
-    packed, uni, jit, fs = chip_smoke.frame_case(name, torch.device("cpu"))
-    colour, counters = fk.frame_plain(packed, uni, jit, fs)
+    packed, uni, jit, fs, rays = chip_smoke.frame_case(name, torch.device("cpu"))
+    colour, counters = fk.frame_plain(packed, uni, jit, fs, rays=rays)
     assert chip_smoke.case_unmet(name, fs, colour, counters) is None
 
 
@@ -374,8 +378,8 @@ def test_frame_cases_show_their_paths(name):
 def test_case_check_refuses_a_frame_off_its_path(name):
     """Each case's check refuses a frame that did not take the case's
     path, so a kernel that skips the path fails on the card."""
-    _, _, jit, fs = chip_smoke.frame_case(name, torch.device("cpu"))
-    primaries = jit.shape[0] * fs.width * fs.height
+    packed, uni, jit, fs, _ = chip_smoke.frame_case(name, torch.device("cpu"))
+    primaries = chip_smoke.CASE_SAMPLES.get(name, 1) * fs.width * fs.height
     colour = torch.zeros((fs.height, fs.width, 3))
     counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long)
     counters[0] = primaries
@@ -391,7 +395,15 @@ def test_case_check_refuses_a_frame_off_its_path(name):
         counters[0] = primaries
     elif name == "k3-ragged":
         colour = torch.zeros((32, 48, 3))            # whole tiles, not the frame
-    # "bad": no pixel painted red
+    elif name == "min-contrib-1":
+        counters[0] = 2 * primaries
+        counters[7] = 1                             # a walk after bounce 0
+    elif name.startswith("min-contrib"):
+        from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+        # the exact frame: no lane retired
+        colour, counters = fk.frame_plain(packed, uni, jit, fs._replace(min_contrib=0.0))
+    # "bad": no pixel painted red; "given-*": no ray bounced, or no NaN at the pole
     assert chip_smoke.case_unmet(name, fs, colour, counters) is not None
 
 
@@ -446,16 +458,19 @@ def test_frame_kernel_control_flow_on_card(cuda_device, name):
     bad-painted pixels up to one."""
     from shader_ray_tpu_torch.ops import frame_kernel as fk
 
-    packed, uni, jit, fs = chip_smoke.frame_case(name, cuda_device)
+    packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device)
     before = fk._build.LAUNCHES["frame_kernel"]
-    kc, kn = fk.frame_kernel(packed, uni, jit, fs)
+    kc, kn = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
     assert fk._build.LAUNCHES["frame_kernel"] == before + 1
-    pc, pn = fk.frame_plain(packed, uni, jit, fs)
+    pc, pn = fk.frame_plain(packed, uni, jit, fs, rays=rays)
     torch.cuda.synchronize()
     assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None
     assert chip_smoke.case_unmet(name, fs, kc, kn.cpu()) is None
     red = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
     assert int(((kc == red).all(-1) != (pc == red).all(-1)).sum()) <= 1
+    if fs.min_contrib >= 1.0:  # every hit lane retired after bounce 0
+        oc, on = fk.frame_kernel(packed, uni, jit, fs._replace(bounce_count=1))
+        assert torch.equal(kc, oc) and torch.equal(kn[:on.numel()], on)
 
 
 @pytest.mark.cuda
@@ -466,7 +481,7 @@ def test_frame_kernel_tile_rows_on_card(cuda_device, mode):
     chip_smoke's limits (FRAME_CASES "which1" sets the scene)."""
     from shader_ray_tpu_torch.ops import frame_kernel as fk
 
-    packed, uni, jit, fs = chip_smoke.frame_case("which1", cuda_device)
+    packed, uni, jit, fs, _ = chip_smoke.frame_case("which1", cuda_device)
     fs = fs._replace(which={"bilinear": 0, "dy": 2}.get(mode, 1),
                      env_aniso=4 if mode == "probes" else 1)
     assert fs.mode() == mode

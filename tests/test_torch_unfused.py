@@ -142,18 +142,18 @@ def test_renderer_packs_by_config(sphere):
     assert route(renderers["fused"].packed, st, True)
     assert not route(renderers["fused"].packed, st, False)
     assert not route(renderers["binary"].packed, st, True)
-    # which 1 and 2 run the fused kernel's with_grads form, as the
-    # reference's fused kernel does; 3 and 5 keep the unfused route
-    for which in (1, 2):
+    # which 1 and 2 run the fused kernel's with_grads form and 5 its
+    # given-rays form in the bilinear mode, as the reference's fused
+    # kernel does; 3 (no trace) keeps the unfused route
+    for which in (1, 2, 5):
         assert route(renderers["fused"].packed, st._replace(which=which), True)
         assert not route(renderers["fused"].packed, st._replace(which=which), False)
         assert not route(renderers["binary"].packed, st._replace(which=which), True)
         fs = engine_frame.frame_settings(st._replace(which=which, env_aniso=4))
-        assert (fs.which, fs.env_aniso) == (which, 4)
-    for which in (3, 5):
-        assert not route(renderers["fused"].packed, st._replace(which=which), True)
-        with pytest.raises(NotImplementedError, match="engine_trace"):
-            engine_frame.frame_settings(st._replace(which=which))
+        assert (fs.which, fs.env_aniso) == (0 if which == 5 else which, 4)
+    assert not route(renderers["fused"].packed, st._replace(which=3), True)
+    with pytest.raises(NotImplementedError, match="unfused_linear"):
+        engine_frame.frame_settings(st._replace(which=3))
 
 
 @pytest.mark.parametrize("tables", sorted(CONFIGS))
