@@ -22,7 +22,21 @@ port's two paths through the Renderer's entry points:
   (gated on tests/golden/bench_which5_oracle.npy), which=1/2/3;
 * the app: the REPL (``app/main.repl``) over an ``App`` on the bench
   scene at 1024x768 (APP_SCRIPT, its ``b`` histogram's median and p95),
-  and the CLI ``python -m shader_ray_tpu_torch`` once as a subprocess.
+  and the CLI ``python -m shader_ray_tpu_torch`` once as a subprocess;
+* the other builds: the bench scene with ``Config(splits="sbvh")``
+  (duplicated, clipped triangle references) through the fused frame and
+  the unfused frame on wide and on binary tables, and with
+  ``Config(bvh_opt="reinsert")`` through the fused frame, each gated on
+  tests/golden/bench_which0.npy, the kernels held to their plain versions
+  on those tables and the frame kernel timed beside the object split's;
+* image backgrounds: PNG (the port's encoder), BMP and TGA written here
+  and the committed baseline JPEG through ``load_background``, and an App
+  frame over the JPEG env equal to the frame over its pixels as .npy;
+* the browser viewer (``app/webview.WebViewer``) over an App on the bench
+  scene, driven by a client thread over HTTP on 127.0.0.1, with the
+  render and PNG-encode times of a served frame;
+* the CLI twice with one SRT_CACHE_DIR: the second run hits the scene
+  cache and writes the same frame.
 
 The frame kernel is also held to its plain version in each of its env
 modes and on the control-flow cases of its wave compaction (FRAME_CASES,
@@ -42,8 +56,9 @@ walks' work), the frame kernel also beside
 the same frame's six walks as separate trace_wide launches, in its
 grad modes beside the unfused which=1 frame, in its given-rays form (the
 which=5 frame) beside the unfused which=5 frame, and at min_contrib =
-0.004, and prints
-one JSON line with the kernel table plus a final status line.
+0.004.  The other builds, the image backgrounds, the viewer and the CLI's
+scene cache run after those timings.  It prints one JSON line with the
+kernel table plus a final status line.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one NVIDIA GPU
 
@@ -701,7 +716,7 @@ def app_phase(renderer, card: str) -> list[float]:
     # the CLI once, as a user runs it
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "frame.ppm")
-        env = {**os.environ, "PYTHONPATH": ROOT}
+        env = {**os.environ, "PYTHONPATH": ROOT, "SRT_CACHE_DIR": os.path.join(tmp, "cache")}
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "shader_ray_tpu_torch",
@@ -714,6 +729,253 @@ def app_phase(renderer, card: str) -> list[float]:
     if img is None or img.shape != (512, 512, 3) or img.std() < 10:
         raise AssertionError(f"CLI failed: {proc.stderr[-2000:]}")
     return b_ms
+
+
+def bmp_bytes(px) -> bytes:
+    """A 24-bit bottom-up BITMAPINFOHEADER BMP of (H, W, 3) uint8 pixels."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = px.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = px[::-1, :, ::-1].reshape(h, w * 3)  # bottom-up, BGR
+    pix = rows.tobytes()
+    return (b"BM" + struct.pack("<IHHI", 54 + len(pix), 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(pix), 2835, 2835, 0, 0) + pix)
+
+
+def tga_bytes(px) -> bytes:
+    """A raw 24-bit top-down TGA (type 2) of (H, W, 3) uint8 pixels."""
+    import struct
+
+    h, w, _ = px.shape
+    return struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, 24, 0x20) + \
+        px[..., ::-1].tobytes()
+
+
+JPEG_ASSET = os.path.join(ROOT, "tests", "assets", "sky.jpg")  # baseline, 4:2:0, 192x96
+SERVE_LIMIT = 120.0  # seconds the viewer's client may take, and run() to return after it
+
+
+def images_phase(data) -> dict:
+    """A PNG written by the port's encoder, a BMP and a TGA written here and
+    the committed JPEG, each through ``load_background``: the PNG, BMP and
+    TGA must give their pixels / 255 exactly, the JPEG the committed decode
+    of the JAX package's reader (tests/assets/sky.jpg.npy) / 255 exactly.
+    Then one W x H App frame over the JPEG env, bit for bit the frame over
+    the same pixels passed as .npy.  Returns the path's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.app.driver import App
+    from shader_ray_tpu_torch.engine import Renderer
+    from shader_ray_tpu_torch.models.background import load_background
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.utils.png import encode_png
+
+    px = np.random.default_rng(3).integers(0, 256, size=(48, 96, 3), dtype=np.uint8)
+    px[:16] = px[0, 0]  # a flat band beside the noise
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext, body in (("png", encode_png(px)), ("bmp", bmp_bytes(px)), ("tga", tga_bytes(px))):
+            path = os.path.join(tmp, f"env.{ext}")
+            with open(path, "wb") as f:
+                f.write(body)
+            got = load_background(path)
+            same = got.dtype == np.float32 and np.array_equal(got, px.astype(np.float32) / 255.0)
+            print(f"images: .{ext} ({len(body)} bytes) through load_background: {got.shape}, "
+                  f"equal to its pixels / 255: {same}")
+            if not same:
+                raise AssertionError(f"images: the .{ext} background is not its pixels")
+        env_j = load_background(JPEG_ASSET)
+        want = np.load(JPEG_ASSET + ".npy").astype(np.float32) / 255.0
+        same = env_j.dtype == np.float32 and np.array_equal(env_j, want)
+        print(f"images: {os.path.relpath(JPEG_ASSET, ROOT)} through load_background: {env_j.shape}, "
+              f"equal to the committed decode / 255: {same}")
+        if not same:
+            raise AssertionError("images: the JPEG decode is not the committed one")
+        npy = os.path.join(tmp, "sky.npy")
+        np.save(npy, env_j)
+        _build.LAUNCHES.clear()
+        frames = []
+        for spec in (JPEG_ASSET, npy):
+            renderer = Renderer(data, load_background(spec))
+            frames.append(App(bench_world(), renderer, renderer.cfg, width=W, height=H).render())
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    same = frames[0].shape == (H, W, 3) and frames[0].tobytes() == frames[1].tobytes()
+    print(f"images: App {W}x{H} frame over the JPEG env, bit for bit the frame over its .npy: "
+          f"{same}; mean {float(frames[0].mean()):.4f}; launches {launches}")
+    if not same or not np.isfinite(frames[0]).all() or launches != {"frame_kernel": 2}:
+        raise AssertionError("images: the App frame over the JPEG env")
+    return launches
+
+
+def serve_phase(renderer, card: str) -> dict:
+    """The browser viewer over an App on the bench scene at W x H, on
+    127.0.0.1 port 0.  This thread renders (``step``, ``run``); a client
+    thread fetches ``/`` and ``/state``, then ``/frame.png`` (its decode
+    must be the App's frame quantized, byte for byte), posts the key m
+    and a drag (the serial must advance and a different frame be served),
+    then the key q; ``run()`` must return within SERVE_LIMIT seconds.
+    Times ``step()`` split into the render and ``encode_png``.  Returns
+    the path's launch counts and the times."""
+    import json as js
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.app import webview
+    from shader_ray_tpu_torch.app.driver import App
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.utils.png import decode_png, encode_png
+
+    app = App(bench_world(), renderer, renderer.cfg, width=W, height=H)
+    render_ms, encode_ms = [], []
+
+    def timed(fn, out):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    app.draw_frame = timed(app.draw_frame, render_ms)  # ends in .cpu(): synchronized
+    webview.encode_png = timed(encode_png, encode_ms)
+    _build.LAUNCHES.clear()
+    viewer = webview.WebViewer(app, host="127.0.0.1", port=0)
+    url = viewer.start()
+    done, errors, quit_at = [], [], []
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=30) as r:
+            return r.read()
+
+    def post(ev):
+        req = urllib.request.Request(url + "event", data=js.dumps(ev).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.read()
+
+    def wait_serial(above, deadline):
+        while True:
+            st = js.loads(get("state"))
+            if st["serial"] > above or time.time() > deadline:
+                return st
+            time.sleep(0.01)
+
+    def client():
+        try:
+            deadline = time.time() + SERVE_LIMIT
+            page, st = get(""), js.loads(get("state"))
+            done.append(f"GET / {len(page)} bytes, /state {st}")
+            st = wait_serial(0, deadline)
+            png0 = get("frame.png")
+            frame0 = decode_png(png0)
+            want = (np.clip(app._frame, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+            if frame0.shape != (H, W, 3) or not np.array_equal(frame0, want):
+                raise AssertionError("/frame.png is not the App's frame")
+            done.append(f"GET /frame.png {len(png0)} bytes = the App's frame, serial {st['serial']}")
+            for ev in ({"type": "key", "k": "m"},
+                       {"type": "button", "pressed": True, "x": W // 2, "y": H // 2},
+                       {"type": "motion", "x": W // 2 + 8, "y": H // 2},
+                       {"type": "motion", "x": W // 2 + 200, "y": H // 2 + 60},
+                       {"type": "button", "pressed": False}):
+                post(ev)
+            png1, serial0 = png0, st["serial"]
+            while png1 == png0 and time.time() < deadline:
+                st = wait_serial(st["serial"], deadline)
+                png1 = get("frame.png")
+            material = js.loads(get("state"))["material"]
+            if st["serial"] <= serial0 or png1 == png0 or material != "silver":
+                raise AssertionError(f"no new frame after m and a drag (serial {st['serial']}, "
+                                     f"material {material})")
+            done.append(f"POST m and a drag: serial {serial0} -> {st['serial']}, a new frame "
+                        f"({len(png1)} bytes), material {material}")
+            quit_at.append(time.perf_counter())
+            post({"type": "key", "k": "q"})
+        except Exception as e:  # reported by the rendering thread
+            errors.append(repr(e))
+        finally:
+            app.quit = True  # the loop ends whatever failed
+
+    t0 = time.perf_counter()
+    try:
+        viewer.step()  # the first frame, before any client
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        viewer.run(poll=0.005)
+        returned = time.perf_counter()
+        thread.join(SERVE_LIMIT)
+    finally:
+        viewer.stop()
+        webview.encode_png = encode_png
+        del app.draw_frame
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for line in done:
+        print(f"serve: {line}")
+    after_q = (returned - quit_at[0]) * 1e3 if quit_at else float("nan")
+    print(f"serve: run() returned {after_q:.1f} ms after the q was posted; "
+          f"{time.perf_counter() - t0:.2f} s in all; launches {launches}")
+    if errors or thread.is_alive() or not quit_at or launches.get("frame_kernel", 0) < 2:
+        raise AssertionError(f"serve: {errors or 'the client did not finish'}, launches {launches}")
+    # steady frames of the App's view: the render (frame kernel and the copy
+    # to the host) and the PNG encode, as step() does them
+    app.redraw = True
+    steady_r = host_times(lambda: app.draw_frame(), 10)
+    frame = app._frame
+    steady_e = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        encode_png(frame)
+        steady_e.append((time.perf_counter() - t1) * 1e3)
+    r_ms, e_ms = float(np.median(steady_r)), float(np.median(steady_e))
+    print(f"serve: step() on {card}: render (make_fn, copy to the host) {summary(steady_r)}; "
+          f"encode_png {W}x{H} {summary(steady_e)} (host clock); in the loop above: render "
+          f"{[round(x, 2) for x in render_ms]} ms, encode {[round(x, 2) for x in encode_ms]} ms; "
+          f"{1e3 / (r_ms + e_ms):.1f} frames/s at most")
+    return {"launches": launches, "render_ms": r_ms, "encode_ms": e_ms}
+
+
+def cli_cache_phase() -> None:
+    """``python -m shader_ray_tpu_torch knot.obj sky.jpg --once`` twice with
+    one SRT_CACHE_DIR: the first builds and stores the scene, the second
+    says it hit the cache; the two frames are equal."""
+    import tempfile
+
+    import numpy as np
+
+    from shader_ray_tpu_torch.utils.ppm import read_ppm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": ROOT, "SRT_CACHE_DIR": os.path.join(tmp, "cache")}
+        frames, hits = [], []
+        for run in (1, 2):
+            out = os.path.join(tmp, f"frame{run}.ppm")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "shader_ray_tpu_torch",
+                 os.path.join(ROOT, "tests", "assets", "knot.obj"), JPEG_ASSET, "--once", "--out", out],
+                capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+            hit = "scene cache hit" in proc.stderr
+            frames.append(read_ppm(out) if proc.returncode == 0 else None)
+            hits.append(hit)
+            print(f"cli: run {run}: knot.obj sky.jpg --once: rc {proc.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s, scene cache hit {hit}, frame "
+                  f"{None if frames[-1] is None else frames[-1].shape}")
+            if proc.returncode != 0:
+                raise AssertionError(f"cli run {run} failed: {proc.stderr[-2000:]}")
+        cached = os.listdir(os.path.join(tmp, "cache"))
+    same = np.array_equal(frames[0], frames[1])
+    print(f"cli: cache files {cached}; the two frames equal: {same}, std {float(frames[0].std()):.1f}")
+    if hits != [False, True] or not same or frames[0].shape != (512, 512, 3) or frames[0].std() < 10:
+        raise AssertionError("cli: the second run did not hit the scene cache, or the frames differ")
 
 
 def main() -> int:
@@ -1486,6 +1748,109 @@ def main() -> int:
             print(f"    its env call, {D1.shape[0]} rays at aniso={aniso1}: lod on a level: "
                   f"{on_a_level(D1.shape[0], aniso1, fetches)}")
     print(f"  which=5 frame, unfused wide (host clock, one call): {t_which5 * 1e3:.1f} ms")
+
+    # 8-9. the two other builds a user can ask for (Config.splits="sbvh",
+    # Config.bvh_opt="reinsert") on the bench scene: the same geometry, so
+    # the same golden; each a path of its own through the Renderer.  These
+    # phases run after the timings above, so those see the process state
+    # they saw before the phases existed
+    base_row = fk.frame_kernel(packed, uni, one, fs0)[1].cpu()
+    rays_p = generate_rays(statics, params_cuda)
+    P_p, D_p = rays_p.P.contiguous(), rays_p.D.contiguous()
+    all_p = torch.ones(P_p.shape[0], dtype=torch.bool, device="cuda")
+
+    def built_tree_phase(tag: str, knobs: dict, traces: bool) -> dict:
+        """Build the bench scene with ``knobs``; drive the fused which=0
+        frame (and with ``traces`` the unfused frame on wide and on binary
+        tables) through the Renderer, each through the golden gate, with
+        the launch counts set to 0 before and read after; then hold the
+        frame kernel (and the traces on the primaries, closest and
+        any-hit) to their plain versions on these tables, and time the
+        kernel beside the object-split tables' in turns."""
+        import dataclasses
+
+        from shader_ray_tpu_torch.models.fixtures import bunny_class_scene
+
+        cfg_t = Config(**knobs)
+        t0 = time.perf_counter()
+        world_t = make_world(TriangleSet.from_arrays(*bunny_class_scene(69000)), cfg_t)
+        data_t = get_shader_data(world_t)
+        t_build = time.perf_counter() - t0
+        ways = {"fused": Renderer(data_t, sky, cfg_t)}
+        if traces:
+            ways["unfused wide"] = Renderer(data_t, sky, dataclasses.replace(cfg_t, packet_fused=False))
+            ways["unfused binary"] = Renderer(data_t, sky, dataclasses.replace(cfg_t, packet_kernel="binary"))
+        pk = ways["fused"].packed
+        T = world_t.triangle_count
+        print(f"{tag}: build {t_build:.2f} s: {data_t.triangle_count} triangle references for {T} "
+              f"triangles ({data_t.triangle_count / T - 1:+.2%}), {data_t.group_count} binary nodes "
+              f"(object split {data.group_count}), {pk.n_wide} wide nodes (object split "
+              f"{packed.n_wide}), stack {pk.stack_depth}")
+        _build.LAUNCHES.clear()
+        for way, r in ways.items():
+            golden_gate(r.make_fn(statics)(params).cpu().numpy(), GOLDEN, f"{tag}, {way} which=0")
+        torch.cuda.synchronize()
+        path = dict(_build.LAUNCHES)
+        need = {"frame_kernel"} | ({"trace_wide", "trace_binary", "env_sample"} if traces else set())
+        print(f"{tag} path launches: {path}")
+        if set(path) != need:
+            raise AssertionError(f"{tag}: the path must launch {sorted(need)}")
+        kc, kn = fk.frame_kernel(pk, uni, one, fs0)
+        pc, pn = fk.frame_plain(pk, uni, one, fs0)
+        torch.cuda.synchronize()
+        kn, pn = kn.cpu(), pn.cpu()
+        names = fk.stats_phases(statics.bounce_count, statics.cast_shadows, statics.enable_diffuse)
+        print(f"{tag}: frame_kernel vs plain {W}x{H}: mean abs {float((kc - pc).abs().mean()):.3e}, "
+              f"cast {int(kn[0])} vs {int(pn[0])} (object split {int(base_row[0])}); node pops, leaf "
+              f"visits, triangle tests by phase, kernel [plain walks] (object-split kernel): "
+              + "; ".join(f"{p} " + ", ".join(f"{int(kn[1 + 3 * i + c])} [{int(pn[1 + 3 * i + c])}] "
+                                              f"({int(base_row[1 + 3 * i + c])})" for c in range(3))
+                          for i, p in enumerate(names)))
+        why = frame_disagreement(kc, kn, pc, pn)
+        if why:
+            raise AssertionError(f"{tag}: frame_kernel disagrees with frame_plain: {why}")
+        if traces:
+            for name, kernel, plain, way in (("trace_wide", tk.trace_wide, tk.walk_plain, "unfused wide"),
+                                             ("trace_binary", tk.trace_binary, tk.walk_binary_plain,
+                                              "unfused binary")):
+                for any_hit in (False, True):
+                    compare_trace(name, kernel, plain, ways[way].packed, P_p, D_p, all_p, any_hit,
+                                  f"{tag}, {'any-hit' if any_hit else 'closest'}, primaries {W}x{H}", W)
+        t = {"object split": [], tag: []}
+        fns = {"object split": lambda: fk.frame_kernel(packed, uni, one, fs0),
+               tag: lambda: fk.frame_kernel(pk, uni, one, fs0)}
+        for which in ("object split", tag, tag, "object split"):  # in turns on one card
+            t[which] += cuda_times(fns[which], TIMED // 2)
+        pops, base_pops = int(kn[1::3].sum()), int(base_row[1::3].sum())
+        print(f"{tag}: frame_kernel {W}x{H} K=1 on {card} (CUDA events): {summary(t[tag])}; object "
+              f"split in turns {summary(t['object split'])}; node pops {pops} vs {base_pops} "
+              f"({pops / base_pops - 1:+.2%}), triangle tests {int(kn[3::3].sum())} vs "
+              f"{int(base_row[3::3].sum())}")
+        return {"ms": float(np.median(t[tag])), "object_ms": float(np.median(t["object split"])),
+                "pops": pops, "object_pops": base_pops, "launches": path, "build_s": t_build,
+                "references": data_t.triangle_count}
+
+    sbvh = built_tree_phase("sbvh", {"splits": "sbvh"}, True)
+    reinsert = built_tree_phase("reinsert", {"bvh_opt": "reinsert"}, False)
+    # 10-12. image backgrounds, the browser viewer, the CLI with the scene cache
+    images_launches = images_phase(data)
+    served = serve_phase(renderer, card)
+    cli_cache_phase()
+
+    entry = {e["name"]: e for e in table}
+    entry["frame_kernel"].update({
+        "sbvh_ms": sbvh["ms"], "sbvh_object_split_ms": sbvh["object_ms"], "sbvh_node_pops": sbvh["pops"],
+        "reinsert_ms": reinsert["ms"], "reinsert_object_split_ms": reinsert["object_ms"],
+        "reinsert_node_pops": reinsert["pops"], "object_split_node_pops": sbvh["object_pops"],
+        "sbvh_launches": sbvh["launches"]["frame_kernel"],
+        "reinsert_launches": reinsert["launches"]["frame_kernel"],
+        "images_launches": images_launches["frame_kernel"],
+        "serve_launches": served["launches"]["frame_kernel"],
+        "serve_render_ms": served["render_ms"], "serve_encode_png_ms": served["encode_ms"],
+    })
+    for name in ("trace_wide", "trace_binary", "env_sample"):
+        entry[name]["sbvh_launches"] = sbvh["launches"][name]
+
 
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))

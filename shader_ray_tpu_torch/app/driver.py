@@ -44,7 +44,8 @@ class App:
     _PACK_TIME_KNOBS = frozenset({
         "bvh_leaf_max", "bvh_max_depth", "sah_ctrav", "sah_cisec",
         "colors_are_linear", "geometry_scale", "screen_gamma",
-        "max_leaf_tests", "env_base", "packet_kernel",
+        "max_leaf_tests", "env_base", "packet_kernel", "splits", "bvh_opt",
+        "scene_cache", "validate_scene",
     })
 
     def __init__(

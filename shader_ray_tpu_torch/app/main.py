@@ -3,9 +3,13 @@
 
 The reference's positional interface (usage ray.cpp:945-950): a model
 file (.trisrc / .obj) and a background spec ("r, g, b" floats, ``grid``,
-hex ``rrggbb``, or an image path: .hdr, .ppm/.pnm, .npy).  The reference
-opens a GLFW window; here a stdin REPL takes the same key bindings
-(ray.cpp:791-856) plus drag/zoom commands and writes frames to PPM.
+hex ``rrggbb``, or an image path: .hdr, .png, .bmp, .tga, .jpg,
+.ppm/.pnm, .npy).  The reference opens a GLFW window; here a stdin REPL
+takes the same key bindings (ray.cpp:791-856) plus drag/zoom commands
+and writes frames to PPM, and ``--serve PORT`` (or the REPL's ``serve``)
+shows the frames in a browser and takes its mouse and keys
+(app/webview.py).  The built scene is cached by content and build knobs
+(utils/cache.py; ``Config.scene_cache``, SRT_CACHE_DIR).
 
 It renders on the CUDA card; ``--device cpu`` runs the kernels' plain
 PyTorch versions instead.  Without a card and without ``--device cpu``
@@ -38,23 +42,39 @@ extra (headless equivalents of mouse gestures):
   set K V      set a config knob live (e.g. `set min_contrib 0.004`);
                `set` alone lists knobs
   view         toggle inline ANSI-truecolor display of each frame
+  serve [PORT] browser live viewer: serve frames + take mouse/keyboard
+               input over HTTP until quit (also --serve PORT)
   help         this text
 """
 
 
 def build_app(args):
     """Scene, background, Renderer and App from the parsed arguments,
-    with ``Config.from_env()``.  Checks for the card before loading."""
+    with ``Config.from_env()``.  Checks for the card before loading.  On
+    a scene-cache hit the BVH is not built: the World then serves only
+    the centre, extent and view matrices."""
     from shader_ray_tpu_torch.app.driver import App
     from shader_ray_tpu_torch.config import Config
     from shader_ray_tpu_torch.engine import Renderer, pick_device
     from shader_ray_tpu_torch.models.background import load_background
-    from shader_ray_tpu_torch.models.world import get_shader_data, load_world
+    from shader_ray_tpu_torch.models.world import get_shader_data, load_world, scene_fingerprint
+    from shader_ray_tpu_torch.utils.cache import load_scene_data, save_scene_data
 
     device = pick_device(None if args.device == "cuda" else args.device)
     cfg = Config.from_env()
-    world = load_world(args.model, cfg)
-    data = get_shader_data(world)
+    key = scene_fingerprint(args.model, cfg) if cfg.scene_cache else None
+    data = load_scene_data(key) if key is not None else None
+    if data is not None:
+        print(f"scene cache hit: {key}", file=sys.stderr)
+        world = load_world(args.model, cfg, build_bvh=False)
+    else:
+        world = load_world(args.model, cfg)
+        data = get_shader_data(world)
+        if key is not None:
+            try:
+                save_scene_data(key, data)
+            except OSError:  # a read-only cache directory costs only the cache
+                pass
     background = load_background(args.background)
     renderer = Renderer(data, background, cfg, device=device)
     print(f"device: {renderer.device}", file=sys.stderr)
@@ -100,7 +120,12 @@ def repl(app, out_path: str, stream, view: bool = False) -> None:
             app.drag(0.0, float(parts[1]), shift=True)
         elif cmd == "stats":
             app.walk_stats(file=sys.stderr)
-        elif cmd in ("tune", "serve"):
+        elif cmd == "serve":
+            serve(app, int(parts[1]) if len(parts) > 1 else 8765)
+            if app.quit:
+                break
+            continue
+        elif cmd == "tune":
             print(f"{cmd}: not in this package yet", file=sys.stderr)
             continue
         elif cmd == "set":
@@ -133,13 +158,24 @@ def repl(app, out_path: str, stream, view: bool = False) -> None:
             _emit(frame, out_path, view)
 
 
+def serve(app, port: int) -> None:
+    """Run the browser live viewer (app/webview.py) on this thread until
+    the user quits from the page (or Ctrl-C)."""
+    from shader_ray_tpu_torch.app.webview import WebViewer
+
+    viewer = WebViewer(app, port=port)
+    print(f"live viewer at {viewer.start()}  (q in the page quits)", file=sys.stderr)
+    viewer.run()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="shader_ray_tpu_torch",
         description="interactive ray tracer on an NVIDIA GPU (PyTorch/CUDA)",
     )
     p.add_argument("model", help="scene file (.trisrc or .obj)")
-    p.add_argument("background", help='env spec: "r, g, b" | grid | rrggbb hex | .hdr/.ppm/.npy path')
+    p.add_argument("background", help='env spec: "r, g, b" | grid | rrggbb hex | image path '
+                   "(.hdr/.png/.bmp/.tga/.jpg/.ppm/.npy)")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--devices", type=int, default=1,
@@ -150,6 +186,9 @@ def main(argv=None) -> int:
     p.add_argument("--once", action="store_true", help="render one frame and exit (no REPL)")
     p.add_argument("--view", action="store_true",
                    help="display each frame inline as ANSI truecolor")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="browser live viewer: serve frames over HTTP on PORT and take "
+                   "mouse/keyboard input from the page")
     args = p.parse_args(argv)
     if args.devices != 1:
         p.error(f"--devices {args.devices}: this package renders on one device")
@@ -165,6 +204,9 @@ def main(argv=None) -> int:
         return 1
     if args.once:
         _emit(app.render(), args.out, args.view)
+        return 0
+    if args.serve is not None:
+        serve(app, args.serve)
         return 0
     repl(app, args.out, sys.stdin, view=args.view)
     return 0

@@ -34,6 +34,17 @@ class Config:
     sah_ctrav: float = 1.0          # SAH traversal cost
     sah_cisec: float = 4.0          # SAH intersection cost
 
+    # --- build options (no reference analog) ---
+    splits: str = "object"          # binary build: "object" (the reference
+                                    # algorithm, models/bvh.py) | "sbvh"
+                                    # spatial splits (models/sbvh.py;
+                                    # duplicated, clipped references)
+    bvh_opt: str = ""               # post-build topology optimizer: "" |
+                                    # "reinsert" (models/optimize.py)
+    validate_scene: bool = False    # check the scene tables' structure when
+                                    # the Renderer packs them (models/validate.py)
+    scene_cache: bool = True        # cache built scenes (utils/cache.py)
+
     # --- loader knobs (reference trisrc-support.cpp:24-40) ---
     colors_are_linear: bool = False  # skip pow(c, 2.63) gamma decode
     geometry_scale: float = 1.0      # positions scaled at parse time
@@ -72,7 +83,18 @@ class Config:
                                      # every component; their env term uses
                                      # the current direction.  0 = exact
 
+    # choice sets of the string fields, checked by validate
+    _CHOICES = {
+        "packet_kernel": ("wide", "binary"),
+        "splits": ("object", "sbvh"),
+        "bvh_opt": ("", "reinsert"),
+    }
+
     def validate(self) -> "Config":
+        for name, choices in self._CHOICES.items():
+            v = getattr(self, name)
+            if v not in choices:
+                raise ValueError(f"{name}={v!r}: use one of {choices}")
         if self.env_base < 16 or self.env_base & (self.env_base - 1):
             raise ValueError(
                 f"env_base={self.env_base} invalid: need a power of two >= 16"
@@ -80,8 +102,6 @@ class Config:
         if not 1 <= self.max_leaf_tests <= 31:
             # the child meta holds a leaf's count in 5 bits (ops/pack_wide.py)
             raise ValueError(f"max_leaf_tests={self.max_leaf_tests}: need 1..31")
-        if self.packet_kernel not in ("wide", "binary"):
-            raise ValueError(f"packet_kernel={self.packet_kernel!r}: need 'wide' or 'binary'")
         if self.env_aniso < 1:
             raise ValueError(f"env_aniso={self.env_aniso}: need >= 1")
         if self.packet_max_steps < 0:
@@ -104,9 +124,12 @@ class Config:
         c.geometry_scale = _env_float("GEOMETRY_SCALE", c.geometry_scale)
         if os.environ.get("SRT_PACKET_KERNEL"):
             c.packet_kernel = os.environ["SRT_PACKET_KERNEL"]
+        c.splits = os.environ.get("SRT_SPLITS", c.splits)
+        c.bvh_opt = os.environ.get("SRT_BVH_OPT", c.bvh_opt)
         c.env_base = _env_int("SRT_ENV_BASE", c.env_base)
         c.env_aniso = _env_int("SRT_ENV_ANISO", c.env_aniso)
         c.packet_fused = _env_int("SRT_FUSED", int(c.packet_fused)) != 0
         c.min_contrib = _env_float("SRT_MIN_CONTRIB", c.min_contrib)
         c.packet_max_steps = _env_int("SRT_MAX_STEPS", c.packet_max_steps)
+        c.validate_scene = os.environ.get("SRT_VALIDATE") is not None
         return c.validate()

@@ -8,7 +8,9 @@ the unfused trace engine; ops/engine_frame.py routes.  Every fused route
 retires spent lanes at ``Config.min_contrib``, read at each call.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU request the constructor raises.
+with no card and no explicit CPU request the constructor raises.  With
+``Config.validate_scene`` the constructor checks the scene's tables
+(models/validate.py) before it packs them.
 """
 
 from __future__ import annotations
@@ -62,6 +64,10 @@ class Renderer:
         self.device = pick_device(device)
         _true_f32()
         self.cfg = (config or Config()).validate()
+        if self.cfg.validate_scene:
+            from shader_ray_tpu_torch.models.validate import validate_scene_data
+
+            validate_scene_data(data)
         pack = pack_scene_wide if self.cfg.packet_kernel == "wide" else pack_scene
         self.packed = pack(data, background, self.cfg).to(self.device)
 

@@ -6,12 +6,16 @@ shader_ray_tpu/models/background.py; reference ray.cpp:330-344,
 * ``grid``             -> procedural 2048x1024 white-on-black grid,
                           8-px tiles (ray.cpp:1009-1029);
 * ``rrggbb`` hex       -> 1x1 constant (ray.cpp:1030-1034);
-* a file path: Radiance ``.hdr`` (RGBE, ``read_hdr``), binary PPM
-  ``.ppm`` / ``.pnm`` (float/255, no gamma linearization, as the
-  reference's LDR path, ray.cpp:1056-1067) or a numpy ``.npy`` array.
+* a file path: Radiance ``.hdr`` (RGBE, ``read_hdr``); the LDR images
+  PNG (``utils.png.decode_png``), BMP/DIB (``models.ldr.read_bmp``),
+  TGA (``read_tga``), baseline JPEG (``utils.jpeg.read_jpeg``) and binary
+  PPM ``.ppm`` / ``.pnm``, each as float/255 with no gamma linearization
+  (the reference's LDR path, ray.cpp:1056-1067); or a numpy ``.npy``
+  array.
 
-The reference's PNG, BMP, TGA and JPEG readers are not ported yet: such a
-path raises ``ValueError`` naming the formats this module reads.
+The reference falls back to PIL for what its readers refuse; this
+package does not: an unsupported variant (16-bit PNG, progressive JPEG,
+compressed BMP...) raises ``ValueError`` with the reader's message.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ _FLOAT_SPEC = re.compile(
     r"^\s*([-+0-9.eE]+)\s*,\s*([-+0-9.eE]+)\s*,\s*([-+0-9.eE]+)\s*$"
 )
 _HEX_SPEC = re.compile(r"^([0-9a-fA-F]{2})([0-9a-fA-F]{2})([0-9a-fA-F]{2})$")
-FORMATS = ".hdr, .ppm, .pnm, .npy"
+FORMATS = ".hdr, .png, .bmp, .dib, .tga, .icb, .vda, .vst, .jpg, .jpeg, .jfif, .ppm, .pnm, .npy"
 
 
 def constant_image(r: float, g: float, b: float) -> np.ndarray:
@@ -136,4 +140,21 @@ def load_background(spec: str) -> np.ndarray:
         return read_ppm(spec).astype(np.float32) / 255.0
     if ext == "npy":
         return np.load(spec).astype(np.float32)
+    if ext == "png":
+        from shader_ray_tpu_torch.utils.png import decode_png
+
+        with open(spec, "rb") as f:
+            return decode_png(f.read()).astype(np.float32) / 255.0
+    if ext in ("bmp", "dib"):
+        from shader_ray_tpu_torch.models.ldr import read_bmp
+
+        return read_bmp(spec).astype(np.float32) / 255.0
+    if ext in ("tga", "icb", "vda", "vst"):
+        from shader_ray_tpu_torch.models.ldr import read_tga
+
+        return read_tga(spec).astype(np.float32) / 255.0
+    if ext in ("jpg", "jpeg", "jfif"):
+        from shader_ray_tpu_torch.utils.jpeg import read_jpeg
+
+        return read_jpeg(spec).astype(np.float32) / 255.0
     raise ValueError(f"Unhandled image type for {spec}: this package reads {FORMATS}")

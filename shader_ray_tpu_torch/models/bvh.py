@@ -20,13 +20,15 @@ reference package's numpy construction's, byte for byte.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import sys
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from shader_ray_tpu_torch.config import Config
 
 MAX_BIN_COUNT = 40  # bvh.cpp:200
+LEAF_MAX_SIZE_FOR_STATS = 64  # bvh.cpp:44
 
 
 @dataclass
@@ -48,13 +50,41 @@ class BVHNode:
 
 
 @dataclass
+class BVHStats:
+    """Node and leaf counts of a build (reference print_bvh_stats,
+    bvh.cpp:83-99); the SBVH builder (models/sbvh.py) fills them."""
+
+    node_count: int = 0
+    leaf_count: int = 0
+    nodes_by_level: dict = field(default_factory=dict)
+    leaves_by_size: dict = field(default_factory=dict)
+    leaf_count_ge_max_size: int = 0
+    large_leaf_no_split: int = 0
+    large_leaf_one_side: int = 0
+
+    def print(self, file=sys.stderr) -> None:
+        print(f"{self.node_count} bvh nodes", file=file)
+        print(f"{self.leaf_count} of those are leaves", file=file)
+        for level in sorted(self.nodes_by_level):
+            print(f"bvh level {level:2d}: {self.nodes_by_level[level]:6d} nodes", file=file)
+        for size in sorted(self.leaves_by_size):
+            print(f"{size:2d} shapes in {self.leaves_by_size[size]:6d} leaves", file=file)
+        if self.leaf_count_ge_max_size > 0:
+            print(f"{LEAF_MAX_SIZE_FOR_STATS} or more objects in "
+                  f"{self.leaf_count_ge_max_size:6d} leaves", file=file)
+
+
+@dataclass
 class BVH:
-    """Node list + the triangle permutation it indexes: ``order[k]`` is
-    the original index of the k-th triangle in BVH order."""
+    """Node list + the triangle reference order it indexes: ``order[k]``
+    is the original index of the triangle that leaf ranges see at k.
+    ``make_bvh`` gives a permutation; the SBVH build may list a triangle
+    more than once (len(order) = R >= T)."""
 
     nodes: list[BVHNode]
     root: int
     order: np.ndarray
+    stats: BVHStats | None = None
 
     @property
     def node_count(self) -> int:
@@ -65,6 +95,10 @@ def _surface_area(dim: np.ndarray) -> np.ndarray:
     """2*(xy+xz+yz) (bvh.cpp:101-104); works on (..., 3)."""
     x, y, z = dim[..., 0], dim[..., 1], dim[..., 2]
     return 2.0 * (x * y + x * z + y * z)
+
+
+def _leaf_cost(count: int, cfg: Config) -> float:
+    return cfg.sah_ctrav + cfg.sah_cisec * count  # bvh.cpp:107-110
 
 
 def make_bvh(
@@ -127,7 +161,7 @@ def make_bvh(
             left_max = np.maximum.accumulate(bin_max, axis=0)
 
             area = _surface_area(np.maximum(0.0, vertexbox_max - vertexbox_min))
-            best = cfg.sah_ctrav + cfg.sah_cisec * count  # leaf cost
+            best = _leaf_cost(count, cfg)
             for i in range(1, bin_count):
                 rtri = int(right_cnt[i])
                 ltri = count - rtri

@@ -1,11 +1,14 @@
 """World: scene load, build and the flattened scene data the packer
 reads (reference world.cpp:46-134, 298-347; numpy path of
 shader_ray_tpu/models/world.py).  ``load_world`` dispatches on the file
-extension (.trisrc, .obj); the World carries the view matrices the app
-sets (app/camera.update_view_params)."""
+extension (.trisrc, .obj); ``make_world`` builds the BVH the
+configuration asks for (``Config.splits``, ``Config.bvh_opt``); the World
+carries the view matrices the app sets (app/camera.update_view_params);
+``scene_fingerprint`` keys the scene cache (utils/cache.py)."""
 
 from __future__ import annotations
 
+import hashlib
 import sys
 import time
 from dataclasses import dataclass, field
@@ -47,11 +50,13 @@ class World:
 @dataclass
 class SceneData:
     """Flattened scene (reference scene_shader_data, world.h:68-93).
-    Triangle arrays are in BVH order and unindexed, (T, 9) per
-    triangle: leaf (start, count) ranges index them directly."""
+    Triangle arrays are in BVH order and unindexed, (R, 9) per triangle
+    reference: leaf (start, count) ranges index them directly.  R = T
+    for the object-split build; the SBVH build may list a triangle more
+    than once, and ``triangle_count`` is then R."""
 
-    tri_positions: np.ndarray   # (T, 9) f32: v0 v1 v2
-    tri_normals: np.ndarray     # (T, 9) f32: n0 n1 n2
+    tri_positions: np.ndarray   # (R, 9) f32: v0 v1 v2
+    tri_normals: np.ndarray     # (R, 9) f32: n0 n1 n2
     node_boxes: np.ndarray      # (N, 8) f32: boxmin(3) boxmax(3) pad(2)
     node_objects: np.ndarray    # (N, 2) i32: (start, count); (0,0) for branch
     node_children: np.ndarray   # (N, 2) i32: (negative, positive), -1 for leaf
@@ -94,7 +99,10 @@ def make_world(
     triangles: TriangleSet, config: Config | None = None, build_bvh: bool = True
 ) -> World:
     """Scene center (AABB center), extent (2x the largest vertex
-    distance from it, world.cpp:106-117) and the SAH BVH."""
+    distance from it, world.cpp:106-117) and the BVH: the binned-SAH
+    object-split build, or with ``splits="sbvh"`` the spatial-split one,
+    then with ``bvh_opt="reinsert"`` the reinsertion optimizer
+    (shader_ray_tpu/models/world.py:161-221 without its native builder)."""
     cfg = config or Config()
     tcount = triangles.triangle_count
     scene_center = triangles.box_center()
@@ -103,9 +111,18 @@ def make_world(
         scene_extent = float(np.sqrt((d * d).sum(axis=-1).max())) * 2.0
     else:
         scene_extent = 1.0
-    bvh = make_bvh(
-        triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg
-    ) if build_bvh else None
+    bvh = None
+    if build_bvh and cfg.splits == "sbvh":
+        from shader_ray_tpu_torch.models.sbvh import make_sbvh
+
+        verts = triangles.positions[triangles.indices] if tcount else np.zeros((0, 3, 3), np.float32)
+        bvh = make_sbvh(verts, cfg)
+    elif build_bvh:
+        bvh = make_bvh(triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg)
+    if bvh is not None and cfg.bvh_opt == "reinsert":
+        from shader_ray_tpu_torch.models.optimize import optimize_bvh
+
+        bvh = optimize_bvh(bvh, cfg)
     return World(
         triangles=triangles, bvh=bvh, scene_center=scene_center,
         scene_extent=scene_extent, triangle_count=tcount,
@@ -113,15 +130,16 @@ def make_world(
 
 
 def get_shader_data(world: World) -> SceneData:
-    """Flatten a World into SceneData (world.cpp:298-347)."""
+    """Flatten a World into SceneData (world.cpp:298-347), the triangle
+    tables sized by the reference count R = len(bvh.order)."""
     flat = flatten_bvh(world.bvh)
     order = world.bvh.order
     ts = world.triangles
-    T = len(order)
-    if T > 0:
+    R = len(order)
+    if R > 0:
         idx = ts.indices[order]
-        tri_positions = ts.positions[idx].reshape(T, 9)
-        tri_normals = ts.normals[idx].reshape(T, 9)
+        tri_positions = ts.positions[idx].reshape(R, 9)
+        tri_normals = ts.normals[idx].reshape(R, 9)
     else:
         tri_positions = np.zeros((1, 9), np.float32)
         tri_normals = np.zeros((1, 9), np.float32)
@@ -136,7 +154,24 @@ def get_shader_data(world: World) -> SceneData:
         node_objects=np.stack([flat.start, flat.count], axis=1).astype(np.int32),
         node_children=flat.children,
         tree_root=flat.root,
-        triangle_count=T,
+        triangle_count=R,
         group_count=n,
         hitmiss=flat.hitmiss,
     )
+
+
+def scene_fingerprint(filename: str, config: Config | None = None) -> str:
+    """The scene cache's key: a hash of the file's bytes and of the build
+    knobs that change the built tables (shader_ray_tpu/models/world.py:283-297)."""
+    cfg = config or Config()
+    h = hashlib.sha256()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    key = (
+        f"{cfg.bvh_leaf_max}|{cfg.bvh_max_depth}|{cfg.sah_ctrav}|{cfg.sah_cisec}"
+        f"|{cfg.colors_are_linear}|{cfg.geometry_scale}|{cfg.splits}|v1"
+        + (f"|opt={cfg.bvh_opt}" if cfg.bvh_opt else "")
+    )
+    h.update(key.encode())
+    return h.hexdigest()[:24]

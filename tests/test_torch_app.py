@@ -87,7 +87,8 @@ def test_config_defaults_and_checks_match_the_reference():
     ref, port = RefConfig(), Config()
     for f in dataclasses.fields(Config):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    for bad in (dict(min_contrib=-0.1), dict(env_base=100)):
+    for bad in (dict(min_contrib=-0.1), dict(env_base=100), dict(splits="kd"),
+                dict(bvh_opt="rotate")):
         with pytest.raises(ValueError):
             Config(**bad).validate()
         with pytest.raises(ValueError):
@@ -99,7 +100,8 @@ def test_config_from_env_matches_the_reference(monkeypatch):
            "SRT_MAX_LEAF_TESTS": "8", "SAH_CISEC": "3.5", "COLORS_ARE_LINEAR": "1",
            "GEOMETRY_SCALE": "2.5", "SRT_PACKET_KERNEL": "binary", "SRT_ENV_BASE": "512",
            "SRT_ENV_ANISO": "2", "SRT_FUSED": "0", "SRT_MIN_CONTRIB": "0.004",
-           "SRT_MAX_STEPS": "100"}
+           "SRT_MAX_STEPS": "100", "SRT_SPLITS": "sbvh", "SRT_BVH_OPT": "reinsert",
+           "SRT_VALIDATE": "1"}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     ref, port = RefConfig.from_env(), Config.from_env()
@@ -168,9 +170,12 @@ def test_load_background_matches_the_reference(tmp_path):
         for spec in specs:
             got, want = background.load_background(spec), ref_background.load_background(spec)
             assert got.dtype == want.dtype and np.array_equal(got, want), spec
-    (tmp_path / "sky.png").write_bytes(b"\x89PNG")
-    with pytest.raises(ValueError, match=r"\.hdr"):
+    (tmp_path / "sky.png").write_bytes(b"\x89PNG")  # a broken PNG: the reader's message
+    with pytest.raises(ValueError, match="not a PNG"):
         background.load_background(str(tmp_path / "sky.png"))
+    (tmp_path / "sky.tif").write_bytes(b"II*\x00")  # no reader: the formats it has
+    with pytest.raises(ValueError, match=r"\.hdr"):
+        background.load_background(str(tmp_path / "sky.tif"))
     with pytest.raises(FileNotFoundError):
         background.load_background(str(tmp_path / "none.hdr"))
 
@@ -298,7 +303,7 @@ def test_app_repl_matches_the_reference_app(tmp_path, monkeypatch, capsys):
 
 
 def run_cli(tmp_path, *args, env=None):
-    env = {**os.environ, "PYTHONPATH": ROOT, **(env or {})}
+    env = {**os.environ, "PYTHONPATH": ROOT, "SRT_CACHE_DIR": str(tmp_path / "cache"), **(env or {})}
     return subprocess.run([sys.executable, "-m", "shader_ray_tpu_torch", *args],
                           capture_output=True, text=True, timeout=120, cwd=tmp_path, env=env)
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of shader_ray_tpu_torch
-(and chip_smoke.py) loads no jax and nothing of shader_ray_tpu; the
+(and chip_smoke.py) loads no jax and nothing of shader_ray_tpu, and none
+imports PIL (the card's machine has none); the
 Renderer refuses to fall back to the CPU on its own; and, on a host
 with a CUDA card and nvcc, each hand-written kernel (frame, wide trace,
 binary trace, env sampler) agrees with its plain PyTorch version — the
@@ -51,6 +52,20 @@ def test_no_foreign_imports_in_sources():
             else:
                 continue
             assert not any(_foreign(n) for n in names), f"{path}: imports {names}"
+
+
+def test_no_module_imports_pil():
+    """The card's machine has no PIL: the image readers are the port's own."""
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n == "PIL" or n.startswith("PIL.") for n in names), f"{path}: imports {names}"
 
 
 def test_importing_every_module_loads_no_jax():
