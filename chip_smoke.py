@@ -172,7 +172,9 @@ def device_breakdown(fn, ours: tuple[str, ...], n: int) -> dict | None:
         torch.cuda.synchronize()
     out = {name: [0.0, 0.0] for name in (*ours, "other")}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a wrapper's record_function range (ops/_build.traced) shows on the
+        # device too, under the wrapper's bare name: not a kernel
+        if e.device_type != DeviceType.CUDA or e.key in ours:
             continue
         name = next((o for o in ours if o in e.key), "other")
         out[name][0] += e.self_device_time_total / 1e3 / n
@@ -616,9 +618,11 @@ def bench_world():
     bunny-class scene with its BVH."""
     from shader_ray_tpu_torch.models.fixtures import bunny_class_scene
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.config import Config
     from shader_ray_tpu_torch.models.world import make_world
 
-    return make_world(TriangleSet.from_arrays(*bunny_class_scene(69000)))
+    return make_world(TriangleSet.from_arrays(*bunny_class_scene(69000)),
+                      Config(use_native="require"))
 
 
 def bench_inputs():
@@ -978,6 +982,268 @@ def cli_cache_phase() -> None:
         raise AssertionError("cli: the second run did not hit the scene cache, or the frames differ")
 
 
+def mesh_phase(data, sky, params, singles: dict, card: str) -> dict:
+    """Multi-device rendering on the bench scene at W x H: meshes
+    [cuda:0] and [cuda:0, cuda:0] (two shards on the one card).  Each
+    ray-sharded make_fn frame (fused which 0, 1 with aniso 4 and 5; the
+    unfused route on wide and on binary tables at which 0) equals the
+    single-device given-rays frame of the same rays bit for bit, and the
+    tonemapped frames pass the bench golden; a sample-sharded K = BATCH_K
+    progressive mean is held to the unsharded one within 1e-6 (max abs,
+    linear); both timed; then the CLI with --devices 1, and with one more
+    device than the machine has, refused with both numbers.  The
+    references are rendered before the launch counts are set to 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.engine import Renderer
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.engine_frame import frame_jitter, render_linear
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+    from shader_ray_tpu_torch.utils.ppm import read_ppm
+
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"[cuda:0]": [cuda0], "[cuda:0, cuda:0]": [cuda0, cuda0]}
+    routes = {"fused": Config(), "unfused wide": Config(packet_fused=False),
+              "binary": Config(packet_kernel="binary")}
+    cases = [("fused", 0, 1), ("fused", 1, 4), ("fused", 5, 1), ("unfused wide", 0, 1), ("binary", 0, 1)]
+    linear = RenderStatics(width=W, height=H, do_tonemap=False)
+    want = {}
+    for route, which, aniso in cases:
+        r, st = singles[route], linear._replace(which=which, env_aniso=aniso)
+        want[route, which] = render_linear(r.packed, params, st, frame_jitter(params), r.max_steps,
+                                           r.fused, r.cfg.min_contrib, rows=(0, H))
+    t0 = time.perf_counter()
+    sharded = {(m, route): Renderer(data, sky, cfg, mesh=mesh)
+               for m, mesh in meshes.items() for route, cfg in routes.items()}
+    torch.cuda.synchronize()
+    print(f"mesh: 6 Renderers (3 routes x 2 meshes) packed and replicated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _build.LAUNCHES.clear()
+    for (m, route), r in sharded.items():
+        for case_route, which, aniso in cases:
+            if case_route != route:
+                continue
+            st = linear._replace(which=which, env_aniso=aniso)
+            before = dict(_build.LAUNCHES)
+            got = r.make_fn(st)(params)
+            torch.cuda.synchronize()
+            added = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items() if n != before.get(k, 0)}
+            same = torch.equal(got, want[route, which])
+            print(f"mesh {m}, {route} which={which}: sharded make_fn vs the single-device given-rays "
+                  f"frame bit for bit: {same} (max abs {float((got - want[route, which]).abs().max()):.3e}); "
+                  f"launches {added}")
+            if not same:
+                raise AssertionError(f"mesh {m}: the sharded {route} which={which} frame is not the "
+                                     "given-rays frame")
+            if which in (0, 5):
+                gold = GOLDEN5 if which == 5 else GOLDEN
+                golden_gate(r.make_fn(st._replace(do_tonemap=True))(params).cpu().numpy(), gold,
+                            f"mesh {m}, {route} which={which}")
+    # sample sharding: K = BATCH_K over two shards, against one device
+    two, one = sharded["[cuda:0, cuda:0]", "fused"], singles["fused"]
+    prog2 = two.make_progressive_fn(linear, BATCH_K)
+    prog1 = one.make_progressive_fn(linear, BATCH_K)
+    a, b = prog2(params), prog1(params)
+    torch.cuda.synchronize()
+    diff = (a - b).abs()
+    err = float(diff.max())
+    # the two sum the same 64 samples in another order: f32 spacing grows
+    # with the value (1.9e-6 between 16 and 32), so the bound is 1e-6 of
+    # the value above 1 and 1e-6 absolute below it
+    scaled = float((diff / b.abs().clamp_min(1.0)).max())
+    print(f"mesh [cuda:0, cuda:0]: sample-sharded K={BATCH_K} ({BATCH_K // 2} a shard) vs unsharded "
+          f"K={BATCH_K}: max abs {err:.3e} on linear colour up to {float(b.max()):.2f}, pixels over "
+          f"1e-6 absolute: {int((diff > 1e-6).any(-1).sum())}; max abs / max(1, |value|) "
+          f"{scaled:.3e} (limit 1e-6)")
+    t = {"1": [], "2": []}
+    for k in ("1", "2", "2", "1"):  # in turns on one card
+        t[k] += host_times(lambda: (prog1 if k == "1" else prog2)(params), 5)
+    print(f"  K={BATCH_K} progressive on {card} (host clock, synchronized): unsharded "
+          f"{summary(t['1'])}; sample-sharded over two shards {summary(t['2'])}")
+    statics = linear._replace(do_tonemap=True)
+    frames = {name: r.make_fn(statics) for name, r in (("one device", one),
+                                                        ("[cuda:0]", sharded["[cuda:0]", "fused"]),
+                                                        ("[cuda:0, cuda:0]", two))}
+    ft = {name: [] for name in frames}
+    for name in (*frames, *reversed(frames)):
+        ft[name] += host_times(lambda: frames[name](params), TIMED // 2)
+    print(f"  make_fn {W}x{H} which=0 on {card} (host clock, synchronized per frame, in turns): "
+          + "; ".join(f"{name} {summary(ms)}" for name, ms in ft.items()))
+    launches = dict(_build.LAUNCHES)
+    print(f"mesh path launches: {launches}")
+    if set(launches) != {"frame_kernel", "trace_wide", "trace_binary", "env_sample"}:
+        raise AssertionError("the mesh path must launch frame_kernel, trace_wide, trace_binary "
+                             "and env_sample")
+    if scaled > 1e-6:
+        raise AssertionError(f"sample-sharded K={BATCH_K} strays {scaled:.3e} of the value from the "
+                             "unsharded mean")
+
+    # the CLI: --devices 1, and one more device than this machine has
+    more = torch.cuda.device_count() + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": ROOT, "SRT_CACHE_DIR": os.path.join(tmp, "cache")}
+        rcs, errs_ = {}, {}
+        for n in (1, more):
+            out = os.path.join(tmp, f"frame{n}.ppm")
+            proc = subprocess.run(
+                [sys.executable, "-m", "shader_ray_tpu_torch",
+                 os.path.join(ROOT, "tests", "assets", "knot.obj"), "grid", "--once",
+                 "--devices", str(n), "--out", out],
+                capture_output=True, text=True, timeout=300, env=env, cwd=tmp)
+            rcs[n], errs_[n] = proc.returncode, proc.stderr
+            img = read_ppm(out) if proc.returncode == 0 else None
+            print(f"CLI --devices {n}: rc {proc.returncode}, frame "
+                  f"{None if img is None else img.shape}; stderr tail: "
+                  f"{proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ''}")
+    refusal = f"{more} device(s) asked for, but this machine has {more - 1} CUDA device(s)"
+    if rcs[1] != 0 or rcs[more] == 0 or refusal not in errs_[more]:
+        raise AssertionError(f"CLI --devices: 1 must render and {more} be refused: {errs_}")
+    return {"launches": launches, "k64_ms": float(np.median(t["1"])),
+            "k64_sample_sharded_ms": float(np.median(t["2"])), "k64_max_abs": err,
+            "k64_max_scaled": scaled,
+            **{f"make_fn_{name}_ms": float(np.median(ms)) for name, ms in ft.items()}}
+
+
+def native_phase(sky, params, g_build_s: float, card: str) -> dict:
+    """The native scene builder: its g++ build seconds (timed beside the
+    nvcc builds), the bench scene through the native and the numpy
+    builder, both timed and equal on every SceneData array, and the fused
+    frame over the native tables through the golden gate."""
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.engine import Renderer
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+
+    ts = TriangleSet.from_arrays(*bunny_class_scene(69000))
+    built, secs = {}, {}
+    for way in ("require", "never", "require", "never"):
+        t0 = time.perf_counter()
+        built[way] = get_shader_data(make_world(ts, Config(use_native=way)))
+        secs.setdefault(way, []).append(time.perf_counter() - t0)
+    fields = ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children", "hitmiss")
+    same = {f: getattr(built["require"], f).tobytes() == getattr(built["never"], f).tobytes()
+            for f in fields}
+    ints = all(getattr(built["require"], f) == getattr(built["never"], f)
+               for f in ("tree_root", "triangle_count", "group_count"))
+    print(f"native: g++ build of libscene {g_build_s:.2f} s; bench scene BVH + flatten on the card's "
+          f"host ({card}): native {secs['require'][0]:.3f}, {secs['require'][1]:.3f} s, numpy "
+          f"{secs['never'][0]:.3f}, {secs['never'][1]:.3f} s; every SceneData array equal: {same}, "
+          f"root and counts equal: {ints}")
+    if not all(same.values()) or not ints:
+        raise AssertionError("native: the native build is not the numpy build")
+    _build.LAUNCHES.clear()
+    golden_gate(Renderer(built["require"], sky).make_fn(RenderStatics(width=W, height=H))(params)
+                .cpu().numpy(), GOLDEN, "fused which=0 over the native tables")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"native path launches: {launches}")
+    if launches != {"frame_kernel": 1}:
+        raise AssertionError("native: the frame over the native tables is one frame_kernel launch")
+    return {"launches": launches, "g++_s": g_build_s, "native_s": float(np.median(secs["require"])),
+            "numpy_s": float(np.median(secs["never"]))}
+
+
+QUALITY_SIZE = (256, 192, 4)  # width, height, tile_stride: packets 0, 4 and 8 of 12
+
+
+def quality_phase(data) -> None:
+    """The tree-quality simulator (models/quality.py) on the bench scene
+    for collapse sah and greedy at QUALITY_SIZE (a numpy walk; the full
+    frame takes minutes): per-phase steps and leaf visits a packet."""
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.models.quality import simulate_frame
+
+    w, h, stride = QUALITY_SIZE
+    for collapse in ("sah", "greedy"):
+        t0 = time.perf_counter()
+        res = simulate_frame(data, width=w, height=h, tile_stride=stride,
+                             config=Config(collapse=collapse))
+        print(f"quality: simulate_frame {w}x{h}, tile_stride={stride} ({res.phases[0].packets} "
+              f"packets of 4096 rays), collapse={collapse}, in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{p.name} {p.steps_per_pkt:.1f} steps {p.leafs_per_pkt:.1f} leafs"
+                          for p in res.phases)
+              + f"; total {res.total_steps_per_pkt:.1f} steps, {res.total_leafs_per_pkt:.1f} leafs a packet")
+        if res.total_steps_per_pkt <= 0:
+            raise AssertionError("quality: the simulated walk took no step")
+
+
+def diag_phase(renderer, params) -> dict:
+    """The failure dump, debug_nans and the profiler trace on the card: a
+    launch the kernel's C entry refuses (bounce_count = -1) prints the
+    dump naming frame_kernel and raises; under Config.debug_nans a
+    which = 1 frame with a ray exactly along +y raises FloatingPointError
+    and the bench frame does not; device_trace writes a trace naming
+    frame_kernel."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+    from shader_ray_tpu_torch.utils.profiling import device_trace
+
+    statics = RenderStatics(width=W, height=H)
+    _build.LAUNCHES.clear()
+    dump = io.StringIO()
+    raised = None
+    with contextlib.redirect_stderr(dump):
+        try:
+            renderer.make_fn(statics._replace(bounce_count=-1))(params)
+        except RuntimeError as e:
+            raised = e
+    text = dump.getvalue()
+    print("diag: a refused launch (bounce_count=-1): raised "
+          f"{type(raised).__name__ if raised else None}: {raised}; the dump:\n" + text.rstrip())
+    if raised is None or "kernel: frame_kernel" not in text or "bounce_count=-1" not in text:
+        raise AssertionError("diag: the refused launch did not raise with the dump")
+    # the camera looks up +y; at the jitter (0.5, 0.5) pixel (h/2 - 1, W/2 - 1)'s
+    # ray is exactly (0, 1, 0) where 1/h is exact in f32: h = 512
+    up = torch.tensor([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=torch.float32)
+    along_y = params._replace(camera_normal_matrix=up, pixel_jitter=torch.tensor([0.5, 0.5]))
+    renderer.cfg.debug_nans = True
+    try:
+        renderer.make_fn(statics)(params)  # the bench frame: silent
+        try:
+            renderer.make_fn(statics._replace(which=1, env_aniso=4, height=512))(along_y)
+            nan_error = None
+        except FloatingPointError as e:
+            nan_error = e
+    finally:
+        renderer.cfg.debug_nans = False
+    print(f"diag: debug_nans on the bench frame: silent; on a {W}x512 which=1 frame with pixel "
+          f"(255, {W // 2 - 1})'s ray along +y: {type(nan_error).__name__ if nan_error else None}: "
+          f"{nan_error}")
+    if nan_error is None:
+        raise AssertionError("diag: debug_nans did not raise on the +y grad frame")
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            renderer.make_fn(statics)(params)
+        (name,) = os.listdir(tmp)
+        trace = open(os.path.join(tmp, name)).read()
+    kernels = trace.count('"cat": "kernel"')
+    named = '"frame_kernel"' in trace
+    print(f"diag: device_trace wrote {name} ({len(trace)} bytes, {kernels} device kernel events); "
+          f"names frame_kernel: {named}")
+    if not named:
+        raise AssertionError("diag: the trace does not name frame_kernel")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"diag path launches: {launches}")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1016,10 +1282,33 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
           f"count {torch.cuda.device_count()}")
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source and g++ for the native scene builder,
+    # all started together; the scenes build natively or the run fails
+    os.environ["SRT_NATIVE"] = "require"  # the CLI runs below too
+    import threading
+
+    from shader_ray_tpu_torch import native
+
+    g_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.build()
+        except RuntimeError as e:
+            g_build["error"] = e
+        g_build["s"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    g_thread = threading.Thread(target=build_native)
+    g_thread.start()
     _build.build(KERNEL_SOURCES)
-    print(f"build: nvcc x{len(KERNEL_SOURCES)} in parallel {time.perf_counter() - t0:.2f} s")
+    t_nvcc = time.perf_counter() - t0
+    g_thread.join()
+    if "error" in g_build:
+        raise g_build["error"]
+    print(f"build: nvcc x{len(KERNEL_SOURCES)} in parallel {t_nvcc:.2f} s; g++ libscene beside "
+          f"them {g_build['s']:.2f} s")
     for name in KERNEL_SOURCES:
         for line in _build.library(name)[1].splitlines():
             if "registers" in line or "spill" in line:
@@ -1759,7 +2048,7 @@ def main() -> int:
     P_p, D_p = rays_p.P.contiguous(), rays_p.D.contiguous()
     all_p = torch.ones(P_p.shape[0], dtype=torch.bool, device="cuda")
 
-    def built_tree_phase(tag: str, knobs: dict, traces: bool) -> dict:
+    def built_tree_phase(tag: str, knobs: dict, traces: bool, base: str = "object split") -> dict:
         """Build the bench scene with ``knobs``; drive the fused which=0
         frame (and with ``traces`` the unfused frame on wide and on binary
         tables) through the Renderer, each through the golden gate, with
@@ -1784,7 +2073,7 @@ def main() -> int:
         T = world_t.triangle_count
         print(f"{tag}: build {t_build:.2f} s: {data_t.triangle_count} triangle references for {T} "
               f"triangles ({data_t.triangle_count / T - 1:+.2%}), {data_t.group_count} binary nodes "
-              f"(object split {data.group_count}), {pk.n_wide} wide nodes (object split "
+              f"({base} {data.group_count}), {pk.n_wide} wide nodes ({base} "
               f"{packed.n_wide}), stack {pk.stack_depth}")
         _build.LAUNCHES.clear()
         for way, r in ways.items():
@@ -1801,8 +2090,8 @@ def main() -> int:
         kn, pn = kn.cpu(), pn.cpu()
         names = fk.stats_phases(statics.bounce_count, statics.cast_shadows, statics.enable_diffuse)
         print(f"{tag}: frame_kernel vs plain {W}x{H}: mean abs {float((kc - pc).abs().mean()):.3e}, "
-              f"cast {int(kn[0])} vs {int(pn[0])} (object split {int(base_row[0])}); node pops, leaf "
-              f"visits, triangle tests by phase, kernel [plain walks] (object-split kernel): "
+              f"cast {int(kn[0])} vs {int(pn[0])} ({base} {int(base_row[0])}); node pops, leaf "
+              f"visits, triangle tests by phase, kernel [plain walks] ({base} kernel): "
               + "; ".join(f"{p} " + ", ".join(f"{int(kn[1 + 3 * i + c])} [{int(pn[1 + 3 * i + c])}] "
                                               f"({int(base_row[1 + 3 * i + c])})" for c in range(3))
                           for i, p in enumerate(names)))
@@ -1816,17 +2105,17 @@ def main() -> int:
                 for any_hit in (False, True):
                     compare_trace(name, kernel, plain, ways[way].packed, P_p, D_p, all_p, any_hit,
                                   f"{tag}, {'any-hit' if any_hit else 'closest'}, primaries {W}x{H}", W)
-        t = {"object split": [], tag: []}
-        fns = {"object split": lambda: fk.frame_kernel(packed, uni, one, fs0),
+        t = {base: [], tag: []}
+        fns = {base: lambda: fk.frame_kernel(packed, uni, one, fs0),
                tag: lambda: fk.frame_kernel(pk, uni, one, fs0)}
-        for which in ("object split", tag, tag, "object split"):  # in turns on one card
+        for which in (base, tag, tag, base):  # in turns on one card
             t[which] += cuda_times(fns[which], TIMED // 2)
         pops, base_pops = int(kn[1::3].sum()), int(base_row[1::3].sum())
-        print(f"{tag}: frame_kernel {W}x{H} K=1 on {card} (CUDA events): {summary(t[tag])}; object "
-              f"split in turns {summary(t['object split'])}; node pops {pops} vs {base_pops} "
+        print(f"{tag}: frame_kernel {W}x{H} K=1 on {card} (CUDA events): {summary(t[tag])}; {base} "
+              f"in turns {summary(t[base])}; node pops {pops} vs {base_pops} "
               f"({pops / base_pops - 1:+.2%}), triangle tests {int(kn[3::3].sum())} vs "
               f"{int(base_row[3::3].sum())}")
-        return {"ms": float(np.median(t[tag])), "object_ms": float(np.median(t["object split"])),
+        return {"ms": float(np.median(t[tag])), "object_ms": float(np.median(t[base])),
                 "pops": pops, "object_pops": base_pops, "launches": path, "build_s": t_build,
                 "references": data_t.triangle_count}
 
@@ -1836,6 +2125,14 @@ def main() -> int:
     images_launches = images_phase(data)
     served = serve_phase(renderer, card)
     cli_cache_phase()
+    # 13-16. multi-device, the native builder, the greedy collapse with the
+    # quality simulator, the failure dump / debug_nans / trace
+    meshed = mesh_phase(data, sky, params, {"fused": renderer, "unfused wide": unfused,
+                                            "binary": binary}, card)
+    natived = native_phase(sky, params, g_build["s"], card)
+    greedy = built_tree_phase("greedy", {"collapse": "greedy"}, True, base="sah collapse")
+    quality_phase(data)
+    diag = diag_phase(renderer, params)
 
     entry = {e["name"]: e for e in table}
     entry["frame_kernel"].update({
@@ -1850,6 +2147,23 @@ def main() -> int:
     })
     for name in ("trace_wide", "trace_binary", "env_sample"):
         entry[name]["sbvh_launches"] = sbvh["launches"][name]
+    for name in entry:
+        entry[name]["mesh_launches"] = meshed["launches"].get(name, 0)
+        entry[name]["greedy_launches"] = greedy["launches"].get(name, 0)
+    entry["frame_kernel"].update({
+        "native_launches": natived["launches"]["frame_kernel"],
+        "diag_launches": diag["launches"].get("frame_kernel", 0),
+        "greedy_ms": greedy["ms"], "greedy_sah_ms": greedy["object_ms"],
+        "greedy_node_pops": greedy["pops"], "sah_node_pops": greedy["object_pops"],
+        "k64_ms": meshed["k64_ms"], "k64_sample_sharded_ms": meshed["k64_sample_sharded_ms"],
+        "k64_sample_sharded_max_abs": meshed["k64_max_abs"],
+        "k64_sample_sharded_max_scaled": meshed["k64_max_scaled"],
+        "make_fn_one_device_ms": meshed["make_fn_one device_ms"],
+        "make_fn_mesh1_ms": meshed["make_fn_[cuda:0]_ms"],
+        "make_fn_mesh2_ms": meshed["make_fn_[cuda:0, cuda:0]_ms"],
+        "native_build_s": natived["g++_s"], "native_scene_s": natived["native_s"],
+        "numpy_scene_s": natived["numpy_s"],
+    })
 
 
     print(f"card: {card}")

@@ -45,7 +45,7 @@ class App:
         "bvh_leaf_max", "bvh_max_depth", "sah_ctrav", "sah_cisec",
         "colors_are_linear", "geometry_scale", "screen_gamma",
         "max_leaf_tests", "env_base", "packet_kernel", "splits", "bvh_opt",
-        "scene_cache", "validate_scene",
+        "scene_cache", "validate_scene", "use_native", "collapse",
     })
 
     def __init__(
@@ -109,8 +109,10 @@ class App:
                             lambda: self.renderer.make_fn(self._statics()))
 
     def _sync(self) -> None:
-        if self.renderer.device.type == "cuda":
-            torch.cuda.synchronize(self.renderer.device)
+        """Wait for the frame on every card of the renderer (its mesh's)."""
+        for device in dict.fromkeys(self.renderer.mesh or [self.renderer.device]):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     def frame_params(self) -> FrameParams:
         """The frame's uniforms as f32 tensors on the host."""

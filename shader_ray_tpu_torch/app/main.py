@@ -13,7 +13,11 @@ shows the frames in a browser and takes its mouse and keys
 
 It renders on the CUDA card; ``--device cpu`` runs the kernels' plain
 PyTorch versions instead.  Without a card and without ``--device cpu``
-it exits non-zero with the Renderer's message.
+it exits non-zero with the Renderer's message.  ``--devices N`` shards
+each frame over the first N cards (0: all; parallel/mesh.py), one
+process driving them all, as the reference's CLI does; asked for more
+cards than the machine has, it exits non-zero naming both numbers.  With
+``--device cpu``, N > 1 makes N CPU shards.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def build_app(args):
     from shader_ray_tpu_torch.utils.cache import load_scene_data, save_scene_data
 
     device = pick_device(None if args.device == "cuda" else args.device)
+    mesh = cli_mesh(args.devices, device)
     cfg = Config.from_env()
     key = scene_fingerprint(args.model, cfg) if cfg.scene_cache else None
     data = load_scene_data(key) if key is not None else None
@@ -75,10 +80,25 @@ def build_app(args):
                 save_scene_data(key, data)
             except OSError:  # a read-only cache directory costs only the cache
                 pass
-    background = load_background(args.background)
-    renderer = Renderer(data, background, cfg, device=device)
-    print(f"device: {renderer.device}", file=sys.stderr)
+    background = load_background(args.background, cfg)
+    renderer = Renderer(data, background, cfg, device=device, mesh=mesh)
+    print(f"device: {renderer.device}" + (f", mesh of {len(mesh)}: {', '.join(map(str, mesh))}"
+                                          if mesh else ""), file=sys.stderr)
     return App(world, renderer, cfg, width=args.width, height=args.height)
+
+
+def cli_mesh(devices: int, device):
+    """The mesh of ``--devices N`` on ``device``: None for one device; on
+    the card the first N CUDA devices (0: all), raising RuntimeError when
+    the machine has fewer; on the CPU N shards of it."""
+    if devices < 0:
+        raise RuntimeError(f"--devices {devices}: need 0 (all) or more")
+    if device.type == "cpu":
+        return ["cpu"] * devices if devices > 1 else None
+    from shader_ray_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices)
+    return mesh if len(mesh) > 1 else None
 
 
 def _emit(frame, path: str, view: bool) -> None:
@@ -179,7 +199,7 @@ def main(argv=None) -> int:
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to shard the frame over (only 1 in this package)")
+                   help="cards to shard each frame over (0 = all); with --device cpu, CPU shards")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda: the card (the default); cpu: the kernels' plain PyTorch versions")
     p.add_argument("--out", default="frame.ppm", help="output frame path")
@@ -190,12 +210,10 @@ def main(argv=None) -> int:
                    help="browser live viewer: serve frames over HTTP on PORT and take "
                    "mouse/keyboard input from the page")
     args = p.parse_args(argv)
-    if args.devices != 1:
-        p.error(f"--devices {args.devices}: this package renders on one device")
 
     try:
         app = build_app(args)
-    except RuntimeError as e:  # no card, and the CPU was not asked for
+    except RuntimeError as e:  # no card (or fewer than --devices), and the CPU was not asked for
         print(f"shader_ray_tpu_torch: {e}", file=sys.stderr)
         return 1
     except (FileNotFoundError, ValueError) as e:

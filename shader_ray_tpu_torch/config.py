@@ -4,7 +4,8 @@ The fields the port reads, with the reference package's defaults, names
 and checks (shader_ray_tpu/config.py); ``from_env`` reads the
 reference's environment variables for them.  Tests hold the defaults and
 ``from_env`` equal.  The reference's TPU schedule knobs are not here:
-they tune machinery the port does not have.  Per-frame render settings
+they tune machinery the port does not have (ROADMAP.md lists each field
+the port lacks, as machinery or as queued).  Per-frame render settings
 live in ``ops.render.RenderStatics`` (``RenderStatics.from_config``).
 There is no process-wide instance: functions take a ``Config`` or use
 ``Config()``.
@@ -44,6 +45,10 @@ class Config:
     validate_scene: bool = False    # check the scene tables' structure when
                                     # the Renderer packs them (models/validate.py)
     scene_cache: bool = True        # cache built scenes (utils/cache.py)
+    use_native: str = "auto"        # C++ scene builder and readers (native.py):
+                                    # "auto" when it builds | "never" | "require"
+    collapse: str = "sah"           # 8-wide collapse (ops/pack_wide.py): "sah"
+                                    # dynamic program | "greedy" largest-area cut
 
     # --- loader knobs (reference trisrc-support.cpp:24-40) ---
     colors_are_linear: bool = False  # skip pow(c, 2.63) gamma decode
@@ -82,12 +87,16 @@ class Config:
                                      # modulation is at or below this in
                                      # every component; their env term uses
                                      # the current direction.  0 = exact
+    debug_nans: bool = False         # raise FloatingPointError when a frame
+                                     # function's output holds a NaN (engine.py)
 
     # choice sets of the string fields, checked by validate
     _CHOICES = {
         "packet_kernel": ("wide", "binary"),
         "splits": ("object", "sbvh"),
         "bvh_opt": ("", "reinsert"),
+        "use_native": ("auto", "never", "require"),
+        "collapse": ("sah", "greedy"),
     }
 
     def validate(self) -> "Config":
@@ -132,4 +141,8 @@ class Config:
         c.min_contrib = _env_float("SRT_MIN_CONTRIB", c.min_contrib)
         c.packet_max_steps = _env_int("SRT_MAX_STEPS", c.packet_max_steps)
         c.validate_scene = os.environ.get("SRT_VALIDATE") is not None
+        c.collapse = os.environ.get("SRT_COLLAPSE", c.collapse)
+        c.debug_nans = os.environ.get("SRT_DEBUG_NANS") is not None
+        if os.environ.get("SRT_NATIVE"):
+            c.use_native = os.environ["SRT_NATIVE"]
         return c.validate()

@@ -11,6 +11,23 @@ The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.  With
 ``Config.validate_scene`` the constructor checks the scene's tables
 (models/validate.py) before it packs them.
+
+With a ``mesh`` (parallel/mesh.py: an ordered device list, or N for the
+first N cards) the tables are replicated to each device; ``make_fn`` and
+``make_checksum_fn`` shard the frame's rays over bands of image rows
+(the fused route through the frame kernel's given-rays form, as the
+reference turns in-kernel raygen off under a mesh, engine_pallas.py:
+382-388), ``make_progressive_fn`` shards its K samples when K % n == 0
+(else its rays), and ``make_count_fn`` and ``make_stats_fn`` stay on
+``mesh[0]``, as the reference's do.
+
+Every function handed out is wrapped (``_wrap``, the reference's
+``_cfg_wrap``, engine.py:106-129): a kernel's build or launch failure
+prints the diagnostic of utils/kerneldiag.py before it is re-raised, and
+under ``Config.debug_nans`` (read at each call) an output holding a NaN
+raises ``FloatingPointError`` naming the function, the counterpart of
+``jax_debug_nans`` for hand-written kernels.  Red budget-overflow paint
+is not NaN; a grad-mode ray exactly along +-y is, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,9 +39,13 @@ from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
 from shader_ray_tpu_torch.ops.engine_frame import (
     count_cast,
+    finish,
+    frame_jitter,
+    frame_settings,
     fused_route,
     halton_jitters,
     render_frame,
+    render_linear,
     render_progressive,
     tile_stats,
 )
@@ -60,8 +81,17 @@ class Renderer:
         background: np.ndarray,
         config: Config | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
     ) -> None:
+        if mesh is not None:
+            from shader_ray_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(mesh)
+            if device is not None and make_mesh([device]) != mesh[:1]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+            device = mesh[0]
         self.device = pick_device(device)
+        self.mesh = mesh
         _true_f32()
         self.cfg = (config or Config()).validate()
         if self.cfg.validate_scene:
@@ -70,6 +100,11 @@ class Renderer:
             validate_scene_data(data)
         pack = pack_scene_wide if self.cfg.packet_kernel == "wide" else pack_scene
         self.packed = pack(data, background, self.cfg).to(self.device)
+        self.replicas = None
+        if mesh is not None:
+            from shader_ray_tpu_torch.parallel import replicate_scene
+
+            self.replicas = replicate_scene(self.packed, mesh)
 
     # the render knobs are read from the config at each call, so a live
     # edit (app.driver.App.set_knob) reaches the next frame
@@ -81,14 +116,58 @@ class Renderer:
     def fused(self) -> bool:
         return self.cfg.packet_fused
 
+    def _wrap(self, fn, label: str, statics: RenderStatics):
+        """``fn`` with the failure dump and ``Config.debug_nans`` (module
+        docstring)."""
+
+        def wrapped(params: FrameParams):
+            try:
+                out = fn(params)
+            except Exception as e:
+                from shader_ray_tpu_torch.utils.kerneldiag import report_failure
+
+                report_failure(e, cfg=self.cfg, packed=self.packed,
+                               settings=self._settings(statics), label=label,
+                               device=self.mesh or self.device)
+                raise
+            if self.cfg.debug_nans and isinstance(out, torch.Tensor) and \
+                    out.is_floating_point() and bool(torch.isnan(out).any()):
+                raise FloatingPointError(f"{label}: NaN in its output (Config.debug_nans)")
+            return out
+
+        return wrapped
+
+    def _settings(self, statics: RenderStatics):
+        """What the dump shows of a function's kernel settings: the frame
+        kernel's ``FrameSettings`` on the fused route, else the unfused
+        route's trace and env settings."""
+        if fused_route(self.packed, statics, self.fused):
+            return frame_settings(statics, self.max_steps, self.cfg.min_contrib)
+        return dict(route="unfused", tables=type(self.packed).__name__, which=statics.which,
+                    width=statics.width, height=statics.height, bounce_count=statics.bounce_count,
+                    cast_shadows=statics.cast_shadows, mt_eps=statics.mt_eps,
+                    max_steps=self.max_steps, env_aniso=statics.env_aniso)
+
+    def _sharded_linear(self, params: FrameParams, statics: RenderStatics,
+                        jitters: torch.Tensor) -> torch.Tensor:
+        """Ray sharding over the mesh: the linear mean over ``jitters`` of
+        each device's band of rows, gathered on ``mesh[0]``."""
+        from shader_ray_tpu_torch.parallel import shard_rows
+
+        return shard_rows(self.replicas, self.mesh, statics.height, lambda packed, rows: render_linear(
+            packed, params, statics, jitters, self.max_steps, self.fused, self.cfg.min_contrib, rows))
+
     def make_fn(self, statics: RenderStatics):
-        """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter."""
+        """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter;
+        ray-sharded under a mesh."""
 
         def fn(params: FrameParams) -> torch.Tensor:
+            if self.mesh is not None:
+                return finish(self._sharded_linear(params, statics, frame_jitter(params)), statics)
             return render_frame(self.packed, params, statics, self.max_steps, self.fused,
                                 self.cfg.min_contrib)
 
-        return fn
+        return self._wrap(fn, "frame fn", statics)
 
     def make_checksum_fn(self, statics: RenderStatics):
         """``fn(params) -> scalar`` sum of the frame (a cheap fence)."""
@@ -98,17 +177,30 @@ class Renderer:
     def make_progressive_fn(self, statics: RenderStatics, samples: int, reduce_sum: bool = False):
         """``fn(params) -> (H, W, 3)``: the linear mean of ``samples``
         Halton-jittered frames, tonemapped once (ONE kernel launch on
-        the fused route); ``reduce_sum`` returns its sum instead."""
+        the fused route); ``reduce_sum`` returns its sum instead.  Under
+        a mesh of n devices the samples are sharded when n divides them
+        (each device one launch over its block), else the rays."""
         jitters = torch.from_numpy(halton_jitters(samples)).to(self.device)
+        sample_shards = self.mesh is not None and samples % len(self.mesh) == 0
 
         def fn(params: FrameParams) -> torch.Tensor:
-            out = render_progressive(
-                self.packed, params, statics, jitters, self.max_steps, self.fused,
-                self.cfg.min_contrib,
-            )
+            if sample_shards:
+                from shader_ray_tpu_torch.parallel import sample_sharded
+
+                out = finish(sample_sharded(self.replicas, self.mesh, jitters, lambda packed, block: render_linear(
+                    packed, params, statics, block, self.max_steps, self.fused,
+                    self.cfg.min_contrib)), statics)
+            elif self.mesh is not None:
+                out = finish(self._sharded_linear(params, statics, jitters), statics)
+            else:
+                out = render_progressive(
+                    self.packed, params, statics, jitters, self.max_steps, self.fused,
+                    self.cfg.min_contrib,
+                )
             return out.sum() if reduce_sum else out
 
-        return fn
+        kind = "sample-sharded " if sample_shards else ""
+        return self._wrap(fn, f"{kind}progressive fn (K={samples})", statics)
 
     def make_count_fn(self, statics: RenderStatics):
         """``fn(params) -> int`` rays actually cast for one frame (live
@@ -119,7 +211,7 @@ class Renderer:
             return count_cast(self.packed, params, statics, self.max_steps, self.fused,
                               self.cfg.min_contrib)
 
-        return fn
+        return self._wrap(fn, "cast-count fn", statics)
 
     def make_stats_fn(self, statics: RenderStatics):
         """``fn(params) -> (n_tiles, 1 + 3 * phases)`` int64 per-tile walk
@@ -136,4 +228,4 @@ class Renderer:
         def fn(params: FrameParams) -> torch.Tensor:
             return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib)
 
-        return fn
+        return self._wrap(fn, "stats fn", statics._replace(which=0))

@@ -25,6 +25,9 @@ import re
 
 import numpy as np
 
+from shader_ray_tpu_torch import native
+from shader_ray_tpu_torch.config import Config
+
 _FLOAT_SPEC = re.compile(
     r"^\s*([-+0-9.eE]+)\s*,\s*([-+0-9.eE]+)\s*,\s*([-+0-9.eE]+)\s*$"
 )
@@ -47,13 +50,16 @@ def grid_image(width: int = 2048, tilesize: int = 8, barsize: int = 1) -> np.nda
     return img
 
 
-def read_hdr(path: str) -> np.ndarray:
+def read_hdr(path: str, config: Config | None = None) -> np.ndarray:
     """Radiance RGBE (.hdr) reader -> (H, W, 3) float32, scanline 0 first.
 
     Supports the common -Y H +X W orientation with both RLE and flat
     scanlines.  (The reference delegated to FreeImagePlus FIT_RGBF,
-    ray.cpp:1048-1054.)
+    ray.cpp:1048-1054.)  Reads through the native reader where
+    ``Config.use_native`` lets it (native.py).
     """
+    if native.wanted((config or Config()).use_native):
+        return native.read_hdr_file(path)
     with open(path, "rb") as f:
         data = f.read()
 
@@ -114,9 +120,10 @@ def read_hdr(path: str) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def load_background(spec: str) -> np.ndarray:
+def load_background(spec: str, config: Config | None = None) -> np.ndarray:
     """Parse a background spec into an (H, W, 3) float32 lat-long image,
-    row 0 the top scanline (module docstring)."""
+    row 0 the top scanline (module docstring); ``config.use_native``
+    picks the .hdr reader (``read_hdr``)."""
     m = _FLOAT_SPEC.match(spec)
     if m:
         return constant_image(float(m.group(1)), float(m.group(2)), float(m.group(3)))
@@ -133,7 +140,7 @@ def load_background(spec: str) -> np.ndarray:
         raise FileNotFoundError(f"Failed to load image from {spec}")
     ext = spec.rsplit(".", 1)[-1].lower()
     if ext == "hdr":
-        return read_hdr(spec)
+        return read_hdr(spec, config)
     if ext in ("ppm", "pnm"):
         from shader_ray_tpu_torch.utils.ppm import read_ppm
 

@@ -15,10 +15,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from shader_ray_tpu_torch import native
+from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 
 
-def parse_obj(path: str) -> TriangleSet:
+def parse_obj(path: str, config: Config | None = None) -> TriangleSet:
+    """Parse an OBJ file: through the native reader where
+    ``Config.use_native`` lets it (native.py; colors white, :344), else
+    in Python."""
+    if native.wanted((config or Config()).use_native):
+        pos, nrm = native.parse_obj_file(path)
+        return TriangleSet.from_arrays(pos, nrm, np.ones_like(pos))
     with open(path, "r") as f:
         return parse_obj_text(f.read())
 

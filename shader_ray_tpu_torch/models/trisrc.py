@@ -24,6 +24,7 @@ import re
 
 import numpy as np
 
+from shader_ray_tpu_torch import native
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 
@@ -35,9 +36,16 @@ def _empty() -> TriangleSet:
 
 
 def parse_trisrc(path: str, config: Config | None = None) -> TriangleSet:
+    """Parse a trisrc file: through the native reader where
+    ``Config.use_native`` lets it (native.py), else in Python."""
+    cfg = config or Config()
+    if native.wanted(cfg.use_native):
+        pos, nrm, col = native.parse_trisrc_file(path, cfg.geometry_scale, cfg.screen_gamma,
+                                                 cfg.colors_are_linear)
+        return TriangleSet.from_arrays(pos, nrm, col)
     with open(path, "r") as f:
         text = f.read()
-    return parse_trisrc_text(text, config)
+    return parse_trisrc_text(text, cfg)
 
 
 def parse_trisrc_text(text: str, config: Config | None = None) -> TriangleSet:

@@ -2,9 +2,12 @@
 reads (reference world.cpp:46-134, 298-347; numpy path of
 shader_ray_tpu/models/world.py).  ``load_world`` dispatches on the file
 extension (.trisrc, .obj); ``make_world`` builds the BVH the
-configuration asks for (``Config.splits``, ``Config.bvh_opt``); the World
-carries the view matrices the app sets (app/camera.update_view_params);
-``scene_fingerprint`` keys the scene cache (utils/cache.py)."""
+configuration asks for (``Config.splits``, ``Config.bvh_opt``), the
+object-split one through the native builder where ``Config.use_native``
+lets it (native.py: flattened as it builds, bit-identical to the numpy
+build); the World carries the view matrices the app sets
+(app/camera.update_view_params); ``scene_fingerprint`` keys the scene
+cache (utils/cache.py)."""
 
 from __future__ import annotations
 
@@ -15,9 +18,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from shader_ray_tpu_torch import native
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.bvh import BVH, make_bvh
-from shader_ray_tpu_torch.models.flatten import flatten_bvh
+from shader_ray_tpu_torch.models.flatten import FlatBVH, flatten_bvh
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.utils import mat4
 
@@ -32,10 +36,12 @@ class Camera:
 @dataclass
 class World:
     triangles: TriangleSet
-    bvh: BVH | None  # None when loaded with build_bvh=False
+    bvh: BVH | None  # None with build_bvh=False or from the native builder
     scene_center: np.ndarray
     scene_extent: float
     triangle_count: int
+    flat: FlatBVH | None = None      # the native builder's flattened BVH
+    order: np.ndarray | None = None  # the native builder's triangle order
     cam: Camera = field(default_factory=Camera)
     # view matrices, set by app.camera.update_view_params (reference
     # world.h:44-59)
@@ -45,6 +51,11 @@ class World:
     object_inverse: np.ndarray = field(default_factory=mat4.identity)
     object_normal_matrix: np.ndarray = field(default_factory=mat4.identity)
     object_normal_inverse: np.ndarray = field(default_factory=mat4.identity)
+
+    @property
+    def tri_order(self) -> np.ndarray:
+        """The BVH's triangle order, whichever builder made it."""
+        return self.order if self.order is not None else self.bvh.order
 
 
 @dataclass
@@ -82,7 +93,7 @@ def load_world(
     elif ext == "obj":
         from shader_ray_tpu_torch.models.obj import parse_obj
 
-        triangles = parse_obj(filename)
+        triangles = parse_obj(filename, cfg)
     else:
         raise ValueError(f"This program doesn't know how to load a file with extension {ext}")
     if verbose:
@@ -102,7 +113,9 @@ def make_world(
     distance from it, world.cpp:106-117) and the BVH: the binned-SAH
     object-split build, or with ``splits="sbvh"`` the spatial-split one,
     then with ``bvh_opt="reinsert"`` the reinsertion optimizer
-    (shader_ray_tpu/models/world.py:161-221 without its native builder)."""
+    (shader_ray_tpu/models/world.py:161-240).  The object split without
+    reinsertion (which needs the node list) goes through the native
+    builder where ``Config.use_native`` lets it."""
     cfg = config or Config()
     tcount = triangles.triangle_count
     scene_center = triangles.box_center()
@@ -111,8 +124,15 @@ def make_world(
         scene_extent = float(np.sqrt((d * d).sum(axis=-1).max())) * 2.0
     else:
         scene_extent = 1.0
-    bvh = None
-    if build_bvh and cfg.splits == "sbvh":
+    bvh = flat = order = None
+    if build_bvh and cfg.splits == "object" and cfg.bvh_opt != "reinsert" and \
+            native.wanted(cfg.use_native):
+        flat, order, _ = native.build_flat_bvh(
+            triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters,
+            leaf_max=cfg.bvh_leaf_max, max_depth=cfg.bvh_max_depth,
+            ctrav=cfg.sah_ctrav, cisec=cfg.sah_cisec,
+        )
+    elif build_bvh and cfg.splits == "sbvh":
         from shader_ray_tpu_torch.models.sbvh import make_sbvh
 
         verts = triangles.positions[triangles.indices] if tcount else np.zeros((0, 3, 3), np.float32)
@@ -125,15 +145,15 @@ def make_world(
         bvh = optimize_bvh(bvh, cfg)
     return World(
         triangles=triangles, bvh=bvh, scene_center=scene_center,
-        scene_extent=scene_extent, triangle_count=tcount,
+        scene_extent=scene_extent, triangle_count=tcount, flat=flat, order=order,
     )
 
 
 def get_shader_data(world: World) -> SceneData:
     """Flatten a World into SceneData (world.cpp:298-347), the triangle
-    tables sized by the reference count R = len(bvh.order)."""
-    flat = flatten_bvh(world.bvh)
-    order = world.bvh.order
+    tables sized by the reference count R = len(order)."""
+    flat = world.flat if world.flat is not None else flatten_bvh(world.bvh)
+    order = world.tri_order
     ts = world.triangles
     R = len(order)
     if R > 0:

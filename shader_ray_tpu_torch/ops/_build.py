@@ -11,11 +11,13 @@ imported.
 ``LAUNCHES`` counts launches per kernel name, process-wide: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
 set a count to 0, drive a path and read how often the kernel really ran.
+``traced`` names a launch in a profiler's trace.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -149,8 +151,30 @@ def launch_info(name: str, entry: str, *args: int,
     return dict(zip(keys, info))
 
 
+# cudaGetErrorString of the errors a launch of these kernels can return
+CUDA_ERRORS = {
+    1: "invalid argument",
+    2: "out of memory",
+    9: "invalid configuration argument",
+    98: "invalid device function",
+    209: "no kernel image is available for execution on the device",
+    700: "an illegal memory access was encountered",
+    701: "too many resources requested for launch",
+}
+
+
 def launched(name: str, err: int) -> None:
     """Raise on a refused launch, else count it."""
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({CUDA_ERRORS.get(err, 'see cudaGetErrorString')})")
     LAUNCHES[name] += 1
+
+
+def traced(name: str):
+    """A ``record_function`` range named after the kernel around its
+    launch while a profiler records (utils/profiling.device_trace), so a
+    trace names the wrapper; nothing otherwise."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

@@ -28,6 +28,11 @@ Routing is by configuration, decided in ``fused_route``:
 ``tile_stats`` is the stats fn's frame: the fused kernel's counter row
 of each 16 x 16 pixel tile of a ``which = 0`` frame.
 
+``render_linear(rows=(r0, r1))`` renders only image rows r0 to r1 - 1
+(a shard of parallel/mesh.shard_rows), each ray the whole frame's: on the
+fused route through the kernel's given-rays form over ``raygen_rays``
+(``fused_given``), elsewhere by the same functions over those rows.
+
 A progressive batch renders its K frames one after the other and sums
 them in order, except on the fused route outside ``which = 5``, where it
 is one launch.  The tonemap runs once on the linear mean, in plain
@@ -54,6 +59,7 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     FrameSettings,
     GivenRays,
     frame_kernel,
+    raygen_rays,
 )
 from shader_ray_tpu_torch.ops.engine_trace import trace_rays
 from shader_ray_tpu_torch.ops.envmap import env_coords
@@ -139,22 +145,28 @@ def _on(params: FrameParams, device) -> FrameParams:
     return FrameParams(*[None if x is None else torch.as_tensor(x).to(device) for x in params])
 
 
-def primary_rays(statics: RenderStatics, params: FrameParams) -> tuple[Rays, tuple]:
+def primary_rays(
+    statics: RenderStatics, params: FrameParams, rows: tuple[int, int] | None = None
+) -> tuple[Rays, tuple]:
     """The frame's pinhole rays at ``params.pixel_jitter`` where the
-    params live, (H*W, 3) row-major, and the pixel spacing (right, up)."""
+    params live, (H*W, 3) row-major, and the pixel spacing (right, up);
+    with ``rows`` = (r0, r1) only image rows r0 to r1 - 1, each ray the
+    whole frame's."""
     dev = params.camera_matrix.device
-    jj = torch.arange(statics.height, dtype=torch.float32, device=dev)[:, None]
+    r0, r1 = rows or (0, statics.height)
+    jj = torch.arange(r0, r1, dtype=torch.float32, device=dev)[:, None]
     ii = torch.arange(statics.width, dtype=torch.float32, device=dev)[None, :]
     return rays_for_pixels(statics, params, jj, ii)
 
 
 def unfused_linear(
-    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0
+    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` off the fused route: linear
-    (H, W, 3) colour."""
+    (H, W, 3) colour, or (r1 - r0, W, 3) of image ``rows`` (r0, r1)."""
     params = _on(params, packed.env_pyramid.texels.device)
-    rays, (right, up) = primary_rays(statics, params)
+    rays, (right, up) = primary_rays(statics, params, rows)
     if statics.which == 3:
         # this pixel's env-coordinate differentials (fs:642-650)
         below = torch.stack(env_coords(rays.D - rays.dDdy / 2.0), dim=-1)
@@ -173,7 +185,7 @@ def unfused_linear(
         color = color / SUPERSAMPLE**2
     else:
         color = trace_rays(packed, rays, params, statics, max_steps)
-    return color.reshape(statics.height, statics.width, 3)
+    return color.reshape(-1, statics.width, 3)
 
 
 def supersample_directions(D: torch.Tensor, right: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -203,17 +215,36 @@ def fused_linear(
 
 def fused_supersample(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
-    max_steps: int = 0, min_contrib: float = 0.0,
+    max_steps: int = 0, min_contrib: float = 0.0, rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """The which = 5 frame at ``params.pixel_jitter`` as ONE launch of
     the frame kernel's given-rays form: the primaries' origins and their
     25 sub-sample direction sets, built on the scene's device; the
-    linear (H, W, 3) mean of the 25 sub-frames."""
+    linear (H, W, 3) mean of the 25 sub-frames, or (r1 - r0, W, 3) of
+    image ``rows`` (r0, r1)."""
     params = _on(params, packed.leaves.device)
-    rays, (right, up) = primary_rays(statics, params)
+    rays, (right, up) = primary_rays(statics, params, rows)
     given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
+    fs = frame_settings(statics, max_steps, min_contrib)
     return frame_kernel(packed, pack_uniforms(params), None,
-                        frame_settings(statics, max_steps, min_contrib), rays=given)[0]
+                        fs._replace(height=rays.P.shape[0] // fs.width), rays=given)[0]
+
+
+def fused_given(
+    packed: PackedWide, params: FrameParams, statics: RenderStatics, jitters: torch.Tensor,
+    rows: tuple[int, int], max_steps: int = 0, min_contrib: float = 0.0,
+) -> torch.Tensor:
+    """Image ``rows`` (r0, r1) of the fused frame over the (K, 2)
+    ``jitters`` as ONE launch of the frame kernel's given-rays form: the
+    rays its raygen would make for those rows (``raygen_rays``, with
+    their differentials in the grad modes), built on the scene's device;
+    the linear (r1 - r0, W, 3) mean.  Rows (0, H) give the whole frame's
+    given-rays form."""
+    dev = packed.leaves.device
+    uni = pack_uniforms(params).to(dev)
+    fs = frame_settings(statics, max_steps, min_contrib)
+    rays = raygen_rays(uni, jitters.to(dev), fs, rows)
+    return frame_kernel(packed, uni, None, fs._replace(height=rows[1] - rows[0]), rays=rays)[0]
 
 
 def render_linear(
@@ -224,17 +255,23 @@ def render_linear(
     max_steps: int = 0,
     fused: bool = True,
     min_contrib: float = 0.0,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
-    the configuration (module docstring)."""
+    the configuration (module docstring); with ``rows`` = (r0, r1) the
+    (r1 - r0, W, 3) band of those image rows, on the fused route through
+    the kernel's given-rays form (``fused_given``), elsewhere the same
+    function as the whole frame's."""
     on_kernel = fused_route(packed, statics, fused)
     if on_kernel and statics.which != 5:
+        if rows is not None:
+            return fused_given(packed, params, statics, jitters, rows, max_steps, min_contrib)
         return fused_linear(packed, params, statics, jitters, max_steps, min_contrib)[0]
     total = None
     for jit in jitters:
         jittered = params._replace(pixel_jitter=jit)
-        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib) if on_kernel
-                 else unfused_linear(packed, jittered, statics, max_steps))
+        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib, rows)
+                 if on_kernel else unfused_linear(packed, jittered, statics, max_steps, rows))
         total = frame if total is None else total + frame
     return total / jitters.shape[0]
 
@@ -282,7 +319,8 @@ def frame_jitter(params: FrameParams) -> torch.Tensor:
     return torch.as_tensor(params.pixel_jitter, dtype=torch.float32).reshape(1, 2)
 
 
-def _finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
+def finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
+    """The tonemap of a linear frame, unless ``statics.do_tonemap`` is off."""
     return tonemap_and_gamma(color, statics.use_filmic) if statics.do_tonemap else color
 
 
@@ -294,7 +332,7 @@ def render_frame(
     unless ``statics.do_tonemap`` is off."""
     color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused,
                           min_contrib)
-    return _finish(color, statics)
+    return finish(color, statics)
 
 
 def render_progressive(
@@ -308,5 +346,5 @@ def render_progressive(
 ) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
-    return _finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib),
+    return finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib),
                    statics)

@@ -150,7 +150,7 @@ def env_sample(
     if R == 0:
         return out
     levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _build.traced("env_sample"):
         err = fn(
             env.texels.data_ptr(), levels, env.n_levels,
             D.data_ptr(), dDdx.data_ptr() if grad else None,

@@ -304,18 +304,23 @@ def frame_plain(
     return (total / K).reshape(H, W, 3), counters
 
 
-def raygen_rays(uni: torch.Tensor, jitters: torch.Tensor, fs: FrameSettings) -> GivenRays:
+def raygen_rays(uni: torch.Tensor, jitters: torch.Tensor, fs: FrameSettings,
+                rows: tuple[int, int] | None = None) -> GivenRays:
     """The rays the kernel generates for the (K, 2) ``jitters``, in plain
     PyTorch: pinhole raygen (kernel_mega.py:203-220, two normalisations)
-    and, in the grad modes, the seeded differentials (:221-232)."""
+    and, in the grad modes, the seeded differentials (:221-232).  With
+    ``rows`` = (r0, r1), only the pixels of image rows r0 to r1 - 1 of
+    the W x H frame, each ray bit for bit the whole frame's (elementwise
+    arithmetic)."""
     W, H = fs.width, fs.height
-    K, HW = jitters.shape[0], W * H
+    r0, r1 = rows or (0, H)
+    K, HW = jitters.shape[0], W * (r1 - r0)
     u = [uni[i] for i in range(UNI_SIZE)]
     cm = u[UNI_CAM_NORMAL : UNI_CAM_NORMAL + 9]
     ipw = u[UNI_IPW]
     pix = torch.arange(HW, device=uni.device).repeat(K)
     iif = (pix % W).float()
-    jf = (pix // W).float()
+    jf = (pix // W + r0).float()
     jx = jitters[:, 0].repeat_interleave(HW)
     jy = jitters[:, 1].repeat_interleave(HW)
     inv_w, inv_h, aspect = _raygen_scalars(W, H)
@@ -458,7 +463,7 @@ def frame_kernel(
     inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
     ptr = lambda x: None if x is None else x.data_ptr()
     given = rays or GivenRays(None, None)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _build.traced("frame_kernel"):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),

@@ -2,9 +2,10 @@
 shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's Woop records).
 
 The binary SAH tree is collapsed into 8-wide nodes by the same SAH
-dynamic program (``_collapse_sah``), with the same per-octant
-near-to-far child orders and stack bound, so both packages walk the
-same wide tree.  The layout is the one a thread walking one ray wants,
+dynamic program (``_collapse_sah``) or, with ``Config.collapse =
+"greedy"``, the same largest-area greedy cut (``_collapse_greedy``), with
+the same per-octant near-to-far child orders and stack bound, so both
+packages walk the same wide tree.  The layout is the one a thread walking one ray wants,
 read with 16-byte loads:
 
   nodes   (Nw, 8, 8) f32      child k of a node as two float4s:
@@ -243,13 +244,67 @@ def _collapse_sah(data: SceneData, c_node: float = 1.0,
     return wide_children, wid_of_binary, depth_of, is_leaf
 
 
+def _collapse_greedy(data: SceneData):
+    """Collapse the binary tree into wide nodes: repeatedly expand the
+    largest-area internal frontier member until 8 children (the
+    BVH8-style greedy cut), as the reference packer's greedy collapse.
+    The same return contract as ``_collapse_sah``."""
+    children = data.node_children
+    count = data.node_objects[:, 1]
+    bmin = data.node_boxes[:, 0:3].astype(np.float64)
+    bmax = data.node_boxes[:, 3:6].astype(np.float64)
+    ext = np.maximum(bmax - bmin, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    is_leaf = count > 0
+
+    def frontier(b: int) -> list[int]:
+        if is_leaf[b]:
+            return [int(b)]
+        if children[b, 0] < 0:  # empty scene: a branch root with no children
+            return []
+        fr = [int(children[b, 0]), int(children[b, 1])]
+        while len(fr) < WIDE:
+            best, best_a = -1, -1.0
+            for i, f in enumerate(fr):
+                if not is_leaf[f] and area[f] > best_a:
+                    best, best_a = i, float(area[f])
+            if best < 0:
+                break
+            f = fr.pop(best)
+            fr.extend([int(children[f, 0]), int(children[f, 1])])
+        return fr
+
+    # BFS with FIFO ids: parents precede children, root = 0
+    root = int(data.tree_root)
+    queue = deque([(root, 0)])
+    wid_of_binary = {root: 0}
+    next_id = 1
+    wide_children: list[list[int]] = []
+    depth_of: list[int] = []
+    while queue:
+        b, d = queue.popleft()
+        fr = frontier(b)
+        wide_children.append(fr)
+        depth_of.append(d)
+        for f in fr:
+            if not is_leaf[f]:
+                wid_of_binary[f] = next_id
+                next_id += 1
+                queue.append((f, d + 1))
+    return wide_children, wid_of_binary, depth_of, is_leaf
+
+
+COLLAPSES = {"sah": _collapse_sah, "greedy": _collapse_greedy}  # by Config.collapse
+
+
 def pack_scene_wide(
     data: SceneData, env: np.ndarray, config: Config | None = None
 ) -> PackedWide:
     """Wide node table, Woop leaf records and the env pyramid, as CPU
-    tensors (``PackedWide.to(device)`` moves them)."""
+    tensors (``PackedWide.to(device)`` moves them); the binary tree is
+    collapsed as ``Config.collapse`` says."""
     cfg = (config or Config()).validate()
-    wide_children, wid_of_binary, depth_of, is_leaf = _collapse_sah(data)
+    wide_children, wid_of_binary, depth_of, is_leaf = COLLAPSES[cfg.collapse](data)
     Nw = len(wide_children)
     if Nw >= (1 << COUNT_SHIFT) or data.triangle_count > FIRST_MASK:
         raise ValueError("scene too large for the 26-bit child meta")

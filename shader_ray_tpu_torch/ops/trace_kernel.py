@@ -440,7 +440,7 @@ def trace_wide(
     t, which, normal, bad, stats = _outputs(R, device, with_stats)
     if R == 0:
         return PacketHit(t, which, normal, bad, stats)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _build.traced("trace_wide"):
         err = fn(
             packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
             P.data_ptr(), D.data_ptr(), active.data_ptr(), R, width,
@@ -482,7 +482,7 @@ def trace_binary(
     t, which, normal, bad, stats = _outputs(R, device, with_stats)
     if R == 0:
         return PacketHit(t, which, normal, bad, stats)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _build.traced("trace_binary"):
         err = fn(
             packed.nodes.data_ptr(), packed.tris.data_ptr(), packed.normals.data_ptr(),
             N, max_steps or 2 * N + 2, mt_eps,

@@ -153,7 +153,7 @@ def test_load_world_matches_the_reference():
     got = world.load_world(KNOT, Config(), verbose=False)
     np.testing.assert_array_equal(got.scene_center, want.scene_center)
     assert (got.scene_extent, got.triangle_count) == (want.scene_extent, want.triangle_count)
-    np.testing.assert_array_equal(got.bvh.order, want.bvh.order)
+    np.testing.assert_array_equal(got.tri_order, want.tri_order)
     assert world.load_world(KNOT, Config(), verbose=False, build_bvh=False).bvh is None
     with pytest.raises(ValueError, match="extension"):
         world.load_world("scene.ply", Config(), verbose=False)

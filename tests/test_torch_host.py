@@ -54,7 +54,7 @@ def test_scene_build_is_byte_identical(name):
     world = make_world(ts)
     assert ref_world.scene_extent == world.scene_extent
     assert ref_world.scene_center.tobytes() == world.scene_center.tobytes()
-    assert ref_world.bvh.order.tobytes() == world.bvh.order.tobytes()
+    assert ref_world.bvh.order.tobytes() == world.tri_order.tobytes()
 
     ref_data = ref_shader_data(ref_world, ref_cfg)
     data = get_shader_data(world)
@@ -111,11 +111,11 @@ def test_config_defaults_equal():
     ref = RefConfig()
     port = Config()
     fields = [f.name for f in dataclasses.fields(Config)]
-    assert len(fields) == 27
+    assert len(fields) == 30
     for name in fields:
         assert getattr(ref, name) == getattr(port, name), name
     for bad in (dict(env_base=100), dict(max_leaf_tests=32), dict(packet_max_steps=-1),
                 dict(packet_kernel="quad"), dict(env_aniso=0), dict(splits="kd"),
-                dict(bvh_opt="rotate")):
+                dict(bvh_opt="rotate"), dict(collapse="binary"), dict(use_native="always")):
         with pytest.raises(ValueError):
             Config(**bad).validate()

@@ -168,7 +168,8 @@ def test_build_tag_covers_included_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for path in _build.CSRC.iterdir():
-        (csrc / path.name).write_bytes(path.read_bytes())
+        if path.is_file():  # csrc/host/ holds the native builder's C++, not a kernel
+            (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {n: _build._paths(n)[0].name for n in ("frame_kernel", "trace_kernel", "env_kernel")}
     with open(csrc / "walk.cuh", "a") as f:
@@ -638,3 +639,108 @@ def test_trace_cases_on_card(cuda_device, name):
             assert chip_smoke.trace_disagreement(got, tk.packet_hit(walk, True), active,
                                                  any_hit)[1] is None
             assert chip_smoke.trace_case_unmet(name, active.cpu(), got.stats[:, 0].cpu()) is None
+
+
+NEW_MODULES = ("shader_ray_tpu_torch.parallel", "shader_ray_tpu_torch.parallel.mesh",
+               "shader_ray_tpu_torch.native", "shader_ray_tpu_torch.models.quality",
+               "shader_ray_tpu_torch.utils.kerneldiag", "shader_ray_tpu_torch.utils.profiling")
+
+
+def test_new_modules_are_walked_and_stand_alone():
+    """The mesh, native-builder, quality, diagnostics and profiling modules
+    are among those the import test loads, and the native builder compiles
+    the port's own copy of libscene.cpp into the port's build directory,
+    never the reference's native/."""
+    from shader_ray_tpu_torch import native
+
+    walked = {m.name for m in pkgutil.walk_packages(shader_ray_tpu_torch.__path__,
+                                                    "shader_ray_tpu_torch.")}
+    assert set(NEW_MODULES) <= walked
+    assert native.SOURCE.is_relative_to(PKG) and native._path().is_relative_to(PKG)
+    assert native.SOURCE.read_bytes() == open(os.path.join(ROOT, "native", "libscene.cpp"), "rb").read()
+
+
+def _bench_like(device, n_tris=5000, mesh=None, **knobs):
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.engine import Renderer
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops.render import default_frame_params
+    from shader_ray_tpu_torch.utils import mat4
+
+    data = get_shader_data(make_world(TriangleSet.from_arrays(*bunny_class_scene(n_tris))))
+    renderer = Renderer(data, procedural_sky(256), Config(**knobs), device=device, mesh=mesh)
+    params = default_frame_params()._replace(
+        camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, 3.8)),
+        diffuse_color=torch.tensor([0.8, 0.2, 0.2]))
+    return renderer, params
+
+
+def test_native_build_equals_numpy_here():
+    """Native and numpy SceneData on this host (the card's host too:
+    -march=native differs there), every array byte for byte."""
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+
+    ts = TriangleSet.from_arrays(*bunny_class_scene(5000))
+    a = get_shader_data(make_world(ts, Config(use_native="require")))
+    b = get_shader_data(make_world(ts, Config(use_native="never")))
+    for f in ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children", "hitmiss"):
+        assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+    assert (a.tree_root, a.triangle_count, a.group_count) == (b.tree_root, b.triangle_count,
+                                                              b.group_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [{}, {"packet_fused": False}, {"packet_kernel": "binary"}])
+def test_sharded_frame_equals_given_rays_frame_on_card(cuda_device, knobs):
+    """Two shards on the one card: the gathered frame is the unsharded
+    given-rays frame bit for bit (the card computes each element alone)."""
+    from shader_ray_tpu_torch.ops import engine_frame as ef
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+
+    one, params = _bench_like(cuda_device, **knobs)
+    two, _ = _bench_like(cuda_device, mesh=[cuda_device, cuda_device], **knobs)
+    for which in (0, 1, 5):
+        statics = RenderStatics(width=96, height=37, which=which, env_aniso=4, do_tonemap=False)
+        want = ef.render_linear(one.packed, params, statics, ef.frame_jitter(params), 0, one.fused,
+                                0.0, rows=(0, statics.height))
+        got = two.make_fn(statics)(params)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (knobs, which)
+
+
+@pytest.mark.cuda
+def test_forced_launch_failure_dumps_on_card(cuda_device, capsys, monkeypatch):
+    """The kernel's C entry refuses bounce_count = -1: the Renderer's
+    function prints the dump naming frame_kernel and re-raises."""
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+
+    monkeypatch.delenv("SRT_KERNEL_DIAG", raising=False)
+    r, params = _bench_like(cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error 1 .invalid argument."):
+        r.make_fn(RenderStatics(width=32, height=32, bounce_count=-1))(params)
+    err = capsys.readouterr().err
+    assert "kernel: frame_kernel" in err and "bounce_count=-1" in err and "device: cuda" in err
+    frame = r.make_fn(RenderStatics(width=32, height=32))(params)  # the context lives on
+    assert torch.isfinite(frame).all()
+
+
+@pytest.mark.cuda
+def test_debug_nans_and_device_trace_on_card(cuda_device, tmp_path):
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+    from shader_ray_tpu_torch.utils.profiling import device_trace
+
+    r, params = _bench_like(cuda_device, debug_nans=True)
+    up = torch.tensor([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=torch.float32)
+    with pytest.raises(FloatingPointError, match="NaN"):
+        r.make_fn(RenderStatics(width=32, height=32, which=1, env_aniso=4))(
+            params._replace(camera_normal_matrix=up, pixel_jitter=torch.tensor([0.5, 0.5])))
+    statics = RenderStatics(width=64, height=64)
+    with device_trace(str(tmp_path)):
+        r.make_fn(statics)(params)
+    (trace,) = os.listdir(tmp_path)
+    assert '"frame_kernel"' in (tmp_path / trace).read_text()
