@@ -36,7 +36,17 @@ port's two paths through the Renderer's entry points:
   scene, driven by a client thread over HTTP on 127.0.0.1, with the
   render and PNG-encode times of a served frame;
 * the CLI twice with one SRT_CACHE_DIR: the second run hits the scene
-  cache and writes the same frame.
+  cache and writes the same frame;
+* the Moller-Trumbore leaf form (``Config(leaf_isect="mt")``, phase
+  ``isect``, last): fused which 0, 1, 2 and 5, the count and stats fns
+  and the unfused frame through the Renderer, gated on the bench goldens
+  and held to the Woop frames; its kernels (``frame_kernel_mt``,
+  ``trace_wide_mt``: the mt instantiations) held to their plain versions
+  as the Woop form's are, and the trace to the brute-force oracle
+  ``ops/reference.intersect_brute`` on 4096 seeded primaries
+  (``oracle_disagreement``); each instantiation's registers, spills and
+  blocks an SM; the mt and Woop kernels timed in turns, with the mt
+  form's bound.
 
 The frame kernel is also held to its plain version in each of its env
 modes and on the control-flow cases of its wave compaction (FRAME_CASES,
@@ -248,9 +258,10 @@ CASE_SAMPLES = {"k3-ragged": 3, "given-raygen": 2, "given-which5": 25}  # K, whe
 
 
 @functools.cache
-def _case_tables(inside: bool):
-    """The cases' packed tables on the CPU: a closed sphere, or a
-    5000-triangle bunny-class scene."""
+def _case_tables(inside: bool, isect: str = "woop"):
+    """The cases' packed tables on the CPU, with leaf test rows of form
+    ``isect``: a closed sphere, or a 5000-triangle bunny-class scene."""
+    from shader_ray_tpu_torch.config import Config
     from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
@@ -258,12 +269,13 @@ def _case_tables(inside: bool):
 
     pos, nrm = uv_sphere(lat=12, lon=16) if inside else bunny_class_scene(5000)
     return pack_scene_wide(get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm))),
-                           procedural_sky(256))
+                           procedural_sky(256), Config(leaf_isect=isect))
 
 
-def frame_case(name: str, device):
+def frame_case(name: str, device, isect: str = "woop"):
     """(packed tables, uniforms, jitters, FrameSettings, given rays) of
-    one case on ``device``: a 5000-triangle bench-like scene (the inside
+    one case on ``device``, the tables' leaf test rows of form ``isect``:
+    a 5000-triangle bench-like scene (the inside
     of a closed sphere for "all-hit").  A pole case looks up +y from
     beside the scene at a 64 x 64 frame with the jitter (0.5, 0.5): the
     centre pixel's ray is exactly (0, 1, 0).  A given-rays case hands its
@@ -288,7 +300,7 @@ def frame_case(name: str, device):
 
     inside = name == "all-hit"
     base = name.removeprefix("given-")
-    packed = _case_tables(inside)
+    packed = _case_tables(inside, isect)
     if name == "bad":
         packed = dataclasses.replace(packed, stack_depth=2)
     spec = 0.05 if name.startswith("min-contrib") else 0.3
@@ -333,7 +345,7 @@ def frame_case(name: str, device):
     return packed, uni, None, fs, given
 
 
-def _retired_unmet(name: str, fs, colour, counters) -> bool:
+def _retired_unmet(name: str, fs, colour, counters, isect: str = "woop") -> bool:
     """Whether a min-contrib case's plain frame fails to show lane
     retirement.  At 1.0 every hit lane retires after bounce 0 (no later
     walk); below, fewer rays are cast than in the same frame at
@@ -346,15 +358,15 @@ def _retired_unmet(name: str, fs, colour, counters) -> bool:
     later = 1 + 3 * (2 if fs.cast_shadows and fs.enable_diffuse else 1)  # after bounce 0's walks
     if fs.min_contrib >= 1.0:
         return int(counters[0]) <= fs.width * fs.height or bool(counters[later:].any())
-    packed, uni, jit, _, _ = frame_case(name, colour.device)
+    packed, uni, jit, _, _ = frame_case(name, colour.device, isect)
     exact, exact_n = fk.frame_plain(packed, uni, jit, fs._replace(min_contrib=0.0))
     err = float((colour - exact).abs().max()) if colour.shape == exact.shape else float("inf")
     return not int(counters[0]) < int(exact_n[0]) or err > 3 * fs.min_contrib
 
 
-def case_unmet(name: str, fs, colour, counters) -> str | None:
-    """What a case's plain frame fails to show of the path it is for,
-    or None.  An env-mode case bounces some rays (their differentials
+def case_unmet(name: str, fs, colour, counters, isect: str = "woop") -> str | None:
+    """What a case's plain frame (tables of leaf form ``isect``) fails to
+    show of the path it is for, or None.  An env-mode case bounces some rays (their differentials
     are transferred) and is finite; a pole case is NaN at exactly one
     pixel, the centre one; a given-rays case bounces some of its K sets'
     rays; a min-contrib case retires lanes (_retired_unmet)."""
@@ -372,7 +384,7 @@ def case_unmet(name: str, fs, colour, counters) -> str | None:
                  or (not pole and cast <= primaries))
         return f"case {name}: cast {cast}, {int(nan.sum())} NaN pixels" if unmet else None
     if name.startswith("min-contrib"):
-        unmet = _retired_unmet(name, fs, colour, counters)
+        unmet = _retired_unmet(name, fs, colour, counters, isect)
         return f"case {name}: cast {cast}, counters {counters.tolist()}" if unmet else None
     unmet = {
         "all-miss": cast != primaries,
@@ -572,6 +584,143 @@ def env_disagreement(got, want, nan_rays=None) -> tuple[dict, str | None]:
         ("max abs", e["max"] > 1e-2), ("mean abs", e["mean"] > 1e-5),
     ) if bad]
     return e, ", ".join(why) or None
+
+
+ORACLE_RAYS = 4096  # seeded bench primaries the mt trace is held to the brute-force oracle on
+
+
+def _barycentric(tri, P, D):
+    """Moller-Trumbore's (d, u, v, |cos|) of triangles tri (..., 3, 3) for
+    rays P, D (..., 3), broadcast, with no accept test: where each ray
+    meets each triangle's plane, and the cosine between the ray and the
+    triangle's normal."""
+    import torch
+
+    def cross(a, b):
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+    v0, e0, e1 = tri[..., 0, :], tri[..., 1, :] - tri[..., 0, :], tri[..., 0, :] - tri[..., 2, :]
+    M = cross(e1, D)
+    det = (e0 * M).sum(-1)
+    T = P - v0
+    Q = cross(T, e0)
+    n = cross(e0, e1)
+    cos = (det / (n.norm(dim=-1) * D.norm(dim=-1))).abs()
+    return -(e1 * Q).sum(-1) / det, (T * M).sum(-1) / det, (D * Q).sum(-1) / det, cos
+
+
+def t_tolerance(scale, cos):
+    """The t limit of the oracle gate: 1e-6 of ``scale``, the larger of t
+    and the ray origin's distance from the triangle's v0 (the size of
+    Moller-Trumbore's T = P - v0, whose rounding d inherits: t itself
+    for a ray from afar, as the bench primaries, but far more than t for
+    a hit next to the origin), widened by 0.1 / |cos| where a ray meets
+    the triangle within ~6 degrees of grazing (|cos| < 0.1): there f32
+    Moller-Trumbore's determinant keeps ~|cos| of its precision, and two
+    f32 evaluations of one hit (nvcc's contracted FMAs, PyTorch's separate
+    roundings) differ by ~1e-6 of t at |cos| 0.01-0.05 on the bench
+    primaries."""
+    import torch
+
+    return 1e-6 * scale * torch.clamp(0.1 / cos, min=1.0)
+
+
+def oracle_disagreement(got, want, tris, P, D) -> tuple[dict, str | None]:
+    """A closest-hit trace's PacketHit against the brute-force oracle's
+    (t, which, u, v) (ops/reference.intersect_brute) on the same rays,
+    tris the (T, 3, 3) triangles in BVH order: the errors measured and why
+    they are beyond their limits, or None.  Where both pick the same
+    triangle, t is within t_tolerance of the oracle's.  The ids and the
+    hit flags are equal except where the oracle's closest distance is
+    tied: its hit point lies on another triangle too (to t_tolerance in
+    distance and 1e-5 in barycentrics: a ray through an edge or a vertex
+    that two triangles share, where rounding picks a side and a test that
+    is not watertight may let the ray through both), or where a hit
+    grazes its triangle's edge to 1e-5 in barycentrics and the other
+    answer misses (nvcc's FMAs decide that accept test)."""
+    import torch
+
+    FAR = 1.0e7
+    t_b, w_b, u_b, v_b = want
+    hit_k, hit_b = got.t < FAR, t_b < FAR
+    w_k = got.which.long()
+    same = hit_k & hit_b & (w_k == w_b)
+    tri_b = tris[w_b.clamp_min(0)]
+    _, _, _, cos_b = _barycentric(tri_b, P, D)
+    scale = torch.maximum(t_b.abs(), (P - tri_b[:, 0]).norm(dim=-1))
+    over = ((got.t - t_b).abs() / t_tolerance(scale, cos_b))[same]
+    rel = ((got.t - t_b).abs() / t_b.abs().clamp_min(1e-30))[same]
+    slack_b = torch.minimum(torch.minimum(u_b, v_b), 1.0 - u_b - v_b)
+    _, u_k, v_k, _ = _barycentric(tris[w_k.clamp_min(0)], P, D)
+    slack_k = torch.minimum(torch.minimum(u_k, v_k), 1.0 - u_k - v_k)
+    differ = (hit_k != hit_b) | (hit_k & hit_b & (w_k != w_b))
+    tied = torch.zeros_like(differ)
+    rows = torch.nonzero(differ & hit_b).squeeze(1)
+    if rows.numel():
+        # every triangle at these rays: another one holding the oracle's hit point
+        d, u, v, cos = _barycentric(tris[None], P[rows, None], D[rows, None])
+        slack = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+        tb = t_b[rows, None]
+        far = torch.maximum(tb.abs(), (P[rows, None] - tris[None, :, 0]).norm(dim=-1))
+        other = torch.arange(tris.shape[0], device=P.device)[None] != w_b[rows, None]
+        tied[rows] = (other & ((d - tb).abs() <= t_tolerance(far, cos)) &
+                      (slack >= -1e-5)).any(1)
+    grazing = (hit_b & ~hit_k & (slack_b.abs() <= 1e-5)) | \
+        (hit_k & ~hit_b & (slack_k.abs() <= 1e-5))
+    off = differ & ~tied & ~grazing
+    e = {
+        "rays": int(P.shape[0]), "hits": int(hit_b.sum()),
+        "t_rel_max": float(rel.max()) if rel.numel() else 0.0,
+        "t_over_limit_max": float(over.max()) if over.numel() else 0.0,
+        "differ": int(differ.sum()), "ties": int((differ & tied).sum()),
+        "grazing": int((differ & grazing & ~tied).sum()), "off": int(off.sum()),
+    }
+    why = [k for k, bad in (
+        ("t beyond its limit", e["t_over_limit_max"] > 1.0),
+        ("ids or hit flags off outside ties and edge grazes", e["off"] > 0),
+        ("ties and grazes over 1e-3 of the rays", e["differ"] > 1e-3 * e["rays"]),
+    ) if bad]
+    return e, ", ".join(why) or None
+
+
+def ptxas_resources(log: str) -> dict[str, tuple[int, int, int]]:
+    """Registers, spill-store and spill-load bytes a thread of each
+    entry function in nvcc's -Xptxas=-v report, by mangled name."""
+    import re
+
+    out, fn, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), *spills)
+            fn, spills = None, (0, 0)
+    return out
+
+
+def instantiation(mangled: str) -> str | None:
+    """The frame or wide-trace kernel instantiation a mangled name is:
+    "frame_kernel[<mode>, <form>, <leaf test>]" or "trace_wide[<leaf
+    test>]"; None for another function."""
+    import re
+
+    isects = ("woop", "mt")
+    m = re.search(r"5frameILi(\d)ELb([01])ELi(\d)E", mangled)
+    if m:
+        mode = ("bilinear", "grad", "probes", "dy")[int(m.group(1))]
+        form = "given rays" if m.group(2) == "1" else "raygen"
+        return f"frame_kernel[{mode}, {form}, {isects[int(m.group(3))]}]"
+    m = re.search(r"10trace_wideILi(\d)E", mangled)
+    return f"trace_wide[{isects[int(m.group(1))]}]" if m else None
 
 
 def pole_rays(n: int, device):
@@ -1355,42 +1504,52 @@ def main() -> int:
     uni = pack_uniforms(params).cuda()
     statics = RenderStatics(width=W, height=H)
     linear = statics._replace(do_tonemap=False)
-    errs = dict.fromkeys(("frame_kernel", "trace_wide", "trace_binary", "env_sample"), 0.0)
+    errs = dict.fromkeys(("frame_kernel", "trace_wide", "trace_binary", "env_sample",
+                          "frame_kernel_mt", "trace_wide_mt"), 0.0)
 
     # 4. each kernel vs its plain version on the card
     def compare(w: int, h: int, jit: torch.Tensor, probe: dict | None = None, which: int = 0,
-                aniso: int = 1):
+                aniso: int = 1, tables=None):
+        """The frame kernel against frame_plain on the bench tables (or
+        ``tables``, whose leaf form names the kernel)."""
+        tables = tables or packed
+        name = tk.launch_name("frame_kernel", tables.isect)
         k = jit.shape[0]
         fs = fk.FrameSettings(width=w, height=h, which=which, env_aniso=aniso)
-        kc, kn = fk.frame_kernel(packed, uni, jit, fs)
-        pc, pn = fk.frame_plain(packed, uni, jit, fs, probe)
+        kc, kn = fk.frame_kernel(tables, uni, jit, fs)
+        pc, pn = fk.frame_plain(tables, uni, jit, fs, probe)
         torch.cuda.synchronize()
         diff = (kc - pc).abs()
-        errs["frame_kernel"] = max(errs["frame_kernel"], float(diff.nan_to_num(0.0).max()))
+        errs[name] = max(errs[name], float(diff.nan_to_num(0.0).max()))
         kn, pn = kn.cpu(), pn.cpu()
         cast_rel = abs(int(kn[0]) - int(pn[0])) / max(int(pn[0]), 1)
         excess, i = walk_counter_excess(kn, pn)
-        print(f"frame_kernel vs plain {w}x{h} K={k} which={which} aniso={aniso}: max abs "
+        print(f"{name} vs plain {w}x{h} K={k} which={which} aniso={aniso}: max abs "
               f"{float(diff.max()):.3e}, mean abs {float(diff.mean()):.3e}; cast {int(kn[0])} vs "
               f"{int(pn[0])} (rel {cast_rel:.2e}); walk counters: worst {int(kn[i])} vs "
               f"{int(pn[i])} (counter {i}), {excess:.3f} of its limit")
         why = frame_disagreement(kc, kn, pc, pn)
         if why:
-            raise AssertionError(f"frame_kernel disagrees with frame_plain at {w}x{h} K={k} "
+            raise AssertionError(f"{name} disagrees with frame_plain at {w}x{h} K={k} "
                                  f"which={which} aniso={aniso}: {why}")
 
-    compare(*SMALL, torch.from_numpy(halton_jitters(1)).cuda())
-    compare(*SMALL, torch.from_numpy(halton_jitters(4)).cuda())
-    for which, aniso in ((1, 1), (1, 4), (2, 1)):
-        compare(*SMALL, torch.from_numpy(halton_jitters(2)).cuda(), which=which, aniso=aniso)
+    def compare_small(tables=None):
+        """compare() at SMALL: K = 1 and 4 at which = 0, K = 2 in the grad modes."""
+        compare(*SMALL, torch.from_numpy(halton_jitters(1)).cuda(), tables=tables)
+        compare(*SMALL, torch.from_numpy(halton_jitters(4)).cuda(), tables=tables)
+        for which, aniso in ((1, 1), (1, 4), (2, 1)):
+            compare(*SMALL, torch.from_numpy(halton_jitters(2)).cuda(), which=which, aniso=aniso,
+                    tables=tables)
+
     red = torch.tensor([1.0, 0.0, 0.0], device="cuda")
-    for name in FRAME_CASES:
-        c_packed, c_uni, c_jit, c_fs, c_rays = frame_case(name, torch.device("cuda"))
+
+    def frame_case_check(name, kname, c_packed, c_uni, c_jit, c_fs, c_rays, isect):
+        """Kernel ``kname`` against frame_plain on FRAME_CASES' case ``name``."""
         kc, kn = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
         pc, pn = fk.frame_plain(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
         torch.cuda.synchronize()
         painted = int((kc == red).all(-1).sum()), int((pc == red).all(-1).sum())
-        print(f"frame_kernel vs plain, case {name} ({c_fs.width}x{c_fs.height} "
+        print(f"{kname} vs plain, case {name} ({c_fs.width}x{c_fs.height} "
               f"K={CASE_SAMPLES.get(name, 1)}{', given rays' if c_rays else ''}, "
               f"{c_fs.bounce_count} bounces, shadows {c_fs.cast_shadows}, diffuse "
               f"{c_fs.enable_diffuse}, which {c_fs.which}, aniso {c_fs.env_aniso}, min_contrib "
@@ -1400,9 +1559,10 @@ def main() -> int:
               f"{int(kn[0])} vs {int(pn[0])}, walk counters {kn[1:].sum().item()} vs "
               f"{pn[1:].sum().item()} (worst {walk_counter_excess(kn.cpu(), pn.cpu())[0]:.3f} "
               f"of its limit), bad-painted pixels {painted[0]} vs {painted[1]}")
-        why = frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) or case_unmet(name, c_fs, pc, pn.cpu())
+        why = frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) or \
+            case_unmet(name, c_fs, pc, pn.cpu(), isect)
         if why or abs(painted[0] - painted[1]) > max(1e-4 * kc[..., 0].numel(), 1):
-            raise AssertionError(f"frame_kernel disagrees with frame_plain on case {name}: {why}")
+            raise AssertionError(f"{kname} disagrees with frame_plain on case {name}: {why}")
         if c_fs.min_contrib >= 1.0:
             # every hit lane retires after bounce 0: the kernel's own
             # one-bounce frame, bit for bit, and no later walk
@@ -1413,6 +1573,16 @@ def main() -> int:
                   f"colour and counters: {same}")
             if not same:
                 raise AssertionError(f"case {name}: not the kernel's bounce_count=1 frame")
+
+    def frame_cases(isect: str = "woop"):
+        """The frame kernel against frame_plain on each of FRAME_CASES, the
+        cases' tables of leaf form ``isect``."""
+        kname = tk.launch_name("frame_kernel", isect)
+        for name in FRAME_CASES:
+            frame_case_check(name, kname, *frame_case(name, torch.device("cuda"), isect), isect)
+
+    compare_small()
+    frame_cases()
 
     def rays_at(w: int, h: int):
         """Object-space primary rays of the bench camera (the object
@@ -1491,41 +1661,48 @@ def main() -> int:
     rays_s, P_s, D_s, sP_s, sD_s, sact_s = rays_at(*SMALL)
     all_s = torch.ones_like(sact_s)
     size = f"{SMALL[0]}x{SMALL[1]}"
-    for name, kernel, plain, tables in (
-        ("trace_wide", tk.trace_wide, tk.walk_plain, packed),
-        ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b),
-    ):
-        for what, Pr, Dr, act in (("primaries", P_s, D_s, all_s), ("shadow rays", sP_s, sD_s, sact_s)):
-            for any_hit in (False, True):
-                compare_trace(name, kernel, plain, tables, Pr, Dr, act, any_hit,
-                              f"{'any-hit' if any_hit else 'closest'}, {what} {size}", SMALL[0])
-    # the masks' and layouts' edges (TRACE_CASES) on the same primaries: each
-    # case's plain walks show its path, the kernels are held to them
-    for case in TRACE_CASES:
-        cP, cD, cact, cw = trace_case(case, P_s, D_s)
-        for name, kernel, plain, tables in (
-            ("trace_wide", tk.trace_wide, tk.walk_plain, packed),
-            ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b),
-        ):
-            for any_hit in (False, True):
-                walk, _ = compare_trace(name, kernel, plain, tables, cP, cD, cact, any_hit,
-                                        f"{'any-hit' if any_hit else 'closest'}, case {case}", cw)
-                why = trace_case_unmet(case, cact, walk.steps)
-                if why:
-                    raise AssertionError(f"{name}: {why}")
-    # the bench scene is flat-shaded (one normal a triangle), so the normal
-    # interpolation is held to the plain versions on a smooth unit sphere
     spos, snrm = uv_sphere(lat=64, lon=128)
     sdata = get_shader_data(make_world(TriangleSet.from_arrays(spos, snrm)))
-    for name, kernel, plain, tables in (
-        ("trace_wide", tk.trace_wide, tk.walk_plain, pack_scene_wide(sdata, procedural_sky(32)).to("cuda")),
-        ("trace_binary", tk.trace_binary, tk.walk_binary_plain, pack_scene(sdata, procedural_sky(32)).to("cuda")),
-    ):
-        walk, _ = compare_trace(name, kernel, plain, tables, P_s, D_s, all_s, False,
-                                f"closest, smooth sphere, primaries {size}", SMALL[0])
-        inside = (walk.t < FAR) & ((walk.normal.norm(dim=1) - 1.0).abs() > 1e-4)
-        if int(inside.sum()) < 1000:
-            raise AssertionError(f"{name}: the smooth sphere gave no interpolated normals to compare")
+
+    def trace_checks(kernels):
+        """Each (name, kernel, plain version, bench tables, smooth-sphere
+        tables) of ``kernels`` against its plain version at SMALL: closest
+        and any-hit on the primaries and the shadow rays; the masks' and
+        layouts' edges (TRACE_CASES) on the same primaries, each case's
+        plain walks showing its path; and the closest hits on a smooth
+        unit sphere, since the bench scene is flat-shaded (one normal a
+        triangle) and the normal interpolation shows only there."""
+        for name, kernel, plain, tables, _ in kernels:
+            for what, Pr, Dr, act in (("primaries", P_s, D_s, all_s),
+                                      ("shadow rays", sP_s, sD_s, sact_s)):
+                for any_hit in (False, True):
+                    compare_trace(name, kernel, plain, tables, Pr, Dr, act, any_hit,
+                                  f"{'any-hit' if any_hit else 'closest'}, {what} {size}",
+                                  SMALL[0])
+        for case in TRACE_CASES:
+            cP, cD, cact, cw = trace_case(case, P_s, D_s)
+            for name, kernel, plain, tables, _ in kernels:
+                for any_hit in (False, True):
+                    walk, _ = compare_trace(name, kernel, plain, tables, cP, cD, cact, any_hit,
+                                            f"{'any-hit' if any_hit else 'closest'}, case {case}",
+                                            cw)
+                    why = trace_case_unmet(case, cact, walk.steps)
+                    if why:
+                        raise AssertionError(f"{name}: {why}")
+        for name, kernel, plain, _, smooth in kernels:
+            walk, _ = compare_trace(name, kernel, plain, smooth, P_s, D_s, all_s, False,
+                                    f"closest, smooth sphere, primaries {size}", SMALL[0])
+            inside = (walk.t < FAR) & ((walk.normal.norm(dim=1) - 1.0).abs() > 1e-4)
+            if int(inside.sum()) < 1000:
+                raise AssertionError(f"{name}: the smooth sphere gave no interpolated normals "
+                                     "to compare")
+
+    trace_checks((
+        ("trace_wide", tk.trace_wide, tk.walk_plain, packed,
+         pack_scene_wide(sdata, procedural_sky(32)).to("cuda")),
+        ("trace_binary", tk.trace_binary, tk.walk_binary_plain, packed_b,
+         pack_scene(sdata, procedural_sky(32)).to("cuda")),
+    ))
     # primaries with their differentials, plus seeded directions over the
     # whole sphere (seam and poles included) with wide footprints
     rng = np.random.default_rng(7)
@@ -2133,6 +2310,206 @@ def main() -> int:
     greedy = built_tree_phase("greedy", {"collapse": "greedy"}, True, base="sah collapse")
     quality_phase(data)
     diag = diag_phase(renderer, params)
+
+    # 17. the Moller-Trumbore leaf form of the 8-wide walk (Config.leaf_isect
+    # = "mt"): its instantiations' resources, the path through the
+    # Renderer's entry points, its kernels against their plain versions and
+    # the trace against the brute-force oracle, both forms timed in turns
+    def isect_phase() -> list[dict]:
+        """The mt form on the bench scene.  Its launch resources beside the
+        Woop form's (registers, spills, blocks an SM).  The path: fused
+        which 0, 1 (aniso 4), 2 and 5, the count and stats fns, and the
+        unfused which=0 frame, with the launch counts set to 0 before and
+        read after (only frame_kernel_mt, trace_wide_mt and env_sample may
+        run), gated on the bench goldens and held to the Woop frames.  Its
+        kernels against their plain versions as the Woop form's are (the
+        frame kernel at SMALL and on FRAME_CASES; the trace on the primaries
+        and shadow rays, TRACE_CASES and the smooth sphere, and closest and
+        any-hit on the bench primaries), the trace against
+        ops/reference.intersect_brute on ORACLE_RAYS seeded primaries
+        (oracle_disagreement), and the mt and Woop kernels timed in turns
+        with CUDA events.  Returns the mt kernels' entries of the kernel
+        table."""
+        import dataclasses
+
+        from shader_ray_tpu_torch.ops.reference import intersect_brute
+
+        cfg_mt = Config(leaf_isect="mt")
+        fused_mt = Renderer(data, sky, cfg_mt)
+        unfused_mt = Renderer(data, sky, dataclasses.replace(cfg_mt, packet_fused=False))
+        pk = fused_mt.packed
+        same_nodes = torch.equal(pk.nodes.view(torch.int32), packed.nodes.view(torch.int32))
+        same_normals = torch.equal(pk.normals, packed.normals)
+        print(f"isect: mt tables: leaves {tuple(pk.leaves.shape)}, normals "
+              f"{tuple(pk.normals.shape)}, {pk.n_wide} wide nodes, stack {pk.stack_depth} "
+              f"(Woop: {packed.n_wide}, {packed.stack_depth}); the Woop tables' nodes and "
+              f"normals, bit for bit: {same_nodes}, {same_normals}")
+        if not (same_nodes and same_normals):
+            raise AssertionError("isect: the mt tables' nodes or normals differ from Woop's")
+        ptxas = {}
+        for lib in ("frame_kernel", "trace_kernel"):
+            for fn, res in ptxas_resources(_build.library(lib)[1]).items():
+                if instantiation(fn):
+                    ptxas[instantiation(fn)] = res
+        res = {}
+        for isect in ("woop", "mt"):
+            for given in (False, True):
+                for mode in fk.FRAME_MODES:
+                    info = fk.launch_info(pk.stack_depth, mode, given, isect)
+                    key = f"frame_kernel[{mode}, {'given rays' if given else 'raygen'}, {isect}]"
+                    res[key] = info
+            res[f"trace_wide[{isect}]"] = tk.launch_info("trace_wide", pk.stack_depth, isect)
+        for key, info in res.items():
+            regs, st, ld = ptxas.get(key, (None, None, None))
+            print(f"isect: {key}: {info['registers']} registers (ptxas {regs}), spill stores "
+                  f"{st} B, spill loads {ld} B, {info['local_bytes']} B local a thread, "
+                  f"{info['blocks_per_sm']} blocks an SM")
+
+        # the path through the Renderer's entry points
+        _build.LAUNCHES.clear()
+        golden_gate(fused_mt.make_fn(statics)(params).cpu().numpy(), GOLDEN, "mt, fused which=0")
+        lin_mt = fused_mt.make_fn(linear)(params)
+        grad_mt = {which: fused_mt.make_fn(linear._replace(which=which, env_aniso=aniso))(params)
+                   for which, aniso in GRAD_MODES}
+        golden_gate(fused_mt.make_fn(statics._replace(which=5))(params).cpu().numpy(), GOLDEN5,
+                    "mt, fused which=5")
+        cast_mt = fused_mt.make_count_fn(statics)(params)
+        rows_mt = fused_mt.make_stats_fn(statics)(params)
+        golden_gate(unfused_mt.make_fn(statics)(params).cpu().numpy(), GOLDEN, "mt, unfused which=0")
+        lin_u = unfused_mt.make_fn(linear)(params)
+        torch.cuda.synchronize()
+        path = dict(_build.LAUNCHES)
+        print(f"isect path launches: {path}")
+        if set(path) != {"frame_kernel_mt", "trace_wide_mt", "env_sample"}:
+            raise AssertionError("isect: the mt path must launch frame_kernel_mt, trace_wide_mt "
+                                 "and env_sample, and no Woop instantiation")
+        row_mt = fk.frame_kernel(pk, uni, torch.zeros((1, 2), device="cuda"), fs0)[1]
+        d_woop = float((lin_mt - fused_linear).abs().mean())
+        d_unf = float((lin_u - lin_mt).abs().mean())
+        print(f"isect: mt fused frame vs Woop's: mean abs {d_woop:.3e} on linear colour (limit "
+              f"1e-4), cast {cast_mt} vs {cast} (limit 1e-4 relative); unfused vs fused mt: mean "
+              f"abs {d_unf:.3e} (limit 1e-5); stats rows sum to the frame's row: "
+              f"{bool(torch.equal(rows_mt.sum(0), row_mt))}, rays cast {int(rows_mt[:, 0].sum())}")
+        for which, aniso in GRAD_MODES:
+            scale = max(1.0, float(fused_grad[which].abs().mean()))
+            d = float((grad_mt[which] - fused_grad[which]).abs().mean())
+            print(f"isect: mt fused which={which} aniso={aniso} vs Woop's: mean abs {d:.3e} "
+                  f"(limit {1e-4 * scale:.3e})")
+            if not torch.isfinite(grad_mt[which]).all() or d > 1e-4 * scale:
+                raise AssertionError(f"isect: the mt which={which} frame strays from Woop's")
+        if d_woop > 1e-4 or abs(cast_mt - cast) > 1e-4 * cast or d_unf > 1e-5 or \
+                not torch.equal(rows_mt.sum(0), row_mt) or int(rows_mt[:, 0].sum()) != cast_mt:
+            raise AssertionError("isect: the mt frames disagree with Woop's, each other or the "
+                                 "stats rows")
+
+        # the kernels against their plain versions
+        compare_small(pk)
+        frame_cases("mt")
+        smooth = pack_scene_wide(sdata, procedural_sky(32), cfg_mt).to("cuda")
+        trace_checks((("trace_wide_mt", tk.trace_wide, tk.walk_plain, pk, smooth),))
+
+        # the trace against the brute-force oracle on seeded bench primaries
+        pick = torch.from_numpy(np.random.default_rng(17).choice(P_f.shape[0], ORACLE_RAYS,
+                                                                 replace=False)).cuda()
+        Po, Do = P_f[pick].contiguous(), D_f[pick].contiguous()
+        tris = torch.from_numpy(data.tri_positions.reshape(-1, 3, 3)).cuda()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = intersect_brute(tris, Po, Do)
+        stop.record()
+        got = tk.trace_wide(pk, Po, Do)
+        torch.cuda.synchronize()
+        e, why = oracle_disagreement(got, want, tris, Po, Do)
+        print(f"isect: trace_wide_mt vs ops/reference.intersect_brute, {e['rays']} seeded bench "
+              f"primaries x {tris.shape[0]} triangles ({start.elapsed_time(stop):.1f} ms): "
+              f"{e['hits']} hit; on equal ids t max rel diff {e['t_rel_max']:.3e}, max "
+              f"{e['t_over_limit_max']:.3f} of its limit (1e-6 of max(t, |P - v0|), widened "
+              f"below |cos| 0.1); {e['differ']} rays with another id or hit flag (limit 1e-3 of the rays): "
+              f"{e['ties']} tied, {e['grazing']} grazing an edge, {e['off']} neither (limit 0)")
+        if why:
+            raise AssertionError(f"isect: trace_wide_mt disagrees with the oracle: {why}")
+
+        # the bench primaries: the plain walks' counted work gives the bounds
+        out = {}
+        for any_hit in (False, True):
+            mode = "any-hit" if any_hit else "closest"
+            walk, p_ms = compare_trace("trace_wide_mt", tk.trace_wide, tk.walk_plain, pk, P_f, D_f,
+                                       all_f, any_hit, f"{mode}, primaries {W}x{H}", W)
+            ops, work = walk_ops([walk], 0, OPS_MT)
+            moved = ray_io + nbytes(pk.nodes, pk.leaves, pk.normals)
+            out[any_hit] = (p_ms, *bound(ops, moved))
+            print(f"isect: trace_wide_mt {mode} bound: {work} -> {ops:.4g} ops "
+                  f"({ops / PEAK_F32 * 1e3:.4f} ms), {moved} bytes "
+                  f"({moved / PEAK_BYTES * 1e3:.4f} ms): {out[any_hit][1]:.4f} ms, by "
+                  f"{out[any_hit][2]}")
+        probe = {}
+        compare(W, H, one, probe, tables=pk)
+        f_ops, f_work = walk_ops(probe["walks"], 0, OPS_MT)
+        f_moved = nbytes(pk.nodes, pk.leaves, pk.normals) + \
+            env_needs(probe["env_D"], None, None, False, 1)[0] + nbytes(uni) + W * H * 3 * 4
+        del probe
+        f_b_ms, f_b_by = bound(f_ops, f_moved)
+        f_plain = cuda_times(lambda: fk.frame_plain(pk, uni, one, fs), 2)
+        print(f"isect: frame_kernel_mt {W}x{H} K=1 bound: {f_work} -> {f_ops:.4g} ops "
+              f"({f_ops / PEAK_F32 * 1e3:.4f} ms), {f_moved} bytes "
+              f"({f_moved / PEAK_BYTES * 1e3:.4f} ms): {f_b_ms:.4f} ms, by {f_b_by} (Woop "
+              f"{bound_ms:.4f} ms); frame_plain mt {summary(f_plain)}")
+
+        # mt and Woop in turns on one card
+        fs1 = fs._replace(which=1, env_aniso=4)
+        series = {
+            "frame_kernel which=0": (lambda t: lambda: fk.frame_kernel(t, uni, one, fs)),
+            "frame_kernel which=1 aniso=4": (lambda t: lambda: fk.frame_kernel(t, uni, one, fs1)),
+            "trace_wide closest": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f, width=W)),
+            "trace_wide any-hit": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f,
+                                                                   any_hit=True, width=W)),
+        }
+        med = {}
+        for what, make in series.items():
+            fns = {"woop": make(packed), "mt": make(pk)}
+            t = {"woop": [], "mt": []}
+            for form in ("woop", "mt", "mt", "woop"):
+                t[form] += cuda_times(fns[form], TIMED // 2)
+            med[what] = {form: float(np.median(v)) for form, v in t.items()}
+            print(f"isect: {what} on {card} in turns (CUDA events): mt {summary(t['mt'])}; Woop "
+                  f"{summary(t['woop'])}; mt / Woop {med[what]['mt'] / med[what]['woop']:.4f}")
+        f_info, f_info_w = res["frame_kernel[bilinear, raygen, mt]"], \
+            res["frame_kernel[bilinear, raygen, woop]"]
+        t_info, t_info_w = res["trace_wide[mt]"], res["trace_wide[woop]"]
+        frame_entry = {
+            "name": "frame_kernel_mt", "route": "cuda",
+            "source": "shader_ray_tpu_torch/csrc/frame_kernel.cu",
+            "replaces": "shader_ray_tpu/ops/pallas/kernel_mega.py:57",
+            "launches": path["frame_kernel_mt"], "max_abs_err": errs["frame_kernel_mt"],
+            "ms": med["frame_kernel which=0"]["mt"], "plain_ms": float(np.median(f_plain)),
+            "bound_ms": f_b_ms, "bound_by": f_b_by, "library_ms": None,
+            "registers": f_info["registers"], "blocks_per_sm": f_info["blocks_per_sm"],
+            "woop_ms_in_turns": med["frame_kernel which=0"]["woop"],
+            "woop_registers": f_info_w["registers"],
+            "which1_aniso4_ms": med["frame_kernel which=1 aniso=4"]["mt"],
+            "which1_aniso4_woop_ms": med["frame_kernel which=1 aniso=4"]["woop"],
+            "registers_by_instantiation": {k: v["registers"] for k, v in res.items()
+                                           if k.startswith("frame_kernel")},
+        }
+        trace_entry = {
+            "name": "trace_wide_mt", "route": "cuda",
+            "source": "shader_ray_tpu_torch/csrc/trace_kernel.cu",
+            "replaces": "shader_ray_tpu/ops/pallas/kernel_wide.py:784",
+            "launches": path["trace_wide_mt"], "max_abs_err": errs["trace_wide_mt"],
+            "ms": med["trace_wide closest"]["mt"], "plain_ms": out[False][0],
+            "bound_ms": out[False][1], "bound_by": out[False][2], "library_ms": None,
+            "registers": t_info["registers"], "blocks_per_sm": t_info["blocks_per_sm"],
+            "woop_ms_in_turns": med["trace_wide closest"]["woop"],
+            "woop_registers": t_info_w["registers"],
+            "any_hit_ms": med["trace_wide any-hit"]["mt"],
+            "any_hit_woop_ms": med["trace_wide any-hit"]["woop"],
+            "any_hit_bound_ms": out[True][1],
+            "oracle_rays": e["rays"], "oracle_t_rel_max": e["t_rel_max"],
+            "oracle_ties": e["ties"], "oracle_grazes": e["grazing"],
+        }
+        return [frame_entry, trace_entry]
+
+    table += isect_phase()
 
     entry = {e["name"]: e for e in table}
     entry["frame_kernel"].update({

@@ -2,9 +2,14 @@
 """Hold this checkout's CUDA kernels bit for bit against another
 checkout's on one card: env_sample in its three modes (seeded directions
 over the whole sphere with wide footprints, and directions exactly along
-+-y, NaN in grad mode) and the frame kernel's bench frame in each of its
-raygen modes, which=0, which=1 with aniso 1 and 4, which=2 (colour and
-counter row).  Each checkout builds its own kernels in a process of
++-y, NaN in grad mode), the frame kernel's bench frame in each of its
+raygen modes, which=0, which=1 with aniso 1 and 4, which=2, and in its
+given-rays form (which=5's 25 sets; colour and counter row), and both
+trace kernels, closest and any hit, on the bench primaries (t, id,
+normal, bad flag and per-ray counts), all on the default (Woop) tables;
+and the binary trace kernel's machine code (cuobjdump -sass, its
+instructions without their addresses and encodings), where the toolkit
+has cuobjdump.  Each checkout builds its own kernels in a process of
 its own; the outputs are compared here with NaN equal to NaN.
 
     python3 scripts/torch_parent_identity.py OTHER_CHECKOUT   # on a machine with one NVIDIA GPU
@@ -15,6 +20,7 @@ Prints one line an output and exits non-zero if any differs.
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -32,10 +38,18 @@ def dump(root: str, path: str) -> None:
     import chip_smoke
     from shader_ray_tpu_torch.engine import Renderer
     from shader_ray_tpu_torch.models.fixtures import procedural_sky
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.ops import _build
     from shader_ray_tpu_torch.ops import env_kernel as ek
     from shader_ray_tpu_torch.ops import frame_kernel as fk
-    from shader_ray_tpu_torch.ops.engine_frame import pack_uniforms
+    from shader_ray_tpu_torch.ops import trace_kernel as tk
+    from shader_ray_tpu_torch.ops.engine_frame import (
+        pack_uniforms,
+        primary_rays,
+        supersample_directions,
+    )
     from shader_ray_tpu_torch.ops.envmap import EnvPyramid
+    from shader_ray_tpu_torch.ops.render import RenderStatics, generate_rays
 
     pyr = EnvPyramid.pack(procedural_sky(2048)).to("cuda")
     rng = np.random.default_rng(7)
@@ -60,7 +74,32 @@ def dump(root: str, path: str) -> None:
                                            torch.zeros((1, 2), device="cuda"), fs)
         mode = f"which={which} aniso={aniso}"
         out[f"frame_kernel {mode} colour"], out[f"frame_kernel {mode} counters"] = colour, counters
-    np.savez(path, **{k: v.cpu().numpy() for k, v in out.items()})
+    statics = RenderStatics(width=chip_smoke.W, height=chip_smoke.H)
+    on_card = type(params)(*[x.cuda() for x in params])
+    rays, (right, up) = primary_rays(statics, on_card)
+    given = fk.GivenRays(rays.P.contiguous(), supersample_directions(rays.D, right, up))
+    colour, counters = fk.frame_kernel(packed, pack_uniforms(params).cuda(), None,
+                                       fk.FrameSettings(width=statics.width, height=statics.height),
+                                       rays=given)
+    out["frame_kernel which=5 colour"], out["frame_kernel which=5 counters"] = colour, counters
+    rays = generate_rays(statics, on_card)
+    P, D = rays.P.contiguous(), rays.D.contiguous()
+    binary = Renderer(data, sky, Config(packet_kernel="binary")).packed
+    for name, tables in (("trace_wide", packed), ("trace_binary", binary)):
+        for any_hit in (False, True):
+            hit = tk.trace(tables, P, D, any_hit=any_hit, with_stats=True, width=statics.width)
+            for field in ("t", "which", "normal", "bad", "stats"):
+                out[f"{name} {'any-hit' if any_hit else 'closest'} {field}"] = getattr(hit, field)
+    arrays = {k: v.cpu().numpy() for k, v in out.items()}
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        _build.library("trace_binary_kernel")
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._paths("trace_binary_kernel")[0])],
+                              capture_output=True, text=True, check=True).stdout
+        code = [re.sub(r"\s+", " ", re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line.split("*/", 1)[1])).strip()
+                for line in sass.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/", line)]
+        arrays["trace_binary SASS"] = np.frombuffer("\n".join(code).encode(), np.uint8)
+    np.savez(path, **arrays)
 
 
 def main() -> int:
@@ -81,6 +120,10 @@ def main() -> int:
         here, there = outs
         same = True
         for key in here.files:
+            if key not in there.files:
+                print(f"{key}: not in the other checkout's outputs")
+                same = False
+                continue
             a, b = here[key], there[key]
             equal = a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
             same &= equal

@@ -45,7 +45,7 @@ class App:
         "bvh_leaf_max", "bvh_max_depth", "sah_ctrav", "sah_cisec",
         "colors_are_linear", "geometry_scale", "screen_gamma",
         "max_leaf_tests", "env_base", "packet_kernel", "splits", "bvh_opt",
-        "scene_cache", "validate_scene", "use_native", "collapse",
+        "scene_cache", "validate_scene", "use_native", "collapse", "leaf_isect",
     })
 
     def __init__(

@@ -4,8 +4,9 @@ The fields the port reads, with the reference package's defaults, names
 and checks (shader_ray_tpu/config.py); ``from_env`` reads the
 reference's environment variables for them.  Tests hold the defaults and
 ``from_env`` equal.  The reference's TPU schedule knobs are not here:
-they tune machinery the port does not have (ROADMAP.md lists each field
-the port lacks, as machinery or as queued).  Per-frame render settings
+they tune machinery the port does not have, the TPU's or the reference's
+XLA wavefront engine's (ROADMAP.md lists each field the port lacks and
+why).  Per-frame render settings
 live in ``ops.render.RenderStatics`` (``RenderStatics.from_config``).
 There is no process-wide instance: functions take a ``Config`` or use
 ``Config()``.
@@ -49,6 +50,10 @@ class Config:
                                     # "auto" when it builds | "never" | "require"
     collapse: str = "sah"           # 8-wide collapse (ops/pack_wide.py): "sah"
                                     # dynamic program | "greedy" largest-area cut
+    leaf_isect: str = "woop"        # the 8-wide walk's leaf test and its test rows
+                                    # (ops/pack_wide.py): "woop" precomputed
+                                    # unit-triangle affine | "mt" Moller-Trumbore
+                                    # on v0 and the two edges
 
     # --- loader knobs (reference trisrc-support.cpp:24-40) ---
     colors_are_linear: bool = False  # skip pow(c, 2.63) gamma decode
@@ -97,6 +102,7 @@ class Config:
         "bvh_opt": ("", "reinsert"),
         "use_native": ("auto", "never", "require"),
         "collapse": ("sah", "greedy"),
+        "leaf_isect": ("mt", "woop"),
     }
 
     def validate(self) -> "Config":
@@ -142,6 +148,7 @@ class Config:
         c.packet_max_steps = _env_int("SRT_MAX_STEPS", c.packet_max_steps)
         c.validate_scene = os.environ.get("SRT_VALIDATE") is not None
         c.collapse = os.environ.get("SRT_COLLAPSE", c.collapse)
+        c.leaf_isect = os.environ.get("SRT_ISECT", c.leaf_isect)
         c.debug_nans = os.environ.get("SRT_DEBUG_NANS") is not None
         if os.environ.get("SRT_NATIVE"):
             c.use_native = os.environ["SRT_NATIVE"]

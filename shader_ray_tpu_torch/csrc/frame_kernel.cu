@@ -22,7 +22,10 @@
 // raygen, sample k of pixel p reads P[p] (shared by the K sets), D[k][p]
 // and, in the grad modes, dDdx[k][p] and dDdy[k][p] from memory; the
 // fused which = 5 frame sends its 25 sub-ray sets through it as one
-// launch (the reference's engine_pallas.py:665-702).  Lane retirement
+// launch (the reference's engine_pallas.py:665-702).  Each mode and form
+// also has both leaf test forms of the walk (template argument ISECT,
+// Config.leaf_isect: Woop test rows, or Moller-Trumbore on v0 and the two
+// edges, kernel_mega.py:85 / kernel_body.slot_hit; walk.cuh).  Lane retirement
 // (min_contrib > 0, kernel_mega.py:368-381): after a bounce before the
 // last, a hit lane whose Schlick modulation is <= min_contrib in every
 // component leaves the live set; its shadow ray of that bounce was cast,
@@ -182,7 +185,7 @@ struct GivenRays {
     const float* gy;
 };
 
-template <int ENV, bool GIVEN>
+template <int ENV, bool GIVEN, int ISECT>
 __global__ void __launch_bounds__(BLOCK, 1)
 frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
       const float* __restrict__ uni_g, const float* __restrict__ jit, GivenRays rays, int K,
@@ -307,7 +310,7 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                     const float oDx = nm[0] * Dx + nm[1] * Dy + nm[2] * Dz;
                     const float oDy = nm[3] * Dx + nm[4] * Dy + nm[5] * Dz;
                     const float oDz = nm[6] * Dx + nm[7] * Dy + nm[8] * Dz;
-                    const Walk w = walk<false, false>(s, oPx, oPy, oPz, oDx, oDy, oDz, stack);
+                    const Walk w = walk<false, false, ISECT>(s, oPx, oPy, oPz, oDx, oDy, oDz, stack);
                     st = w.steps;
                     lf = w.leafs;
                     tr = w.tris;
@@ -402,7 +405,7 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                     const float sPx = m[0] * Px + m[1] * Py + m[2] * Pz + m[3];
                     const float sPy = m[4] * Px + m[5] * Py + m[6] * Pz + m[7];
                     const float sPz = m[8] * Px + m[9] * Py + m[10] * Pz + m[11];
-                    const Walk sw = walk<false, true>(s, sPx, sPy, sPz, oLx, oLy, oLz, stack);
+                    const Walk sw = walk<false, true, ISECT>(s, sPx, sPy, sPz, oLx, oLy, oLz, stack);
                     st = sw.steps;
                     lf = sw.leafs;
                     tr = sw.tris;
@@ -464,10 +467,18 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
 using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, GivenRays,
                         int, int, int, int, float, float, float, int, bool, bool, float, float, int,
                         float*, unsigned long long*, unsigned long long*);
-// [form][mode]: form 0 raygen, 1 given rays
-const Kernel KERNELS[2][N_MODES] = {
-    {frame<BILINEAR, false>, frame<GRAD, false>, frame<PROBES, false>, frame<DY_PICTURE, false>},
-    {frame<BILINEAR, true>, frame<GRAD, true>, frame<PROBES, true>, frame<DY_PICTURE, true>},
+// [isect][form][mode]: isect 0 Woop, 1 Moller-Trumbore (walk.cuh); form 0
+// raygen, 1 given rays
+constexpr int N_ISECT = 2;
+const Kernel KERNELS[N_ISECT][2][N_MODES] = {
+    {{frame<BILINEAR, false, ISECT_WOOP>, frame<GRAD, false, ISECT_WOOP>,
+      frame<PROBES, false, ISECT_WOOP>, frame<DY_PICTURE, false, ISECT_WOOP>},
+     {frame<BILINEAR, true, ISECT_WOOP>, frame<GRAD, true, ISECT_WOOP>,
+      frame<PROBES, true, ISECT_WOOP>, frame<DY_PICTURE, true, ISECT_WOOP>}},
+    {{frame<BILINEAR, false, ISECT_MT>, frame<GRAD, false, ISECT_MT>,
+      frame<PROBES, false, ISECT_MT>, frame<DY_PICTURE, false, ISECT_MT>},
+     {frame<BILINEAR, true, ISECT_MT>, frame<GRAD, true, ISECT_MT>,
+      frame<PROBES, true, ISECT_MT>, frame<DY_PICTURE, true, ISECT_MT>}},
 };
 
 // The stack's dynamic shared memory is above the 48 KB a launch gets
@@ -481,8 +492,8 @@ cudaError_t allow_stack_smem() {
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
     if (raised.load() & bit) return cudaSuccess;
-    for (int i = 0; i < 2 * N_MODES && err == cudaSuccess; ++i)
-        err = cudaFuncSetAttribute(KERNELS[i / N_MODES][i % N_MODES],
+    for (int i = 0; i < N_ISECT * 2 * N_MODES && err == cudaSuccess; ++i)
+        err = cudaFuncSetAttribute(KERNELS[i / (2 * N_MODES)][i / N_MODES % 2][i % N_MODES],
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem_bytes(i % N_MODES, MAX_STACK));
     if (err == cudaSuccess) raised.fetch_or(bit);
@@ -503,9 +514,10 @@ int env_mode(int which, int aniso) {
 // raygen, or null with given rays: rays_P (W*H, 3), rays_D (K, W*H, 3) and
 // in the grad modes rays_gx, rays_gy (K, W*H, 3).  min_contrib: the lane
 // retirement threshold, 0 = none.  rows: null, or the (tiles, 1 + 3 *
-// phases) per-tile counter rows.
+// phases) per-tile counter rows.  isect: the leaves' form, 0 Woop or 1
+// Moller-Trumbore.
 extern "C" int srt_frame_kernel(
-    const float* nodes, const float* leaves, const float* normals,
+    const float* nodes, const float* leaves, const float* normals, int isect,
     const void* env, const int* levels, int n_levels, int which, int aniso,
     const float* uni, const float* jitters,
     const float* rays_P, const float* rays_D, const float* rays_gx, const float* rays_gy,
@@ -522,7 +534,7 @@ extern "C" int srt_frame_kernel(
     Levels lv;
     if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
         stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv) ||
-        !(min_contrib >= 0.0f) ||
+        !(min_contrib >= 0.0f) || isect < 0 || isect >= N_ISECT ||
         (given ? (rays_P == nullptr || jitters != nullptr ||
                   (grads && (rays_gx == nullptr || rays_gy == nullptr)))
                : jitters == nullptr))
@@ -534,7 +546,7 @@ extern "C" int srt_frame_kernel(
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
     const GivenRays rays{rays_P, rays_D, rays_gx, rays_gy};
-    KERNELS[given][mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
+    KERNELS[isect][given][mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
         s, static_cast<const float4*>(env), lv, (float)aniso, uni, jitters, rays, K, W, H, tiles_x,
         inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, min_contrib, 1 + 3 * phases,
         out, counters, rows);
@@ -543,22 +555,25 @@ extern "C" int srt_frame_kernel(
 
 // The launch's resources of the kernel of env mode 0 (which = 0), 1
 // (which = 1, aniso 1), 2 (which = 1, aniso > 1) or 3 (which = 2) in
-// form 0 (raygen) or 1 (given rays) for a scene's stack bound, into
+// form 0 (raygen) or 1 (given rays) with leaf test isect (0 Woop, 1
+// Moller-Trumbore) for a scene's stack bound, into
 // info[0..8): registers a thread, static shared bytes, local bytes a
 // thread (stack frame), dynamic shared bytes (the stack and the
 // differentials), resident blocks an SM, threads a block, tile width,
 // tile height.
-extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int* info) {
+extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int isect,
+                                     int* info) {
     if (stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || mode >= N_MODES || given < 0 ||
-        given > 1)
+        given > 1 || isect < 0 || isect >= N_ISECT)
         return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(mode, stack_depth);
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
     cudaFuncAttributes a;
-    if ((err = cudaFuncGetAttributes(&a, KERNELS[given][mode])) != cudaSuccess) return (int)err;
+    const Kernel k = KERNELS[isect][given][mode];
+    if ((err = cudaFuncGetAttributes(&a, k)) != cudaSuccess) return (int)err;
     int per_sm = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNELS[given][mode], BLOCK,
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, BLOCK,
                                                              smem)) !=
         cudaSuccess)
         return (int)err;

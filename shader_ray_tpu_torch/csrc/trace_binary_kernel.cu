@@ -108,37 +108,20 @@ trace_binary(const float4* __restrict__ nodes, const float4* __restrict__ tris,
         int next;
         if (tleft > 0) {
             ++tests;
-            // Moller-Trumbore (kernel_body.slot_hit, "mt" branch), clipped
-            // to the leaf's slab range
+            // Moller-Trumbore (walk.cuh's mt_hit), clipped to the leaf's
+            // slab range
             const float4 v0 = __ldg(tr), e0 = __ldg(tr + 1), e1 = __ldg(tr + 2);
-            const float Mx = e1.y * Dz - e1.z * Dy;
-            const float My = e1.z * Dx - e1.x * Dz;
-            const float Mz = e1.x * Dy - e1.y * Dx;
-            const float det = e0.x * Mx + e0.y * My + e0.z * Mz;
-            if (fabsf(det) >= mt_eps) {
-                const float minv_det = -1.0f / det;
-                const float inv_det = -minv_det;
-                const float Tx = Px - v0.x, Ty = Py - v0.y, Tz = Pz - v0.z;
-                const float Qx = Ty * e0.z - Tz * e0.y;
-                const float Qy = Tz * e0.x - Tx * e0.z;
-                const float Qz = Tx * e0.y - Ty * e0.x;
-                const float d = (e1.x * Qx + e1.y * Qy + e1.z * Qz) * minv_det;
-                if (d <= t && d >= lt0 && d <= lt1) {
-                    const float u = (Tx * Mx + Ty * My + Tz * Mz) * inv_det;
-                    if (u >= 0.0f) {
-                        const float v = (Dx * Qx + Dy * Qy + Dz * Qz) * inv_det;
-                        if (v >= 0.0f && u + v <= 1.0f) {
-                            if (any_hit) {
-                                t = 0.0f;
-                                break;
-                            }
-                            t = d;
-                            best = tri;
-                            bu = u;
-                            bv = v;
-                        }
-                    }
+            float d, u, v;
+            if (srt::mt_hit<true>(v0, e0, e1, Px, Py, Pz, Dx, Dy, Dz, mt_eps, t, lt0, lt1,
+                                  d, u, v)) {
+                if (any_hit) {
+                    t = 0.0f;
+                    break;
                 }
+                t = d;
+                best = tri;
+                bu = u;
+                bv = v;
             }
             tr += 3;
             ++tri;

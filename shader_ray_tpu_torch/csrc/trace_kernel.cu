@@ -2,7 +2,8 @@
 // short-stack walk of walk.cuh — closest hit or any hit — for each
 // active ray, writing t, the triangle id, the interpolated object-space
 // normal and the bad flag; optionally its node pops, leaf visits and
-// triangle tests.
+// triangle tests.  One instantiation a leaf test form (template argument
+// ISECT: Woop or Moller-Trumbore test rows, Config.leaf_isect).
 //
 // Replaces the TPU kernel wide_kernel
 // (shader_ray_tpu/ops/pallas/kernel_wide.py, pallas_call in
@@ -55,6 +56,7 @@ __device__ __forceinline__ void store(long long r, const Walk& w, float* __restr
     }
 }
 
+template <int ISECT>
 __global__ void __launch_bounds__(BLOCK)
 trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
            const uint8_t* __restrict__ active, long long n, int width, bool any_hit,
@@ -70,39 +72,47 @@ trace_wide(Scene s, const float* __restrict__ P, const float* __restrict__ D,
     LocalStack stack;
     const float Px = __ldg(P + 3 * r), Py = __ldg(P + 3 * r + 1), Pz = __ldg(P + 3 * r + 2);
     const float Dx = __ldg(D + 3 * r), Dy = __ldg(D + 3 * r + 1), Dz = __ldg(D + 3 * r + 2);
-    const Walk w = any_hit ? walk<true, true>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
-                           : walk<true, false>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
+    const Walk w = any_hit ? walk<true, true, ISECT>(s, Px, Py, Pz, Dx, Dy, Dz, stack)
+                           : walk<true, false, ISECT>(s, Px, Py, Pz, Dx, Dy, Dz, stack);
     store(r, w, t_out, which_out, n_out, bad_out, stats_out);
 }
 
+using Kernel = void (*)(Scene, const float*, const float*, const uint8_t*, long long, int, bool,
+                        float*, int*, float*, uint8_t*, int*);
+// [isect]: ISECT_WOOP, ISECT_MT
+const Kernel KERNELS[2] = {trace_wide<ISECT_WOOP>, trace_wide<ISECT_MT>};
+
 }  // namespace
 
+// isect: the leaves' form, 0 Woop or 1 Moller-Trumbore (walk.cuh)
 extern "C" int srt_trace_wide(
-    const float* nodes, const float* leaves, const float* normals,
+    const float* nodes, const float* leaves, const float* normals, int isect,
     const float* P, const float* D, const uint8_t* active, long long n, int width,
     int any_hit, float mt_eps, int max_steps, int stack_depth,
     float* t_out, int* which_out, float* n_out, uint8_t* bad_out,
     int* stats_out, void* stream) {
     if (n < 1 || stack_depth < 1 || stack_depth > MAX_STACK || max_steps < 1 || width < 0 ||
-        (width > 0 && n % width))
+        (width > 0 && n % width) || isect < 0 || isect > 1)
         return (int)cudaErrorInvalidValue;
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
-    trace_wide<<<ray_blocks(n, width), BLOCK, 0, (cudaStream_t)stream>>>(
+    KERNELS[isect]<<<ray_blocks(n, width), BLOCK, 0, (cudaStream_t)stream>>>(
         s, P, D, active, n, width, any_hit != 0, t_out, which_out, n_out, bad_out, stats_out);
     return (int)cudaGetLastError();
 }
 
-// The launch's resources, into info[0..6): registers a thread, static
-// shared bytes, local bytes a thread (the stack), dynamic shared bytes
-// (none), resident blocks an SM, threads a block.
-extern "C" int srt_trace_wide_info(int stack_depth, int* info) {
-    if (stack_depth < 1 || stack_depth > MAX_STACK) return (int)cudaErrorInvalidValue;
+// The launch's resources of the isect form's kernel, into info[0..6):
+// registers a thread, static shared bytes, local bytes a thread (the
+// stack), dynamic shared bytes (none), resident blocks an SM, threads a
+// block.
+extern "C" int srt_trace_wide_info(int stack_depth, int isect, int* info) {
+    if (stack_depth < 1 || stack_depth > MAX_STACK || isect < 0 || isect > 1)
+        return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, trace_wide);
+    cudaError_t err = cudaFuncGetAttributes(&a, KERNELS[isect]);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_wide, BLOCK, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNELS[isect], BLOCK, 0);
     if (err != cudaSuccess) return (int)err;
     info[0] = a.numRegs;
     info[1] = (int)a.sharedSizeBytes;

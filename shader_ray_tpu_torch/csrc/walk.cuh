@@ -2,10 +2,13 @@
 // kernel (frame_kernel.cu) and the trace-only kernel (trace_kernel.cu),
 // so both paths visit the same nodes in the same order and accept the
 // same hits; and the ray-to-thread map of both trace kernels.  Node table
-// and Woop leaf records as ops/pack_wide.py lays them out.  The stack is
-// the caller's: local memory for the trace kernel, shared memory for the
-// frame kernel.  The binary-tree kernel (trace_binary_kernel.cu) takes
-// the constants, the ray map, safe_inv and the slab test from here.
+// and leaf test rows as ops/pack_wide.py lays them out, in either form of
+// Config.leaf_isect (template argument ISECT): Woop rows, or
+// Moller-Trumbore's v0, e0, e1 (kernel_body.slot_hit's two branches).  The
+// stack is the caller's: local memory for the trace kernel, shared memory
+// for the frame kernel.  The binary-tree kernel (trace_binary_kernel.cu)
+// takes the constants, the ray map, safe_inv, the slab test and the
+// Moller-Trumbore test (mt_hit) from here.
 //
 // What bounds the walk: the latency and the cache traffic of its
 // dependent loads (pop, order word, children, leaf records), in warps
@@ -32,7 +35,10 @@ namespace srt {
 constexpr int WIDE = 8;
 constexpr int MAX_STACK = 128;
 constexpr int NODE_F4 = 2 * WIDE;   // float4s a wide node: two a child
-constexpr int RECORD_F4 = 3;        // float4s a triangle's Woop test rows, and its normal terms
+constexpr int RECORD_F4 = 3;        // float4s a triangle's test rows, and its normal terms
+// the leaf test forms (ops/pack_wide.ISECTS; kernel_body.slot_hit)
+constexpr int ISECT_WOOP = 0;       // rows: N | -N.v0, r0 | -r0.v0, r1 | -r1.v0
+constexpr int ISECT_MT = 1;         // rows: v0, e0 = v1 - v0, e1 = v0 - v2
 constexpr int COUNT_SHIFT = 26;
 constexpr int FIRST_MASK = (1 << COUNT_SHIFT) - 1;
 constexpr float INFINITELY_FAR = 1.0e7f;  // fs:115
@@ -44,7 +50,7 @@ struct Scene {
     // (Nw, 8, 2) float4: child k as (lo.xyz, meta bits) and (hi.xyz,
     // bits of the child order of octant k)
     const float4* nodes;
-    const float4* leaves;   // (T, 3) float4 Woop test rows (floats 0-11 of a record)
+    const float4* leaves;   // (T, 3) float4 test rows of the walk's ISECT form
     const float4* normals;  // (T, 3) float4 n0, n1 - n0, n2 - n0 (floats 12-20)
     int stack_depth;
     int max_steps;
@@ -121,13 +127,57 @@ __device__ __forceinline__ void slab(float lx, float ly, float lz,
     t1 = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fminf(fmaxf(taz, tbz), RANGE_T1));
 }
 
+// Moller-Trumbore test of the triangle (v0, e0 = v1 - v0, e1 = v0 - v2)
+// against the ray (kernel_body.slot_hit, "mt" branch), in its order and
+// with its accept set: |det| >= eps, then d = (e1 . Q) * -1/det with
+// lo <= d <= t (and d <= hi where CLIP), then u >= 0, then v >= 0 and
+// u + v <= 1.  True where accepted, with d, u and v (left as they were
+// otherwise).  The nested form, outputs written only on accept, is the
+// one that compiles the binary kernel's loop to the instructions it had
+// before the test was shared (registers, and SASS instruction for
+// instruction); an early-return form compiled it to more registers.
+template <bool CLIP>
+__device__ __forceinline__ bool mt_hit(const float4& v0, const float4& e0, const float4& e1,
+                                       float Px, float Py, float Pz,
+                                       float Dx, float Dy, float Dz, float eps,
+                                       float t, float lo, float hi,
+                                       float& d, float& u, float& v) {
+    // M = cross(e1, D)  (fs:305)
+    const float Mx = e1.y * Dz - e1.z * Dy;
+    const float My = e1.z * Dx - e1.x * Dz;
+    const float Mz = e1.x * Dy - e1.y * Dx;
+    const float det = e0.x * Mx + e0.y * My + e0.z * Mz;
+    if (fabsf(det) >= eps) {
+        const float minv_det = -1.0f / det;
+        const float inv_det = -minv_det;
+        const float Tx = Px - v0.x, Ty = Py - v0.y, Tz = Pz - v0.z;
+        const float Qx = Ty * e0.z - Tz * e0.y;
+        const float Qy = Tz * e0.x - Tx * e0.z;
+        const float Qz = Tx * e0.y - Ty * e0.x;
+        const float dd = (e1.x * Qx + e1.y * Qy + e1.z * Qz) * minv_det;
+        if (dd <= t && dd >= lo && (!CLIP || dd <= hi)) {
+            const float uu = (Tx * Mx + Ty * My + Tz * Mz) * inv_det;
+            if (uu >= 0.0f) {
+                const float vv = (Dx * Qx + Dy * Qy + Dz * Qz) * inv_det;
+                if (vv >= 0.0f && uu + vv <= 1.0f) {
+                    d = dd;
+                    u = uu;
+                    v = vv;
+                    return true;
+                }
+            }
+        }
+    }
+    return false;
+}
+
 // One ray's short-stack walk: pop a node, slab-test its 8 children in
-// the octant's near-to-far order, Woop-test hit leaves near-to-far
-// (accept d <= t: the last of equal distances wins), push hit internal
-// children far-to-near.  ANY_HIT returns at the first accepted hit.
-// TRACK_ID also records the accepted triangle's id.  Stack: get(i) and
-// set(i, v) of entry i < s.stack_depth.
-template <bool TRACK_ID, bool ANY_HIT, class Stack>
+// the octant's near-to-far order, test hit leaves' triangles near-to-far
+// with the ISECT form's test (accept d <= t: the last of equal distances
+// wins), push hit internal children far-to-near.  ANY_HIT returns at the
+// first accepted hit.  TRACK_ID also records the accepted triangle's id.
+// Stack: get(i) and set(i, v) of entry i < s.stack_depth.
+template <bool TRACK_ID, bool ANY_HIT, int ISECT, class Stack>
 __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float Pz,
                                      float Dx, float Dy, float Dz, Stack& stack) {
     Walk o = no_walk();
@@ -167,17 +217,26 @@ __device__ __forceinline__ Walk walk(const Scene& s, float Px, float Py, float P
             for (int k = 0; k < cnt; ++k, rec += RECORD_F4) {
                 ++o.tris;
                 const float4 r0 = __ldg(rec), r1 = __ldg(rec + 1), r2 = __ldg(rec + 2);
-                const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
-                const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
-                if (!(fabsf(dz) >= s.mt_eps)) continue;
-                const float d = oz * (-1.0f / dz);
-                if (!(d <= o.t && d >= 0.0f)) continue;
-                const float u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w)
-                              + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
-                if (!(u >= 0.0f)) continue;
-                const float v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w)
-                              + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
-                if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+                // zero-initialised: undefined off mt_hit's accept path, they
+                // cost the Moller-Trumbore instantiations registers
+                float d = 0.0f, u = 0.0f, v = 0.0f;
+                if constexpr (ISECT == ISECT_MT) {
+                    if (!mt_hit<false>(r0, r1, r2, Px, Py, Pz, Dx, Dy, Dz, s.mt_eps, o.t, 0.0f,
+                                       0.0f, d, u, v))
+                        continue;
+                } else {
+                    const float dz = r0.x * Dx + r0.y * Dy + r0.z * Dz;   // == -det_MT
+                    const float oz = r0.x * Px + r0.y * Py + r0.z * Pz + r0.w;
+                    if (!(fabsf(dz) >= s.mt_eps)) continue;
+                    d = oz * (-1.0f / dz);
+                    if (!(d <= o.t && d >= 0.0f)) continue;
+                    u = (r1.x * Px + r1.y * Py + r1.z * Pz + r1.w)
+                      + d * (r1.x * Dx + r1.y * Dy + r1.z * Dz);
+                    if (!(u >= 0.0f)) continue;
+                    v = (r2.x * Px + r2.y * Py + r2.z * Pz + r2.w)
+                      + d * (r2.x * Dx + r2.y * Dy + r2.z * Dz);
+                    if (!(v >= 0.0f && u + v <= 1.0f)) continue;
+                }
                 if (ANY_HIT) {
                     o.t = 0.0f;
                     return o;

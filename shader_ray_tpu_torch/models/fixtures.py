@@ -1,9 +1,54 @@
 """Procedural scene fixtures: the bench's bunny-class mesh and HDR-like
-sky (stand-ins for bunny.trisrc and pisa.hdr), and the UV sphere."""
+sky (stand-ins for bunny.trisrc and pisa.hdr), the UV sphere, the
+occlusion-heavy ridged terrain, and one triangle, a quad and a box
+(shader_ray_tpu/models/fixtures.py; the same arrays for the same
+arguments)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def single_triangle() -> np.ndarray:
+    """One triangle facing +z, centered at the origin, (1, 3, 3)."""
+    return np.array(
+        [[[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [0.0, 0.5, 0.0]]], dtype=np.float32
+    )
+
+
+def quad(z: float = 0.0, half: float = 0.5) -> np.ndarray:
+    """Two triangles forming a square in the plane z, (2, 3, 3)."""
+    return np.array(
+        [
+            [[-half, -half, z], [half, -half, z], [half, half, z]],
+            [[-half, -half, z], [half, half, z], [-half, half, z]],
+        ],
+        dtype=np.float32,
+    )
+
+
+def box(center=(0.0, 0.0, 0.0), half=0.5) -> np.ndarray:
+    """Axis-aligned cube as 12 triangles, outward CCW winding, (12, 3, 3)."""
+    c = np.asarray(center, dtype=np.float32)
+    h = float(half)
+    # the 8 corners: x is bit 2 of the index, y bit 1, z bit 0
+    s = np.array(
+        [[x, y, z] for x in (-h, h) for y in (-h, h) for z in (-h, h)],
+        dtype=np.float32,
+    ) + c
+    faces = [
+        (0, 1, 3, 2),  # -x
+        (4, 6, 7, 5),  # +x
+        (0, 4, 5, 1),  # -y
+        (2, 3, 7, 6),  # +y
+        (0, 2, 6, 4),  # -z
+        (1, 5, 7, 3),  # +z
+    ]
+    tris = []
+    for a, b, cc, d in faces:
+        tris.append([s[a], s[b], s[cc]])
+        tris.append([s[a], s[cc], s[d]])
+    return np.asarray(tris, dtype=np.float32)
 
 
 def uv_sphere(
@@ -76,3 +121,30 @@ def procedural_sky(width: int = 1024) -> np.ndarray:
     sun = 50.0 * np.exp(-d2 / (2 * 0.012 ** 2))
     sky += sun[..., None] * np.array([1.0, 0.95, 0.8], dtype=np.float32)
     return sky.astype(np.float32)
+
+
+def terrain_scene(target_tris: int = 69000) -> tuple[np.ndarray, None]:
+    """An occlusion-heavy stand-in: a ridged heightfield over [-1, 1]^2
+    (2 n^2 triangles, n = sqrt(target / 2)) whose V valleys self-shadow
+    under a grazing light, so shadow rays hit real occluders.  Normals
+    are left to the TriangleSet (flat face normals)."""
+    n = max(8, int(np.sqrt(target_tris / 2.0)))
+    xs = np.linspace(-1.0, 1.0, n + 1)
+    ys = np.linspace(-1.0, 1.0, n + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    # abs-sine ridges make the sharp valleys
+    Z = (
+        0.30 * np.abs(np.sin(3.1 * np.pi * X) * np.sin(2.7 * np.pi * Y))
+        + 0.18 * np.abs(np.sin(6.3 * np.pi * X + 1.1))
+        + 0.12 * np.abs(np.sin(5.7 * np.pi * Y + 2.3))
+        + 0.06 * np.sin(11.0 * np.pi * X) * np.sin(13.0 * np.pi * Y)
+    )
+    P = np.stack([X, Y, Z], axis=-1).astype(np.float32)  # (n+1, n+1, 3)
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            p00, p01 = P[i, j], P[i, j + 1]
+            p10, p11 = P[i + 1, j], P[i + 1, j + 1]
+            tris.append([p00, p10, p01])
+            tris.append([p01, p10, p11])
+    return np.asarray(tris, dtype=np.float32), None

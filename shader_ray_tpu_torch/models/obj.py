@@ -124,7 +124,7 @@ def parse_obj_text(text: str) -> TriangleSet:
                 tri_norm.append([z, z, z])
 
     if not tri_pos:
-        return TriangleSet.from_arrays(np.zeros((0, 3, 3), np.float32))
+        return TriangleSet().finish()
     tp = np.asarray(tri_pos, dtype=np.float32)
     tn = np.asarray(tri_norm, dtype=np.float32)
     tc = np.ones_like(tp)  # colors forced white, reference obj-support.cpp:344

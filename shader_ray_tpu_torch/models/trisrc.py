@@ -31,10 +31,6 @@ from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 _QUOTED = re.compile(r'"([^"]*)"')
 
 
-def _empty() -> TriangleSet:
-    return TriangleSet.from_arrays(np.zeros((0, 3, 3), np.float32))
-
-
 def parse_trisrc(path: str, config: Config | None = None) -> TriangleSet:
     """Parse a trisrc file: through the native reader where
     ``Config.use_native`` lets it (native.py), else in Python."""
@@ -109,7 +105,7 @@ def parse_trisrc_text(text: str, config: Config | None = None) -> TriangleSet:
         tri_color.append(c.astype(np.float32))
 
     if not tri_pos:
-        return _empty()
+        return TriangleSet().finish()
     return TriangleSet.from_arrays(np.stack(tri_pos), np.stack(tri_norm), np.stack(tri_color))
 
 

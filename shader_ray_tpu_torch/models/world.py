@@ -98,16 +98,16 @@ def load_world(
         raise ValueError(f"This program doesn't know how to load a file with extension {ext}")
     if verbose:
         print(f"Parsing: {time.monotonic() - then:f} seconds", file=sys.stderr)
-        print(f"{triangles.triangle_count} triangles.", file=sys.stderr)
     then = time.monotonic()
-    world = make_world(triangles, cfg, build_bvh)
+    world = make_world(triangles, cfg, build_bvh, verbose)
     if verbose and build_bvh:
         print(f"BVH: {time.monotonic() - then:f} seconds", file=sys.stderr)
     return world
 
 
 def make_world(
-    triangles: TriangleSet, config: Config | None = None, build_bvh: bool = True
+    triangles: TriangleSet, config: Config | None = None, build_bvh: bool = True,
+    verbose: bool = False,
 ) -> World:
     """Scene center (AABB center), extent (2x the largest vertex
     distance from it, world.cpp:106-117) and the BVH: the binned-SAH
@@ -115,9 +115,17 @@ def make_world(
     then with ``bvh_opt="reinsert"`` the reinsertion optimizer
     (shader_ray_tpu/models/world.py:161-240).  The object split without
     reinsertion (which needs the node list) goes through the native
-    builder where ``Config.use_native`` lets it."""
+    builder where ``Config.use_native`` lets it.  ``verbose`` prints the
+    triangle and vertex counts to stderr, as the reference's make_world
+    (world.py:128-135)."""
     cfg = config or Config()
     tcount = triangles.triangle_count
+    if verbose:
+        print(f"{tcount} triangles.", file=sys.stderr)
+        print(f"{triangles.vertex_count} independent vertices.", file=sys.stderr)
+        if tcount:
+            print(f"{triangles.vertex_count / tcount:.2f} vertices per triangle.",
+                  file=sys.stderr)
     scene_center = triangles.box_center()
     if tcount > 0:
         d = scene_center[None, None, :] - triangles.positions[triangles.indices]

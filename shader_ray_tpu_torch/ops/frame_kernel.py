@@ -15,7 +15,11 @@ quirk kept) and the env term is ``which = 1`` textureGrad (trilinear,
 one instantiation a mode (``FRAME_MODES``) and form: raygen, or given
 rays (``GivenRays``: the K sample sets of the frame read from memory
 instead of generated, kernel_mega.py:172-173, :233-241; the fused
-``which = 5`` frame runs its 25 sub-ray sets so).  ``FrameSettings.
+``which = 5`` frame runs its 25 sub-ray sets so), and each of those in
+both leaf test forms of the walk, the form the tables were packed in
+(``PackedWide.isect``, ``Config.leaf_isect``: Woop rows, or
+Moller-Trumbore on v0 and the two edges; the Moller-Trumbore kernels
+count their launches as ``frame_kernel_mt``).  ``FrameSettings.
 min_contrib`` > 0 retires a lane after a bounce before the last once its
 Schlick modulation is at or below it in every component
 (kernel_mega.py:368-381): its shadow ray of that bounce is cast, its env
@@ -48,7 +52,14 @@ from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.env_kernel import MAX_LEVELS, env_sample_plain
 from shader_ray_tpu_torch.ops.envmap import TEXEL, dy_picture, sample_env
 from shader_ray_tpu_torch.ops.pack_wide import LEAF_STRIDE, WIDE, PackedWide
-from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, MAX_STACK, WalkResult, walk_plain
+from shader_ray_tpu_torch.ops.trace_kernel import (
+    INFINITELY_FAR,
+    MAX_STACK,
+    WalkResult,
+    isect_code,
+    launch_name,
+    walk_plain,
+)
 
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
 TILE = 16                # a block renders a TILE x TILE pixel tile
@@ -130,7 +141,8 @@ def frame_plain(
     rays: GivenRays | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The frame kernel's function in plain PyTorch, vectorized over all
-    K * H * W sample rays (ray r = k * H * W + pixel): returns the
+    K * H * W sample rays (ray r = k * H * W + pixel), its walks
+    ``walk_plain`` with the tables' leaf test (``packed.isect``): returns the
     (H, W, 3) linear colour mean over the K jitters (or the K given ray
     sets, ``jitters`` None) and the counter row, and fills ``tile_rows``
     if given (module docstring).
@@ -386,7 +398,7 @@ def _entry():
     I = ctypes.c_int
     F = ctypes.c_float
     fn.argtypes = [
-        P, P, P,                   # nodes, leaves, normals
+        P, P, P, I,                # nodes, leaves, normals, leaf test form
         P, P, I, I, I,             # env texels, level table, levels, which, aniso
         P, P,                      # uni, jitters
         P, P, P, P,                # given rays: P, D, dDdx, dDdy
@@ -399,14 +411,17 @@ def _entry():
     return fn
 
 
-def launch_info(stack_depth: int, mode: str = "bilinear", given: bool = False) -> dict[str, int]:
+def launch_info(stack_depth: int, mode: str = "bilinear", given: bool = False,
+                isect: str = "woop") -> dict[str, int]:
     """The launch of the frame kernel of ``mode`` (one of ``FRAME_MODES``)
-    in its raygen or given-rays form on the current card for a scene's
-    stack bound: registers a thread, static and dynamic (stack, and the
-    differentials in the grad modes) shared bytes a block, local bytes a
-    thread, resident blocks an SM, threads a block and the tile."""
+    in its raygen or given-rays form with leaf test ``isect`` on the
+    current card for a scene's stack bound: registers a thread, static
+    and dynamic (stack, and the differentials in the grad modes) shared
+    bytes a block, local bytes a thread, resident blocks an SM, threads a
+    block and the tile."""
     return _build.launch_info("frame_kernel", "srt_frame_kernel_info", stack_depth,
                               FRAME_MODES.index(mode), int(given),
+                              isect_code("launch_info", isect),
                               keys=(*_build.INFO_KEYS, "tile_w", "tile_h"))
 
 
@@ -421,9 +436,11 @@ def frame_kernel(
     """Render K samples of a W x H frame, from the (K, 2) ``jitters`` or
     from the K sets of given ``rays`` (``jitters`` None): (H, W, 3) f32
     linear colour mean and the int64 counter row; fills ``tile_rows`` if
-    given (module docstring).  CPU tensors run ``frame_plain``; CUDA
-    tensors launch the CUDA kernel."""
+    given (module docstring).  The walks test leaves in the tables' form
+    (``packed.isect``).  CPU tensors run ``frame_plain``; CUDA tensors
+    launch the CUDA kernel."""
     env = packed.env_pyramid
+    isect = isect_code("frame_kernel", packed.isect)
     tensors = dict(
         nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
         uni=uni, jitters=jitters, tile_rows=tile_rows,
@@ -463,10 +480,11 @@ def frame_kernel(
     inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
     ptr = lambda x: None if x is None else x.data_ptr()
     given = rays or GivenRays(None, None)
-    with torch.cuda.device(device), _build.traced("frame_kernel"):
+    name = launch_name("frame_kernel", packed.isect)
+    with torch.cuda.device(device), _build.traced(name):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
             env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
             uni.data_ptr(), ptr(jitters), *(ptr(x) for x in given), K, fs.width, fs.height,
             inv_w, inv_h, aspect,
@@ -476,5 +494,5 @@ def frame_kernel(
             out.data_ptr(), counters.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(), stream,
         )
-    _build.launched("frame_kernel", err)
+    _build.launched(name, err)
     return out, counters

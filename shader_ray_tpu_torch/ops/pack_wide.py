@@ -1,5 +1,6 @@
 """Host-side 8-wide BVH pack for per-thread traversal (counterpart of
-shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's Woop records).
+shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's leaf records,
+Woop or Moller-Trumbore).
 
 The binary SAH tree is collapsed into 8-wide nodes by the same SAH
 dynamic program (``_collapse_sah``) or, with ``Config.collapse =
@@ -18,13 +19,20 @@ read with 16-byte loads:
                               empty: -1.  Order: the octant's child order,
                               8 x 3-bit slots, nearest first (empties
                               last).  256 bytes a node.
-  leaves  (T, 12) f32         the test rows of each triangle's Woop record
-                              (floats 0-11 of WOOP_RECORD: three float4s,
-                              the distance, u and v rows), in BVH order;
-                              the row index is the triangle id
-  normals (T, 12) f32         the rest of the record, n0, n1 - n0, n2 - n0
-                              (floats 12-20, padded with zeros to three
-                              float4s), read once a ray after its walk
+  leaves  (T, 12) f32         each triangle's test rows as three float4s,
+                              in BVH order (the row index is the triangle
+                              id), in the form ``Config.leaf_isect`` names
+                              (``PackedWide.isect``): "woop" the test rows
+                              of its Woop record (floats 0-11 of
+                              WOOP_RECORD: the distance, u and v rows);
+                              "mt" v0, e0 = v1 - v0 and e1 = v0 - v2, each
+                              padded with a zero, the Moller-Trumbore
+                              operands rounded as the test forms them
+                              from v0 v1 v2 (kernel_body.slot_hit)
+  normals (T, 12) f32         n0, n1 - n0, n2 - n0 in f32 (the rest of the
+                              Woop record, floats 12-20; the same in both
+                              forms), padded with zeros to three float4s,
+                              read once a ray after its walk
 
 ``PackedWide.child_boxes``, ``child_meta`` and ``orders`` read the node
 table back per child.
@@ -61,17 +69,19 @@ FIRST_MASK = (1 << COUNT_SHIFT) - 1
 #   12-20 n0.xyz (n1-n0).xyz (n2-n0).xyz
 WOOP_RECORD = 21
 LEAF_STRIDE = 12    # floats a triangle takes in the leaf table, and in the normal table
+ISECTS = ("woop", "mt")  # leaf test forms (Config.leaf_isect), by the kernels' code
 
 
 @dataclass
 class PackedWide:
     nodes: torch.Tensor       # (Nw, 8, 8) f32 (meta and orders as int32 bits)
-    leaves: torch.Tensor      # (T, 12) f32 Woop test rows
+    leaves: torch.Tensor      # (T, 12) f32 test rows of the form ``isect``
     normals: torch.Tensor     # (T, 12) f32 normal terms
     env_pyramid: EnvPyramid   # level 0 (the frame kernel's env) + mips
     n_wide: int
     stack_depth: int
     max_count: int            # largest leaf count after the cap
+    isect: str = "woop"       # the leaf test the rows are for (ISECTS)
 
     @property
     def child_boxes(self) -> torch.Tensor:
@@ -103,7 +113,20 @@ class PackedWide:
             n_wide=self.n_wide,
             stack_depth=self.stack_depth,
             max_count=self.max_count,
+            isect=self.isect,
         )
+
+
+def mt_rows(pos: np.ndarray) -> np.ndarray:
+    """(T, 9) v0v1v2 positions -> (T, 12) Moller-Trumbore test rows v0,
+    v1 - v0, v0 - v2, each padded with a zero (f32 differences, as
+    kernel_body.slot_hit forms them from the raw vertex lanes)."""
+    p = pos.astype(np.float32)
+    v0, v1, v2 = p[:, 0:3], p[:, 3:6], p[:, 6:9]
+    rows = np.zeros((len(p), LEAF_STRIDE), np.float32)
+    for j, x in enumerate((v0, v1 - v0, v0 - v2)):
+        rows[:, 4 * j:4 * j + 3] = x
+    return rows
 
 
 def woop_records(pos: np.ndarray, nrm: np.ndarray) -> np.ndarray:
@@ -300,9 +323,10 @@ COLLAPSES = {"sah": _collapse_sah, "greedy": _collapse_greedy}  # by Config.coll
 def pack_scene_wide(
     data: SceneData, env: np.ndarray, config: Config | None = None
 ) -> PackedWide:
-    """Wide node table, Woop leaf records and the env pyramid, as CPU
-    tensors (``PackedWide.to(device)`` moves them); the binary tree is
-    collapsed as ``Config.collapse`` says."""
+    """Wide node table, leaf test rows of the form ``Config.leaf_isect``,
+    normal terms and the env pyramid, as CPU tensors
+    (``PackedWide.to(device)`` moves them); the binary tree is collapsed
+    as ``Config.collapse`` says."""
     cfg = (config or Config()).validate()
     wide_children, wid_of_binary, depth_of, is_leaf = COLLAPSES[cfg.collapse](data)
     Nw = len(wide_children)
@@ -346,17 +370,25 @@ def pack_scene_wide(
     bits = nodes.view(np.int32)
     bits[:, :, 3] = meta[:, :WIDE]
     bits[:, :, 7] = meta[:, WIDE:]
-    records = woop_records(data.tri_positions, data.tri_normals)
-    normals = np.zeros((len(records), LEAF_STRIDE), np.float32)
-    normals[:, :WOOP_RECORD - LEAF_STRIDE] = records[:, LEAF_STRIDE:]
+    if cfg.leaf_isect == "woop":
+        records = woop_records(data.tri_positions, data.tri_normals)
+        rows = np.ascontiguousarray(records[:, :LEAF_STRIDE])
+    else:
+        rows = mt_rows(data.tri_positions)
+    nn = data.tri_normals.astype(np.float32)
+    normals = np.zeros((len(rows), LEAF_STRIDE), np.float32)
+    normals[:, 0:3] = nn[:, 0:3]
+    normals[:, 3:6] = nn[:, 3:6] - nn[:, 0:3]
+    normals[:, 6:9] = nn[:, 6:9] - nn[:, 0:3]
     leaf_counts = counts[is_leaf]
     return PackedWide(
         nodes=torch.from_numpy(nodes),
-        leaves=torch.from_numpy(np.ascontiguousarray(records[:, :LEAF_STRIDE])),
+        leaves=torch.from_numpy(rows),
         normals=torch.from_numpy(normals),
         env_pyramid=EnvPyramid.pack(env, cfg.env_base),
         n_wide=Nw,
         # each pop pushes <= 7 net entries per level (pack_wide.py:427)
         stack_depth=(WIDE - 1) * (max(depth_of) + 1) + 8,
         max_count=int(max(1, leaf_counts.max())) if leaf_counts.size else 1,
+        isect=cfg.leaf_isect,
     )

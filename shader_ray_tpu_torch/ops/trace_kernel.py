@@ -17,7 +17,10 @@ Each wrapper runs its plain PyTorch version (``walk_plain``,
 CUDA kernel (``csrc/trace_kernel.cu``, ``csrc/trace_binary_kernel.cu``,
 built with nvcc at first use) for CUDA tensors, or raises.  The wide
 walk is the one the fused frame kernel runs (``csrc/walk.cuh``), so the
-fused and unfused paths accept the same hits.  Given an image's
+fused and unfused paths accept the same hits; it tests leaves in the form
+its tables were packed in (``PackedWide.isect``, ``Config.leaf_isect``):
+Woop rows, or Moller-Trumbore on v0 and the two edges, one kernel
+instantiation each, counted apart (``launch_name``).  Given an image's
 ``width``, the kernels walk its pixels' rays in 8x16 tiles; the results
 do not depend on it.
 """
@@ -32,7 +35,14 @@ import torch
 
 from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.pack import PackedBinary
-from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, LEAF_STRIDE, WIDE, PackedWide
+from shader_ray_tpu_torch.ops.pack_wide import (
+    COUNT_SHIFT,
+    FIRST_MASK,
+    ISECTS,
+    LEAF_STRIDE,
+    WIDE,
+    PackedWide,
+)
 
 INFINITELY_FAR = 1.0e7   # fs:115
 RANGE_T1 = 1.0e8         # fs:463,491
@@ -70,6 +80,48 @@ def safe_inv(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
 
 
+def isect_code(where: str, isect: str) -> int:
+    """The kernels' code of a leaf test form (``ISECTS``); raises on any
+    other."""
+    if isect not in ISECTS:
+        raise ValueError(f"{where}: leaf test {isect!r}: use one of {ISECTS}")
+    return ISECTS.index(isect)
+
+
+def launch_name(name: str, isect: str) -> str:
+    """The ``LAUNCHES`` key of wide-walk kernel ``name`` ("frame_kernel",
+    "trace_wide") in leaf test form ``isect``: the name itself for Woop,
+    ``name + "_mt"`` for Moller-Trumbore."""
+    return name if isect == "woop" else f"{name}_{isect}"
+
+
+def mt_terms(rec: torch.Tensor, P: torch.Tensor, D: torch.Tensor):
+    """Moller-Trumbore on test rows (M, 12) = v0, e0 = v1 - v0, e1 = v0 - v2
+    (each padded to four floats) against rays (M, 3): (det, d, u, v),
+    in the kernels' order of operations (csrc/walk.cuh: mt_hit;
+    kernel_body.slot_hit, "mt" branch); the caller applies the accept
+    tests."""
+    v0, e0, e1 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
+    M = torch.stack([
+        e1[:, 1] * D[:, 2] - e1[:, 2] * D[:, 1],
+        e1[:, 2] * D[:, 0] - e1[:, 0] * D[:, 2],
+        e1[:, 0] * D[:, 1] - e1[:, 1] * D[:, 0],
+    ], dim=1)
+    det = e0[:, 0] * M[:, 0] + e0[:, 1] * M[:, 1] + e0[:, 2] * M[:, 2]
+    minv_det = -1.0 / det
+    inv_det = -minv_det
+    T = P - v0
+    Q = torch.stack([
+        T[:, 1] * e0[:, 2] - T[:, 2] * e0[:, 1],
+        T[:, 2] * e0[:, 0] - T[:, 0] * e0[:, 2],
+        T[:, 0] * e0[:, 1] - T[:, 1] * e0[:, 0],
+    ], dim=1)
+    d = (e1[:, 0] * Q[:, 0] + e1[:, 1] * Q[:, 1] + e1[:, 2] * Q[:, 2]) * minv_det
+    u = (T[:, 0] * M[:, 0] + T[:, 1] * M[:, 1] + T[:, 2] * M[:, 2]) * inv_det
+    v = (D[:, 0] * Q[:, 0] + D[:, 1] * Q[:, 1] + D[:, 2] * Q[:, 2]) * inv_det
+    return det, d, u, v
+
+
 def walk_plain(
     packed: PackedWide,
     P: torch.Tensor,
@@ -81,14 +133,16 @@ def walk_plain(
 ) -> WalkResult:
     """Per-ray 8-wide short-stack walk, vectorized over rays: each step
     every open ray pops one node, slab-tests its 8 children in its
-    octant's near-to-far order, Woop-tests the hit leaves near-to-far
-    and pushes the hit internal children far-to-near.  ``any_hit``
+    octant's near-to-far order, tests the hit leaves' triangles
+    near-to-far (Woop, or Moller-Trumbore: ``packed.isect``) and pushes
+    the hit internal children far-to-near.  ``any_hit``
     stops a ray at its first accepted triangle.  A ray that overflows
     the stack or ``max_steps`` pops (0 = n_wide + 2) is bad.
 
     Hits accept at ``d <= t`` in visit order, so among equal distances
     the LAST tested triangle wins, exactly as the kernel's sequential
     loop and the reference leaf tests (kernel_body.py:78-102)."""
+    mt = isect_code("walk_plain", packed.isect) == ISECTS.index("mt")
     R = P.shape[0]
     dev = P.device
     SD = packed.stack_depth
@@ -147,20 +201,24 @@ def walk_plain(
         key = pi * MC + ki
         rec = packed.leaves[tri]
         Ps, Ds = Pi[mi], Di[mi]
-        dz = rec[:, 0] * Ds[:, 0] + rec[:, 1] * Ds[:, 1] + rec[:, 2] * Ds[:, 2]
-        oz = rec[:, 0] * Ps[:, 0] + rec[:, 1] * Ps[:, 1] + rec[:, 2] * Ps[:, 2] + rec[:, 3]
-        ok = torch.abs(dz) >= mt_eps
-        d = oz * (-1.0 / dz)
+        if mt:
+            det, d, u, v = mt_terms(rec, Ps, Ds)
+            ok = torch.abs(det) >= mt_eps
+        else:
+            dz = rec[:, 0] * Ds[:, 0] + rec[:, 1] * Ds[:, 1] + rec[:, 2] * Ds[:, 2]
+            oz = rec[:, 0] * Ps[:, 0] + rec[:, 1] * Ps[:, 1] + rec[:, 2] * Ps[:, 2] + rec[:, 3]
+            ok = torch.abs(dz) >= mt_eps
+            d = oz * (-1.0 / dz)
+            u = (rec[:, 4] * Ps[:, 0] + rec[:, 5] * Ps[:, 1] + rec[:, 6] * Ps[:, 2] + rec[:, 7]) + d * (
+                rec[:, 4] * Ds[:, 0] + rec[:, 5] * Ds[:, 1] + rec[:, 6] * Ds[:, 2]
+            )
+            v = (rec[:, 8] * Ps[:, 0] + rec[:, 9] * Ps[:, 1] + rec[:, 10] * Ps[:, 2] + rec[:, 11]) + d * (
+                rec[:, 8] * Ds[:, 0] + rec[:, 9] * Ds[:, 1] + rec[:, 10] * Ds[:, 2]
+            )
         ok &= (d <= ti[mi]) & (d >= 0.0)
         got_u = ok.clone()
-        u = (rec[:, 4] * Ps[:, 0] + rec[:, 5] * Ps[:, 1] + rec[:, 6] * Ps[:, 2] + rec[:, 7]) + d * (
-            rec[:, 4] * Ds[:, 0] + rec[:, 5] * Ds[:, 1] + rec[:, 6] * Ds[:, 2]
-        )
         ok &= u >= 0.0
         got_v = ok.clone()
-        v = (rec[:, 8] * Ps[:, 0] + rec[:, 9] * Ps[:, 1] + rec[:, 10] * Ps[:, 2] + rec[:, 11]) + d * (
-            rec[:, 8] * Ds[:, 0] + rec[:, 9] * Ds[:, 1] + rec[:, 10] * Ds[:, 2]
-        )
         ok &= (v >= 0.0) & (u + v <= 1.0)
 
         M = idx.numel()
@@ -282,31 +340,12 @@ def walk_binary_plain(
             rows = idx[sel]
             tris[rows] += 1
             tri = first[sel] + k
-            rec = packed.tris[tri]
-            Ps, Ds = Pi[sel], Di[sel]
-            v0, e0, e1 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]   # e0 = v1 - v0, e1 = v0 - v2
-            M = torch.stack([
-                e1[:, 1] * Ds[:, 2] - e1[:, 2] * Ds[:, 1],
-                e1[:, 2] * Ds[:, 0] - e1[:, 0] * Ds[:, 2],
-                e1[:, 0] * Ds[:, 1] - e1[:, 1] * Ds[:, 0],
-            ], dim=1)
-            det = e0[:, 0] * M[:, 0] + e0[:, 1] * M[:, 1] + e0[:, 2] * M[:, 2]
+            det, d, u, v = mt_terms(packed.tris[tri], Pi[sel], Di[sel])
             ok = torch.abs(det) >= mt_eps
-            minv_det = -1.0 / det
-            inv_det = -minv_det
-            T = Ps - v0
-            Q = torch.stack([
-                T[:, 1] * e0[:, 2] - T[:, 2] * e0[:, 1],
-                T[:, 2] * e0[:, 0] - T[:, 0] * e0[:, 2],
-                T[:, 0] * e0[:, 1] - T[:, 1] * e0[:, 0],
-            ], dim=1)
-            d = (e1[:, 0] * Q[:, 0] + e1[:, 1] * Q[:, 1] + e1[:, 2] * Q[:, 2]) * minv_det
             ok &= (d <= t[rows]) & (d >= t0[sel]) & (d <= t1[sel])
             tris_u[rows] += ok.long()
-            u = (T[:, 0] * M[:, 0] + T[:, 1] * M[:, 1] + T[:, 2] * M[:, 2]) * inv_det
             ok &= u >= 0.0
             tris_v[rows] += ok.long()
-            v = (Ds[:, 0] * Q[:, 0] + Ds[:, 1] * Q[:, 1] + Ds[:, 2] * Q[:, 2]) * inv_det
             ok &= (v >= 0.0) & (u + v <= 1.0)
             hit_rows = rows[ok]
             if any_hit:
@@ -369,13 +408,16 @@ def _outputs(R: int, device, with_stats: bool):
     return t, which, normal, bad, stats
 
 
-def launch_info(name: str, stack_depth: int) -> dict[str, int]:
-    """The launch of trace kernel ``name`` ("trace_wide" or
-    "trace_binary") on the current card for a scene's stack bound:
-    registers a thread, static and dynamic (stack) shared bytes a block,
-    local bytes a thread, resident blocks an SM, threads a block."""
-    lib = {"trace_wide": "trace_kernel", "trace_binary": "trace_binary_kernel"}[name]
-    return _build.launch_info(lib, f"srt_{name}_info", stack_depth)
+def launch_info(name: str, stack_depth: int, isect: str = "woop") -> dict[str, int]:
+    """The launch of trace kernel ``name`` ("trace_wide", in leaf test
+    form ``isect``, or "trace_binary") on the current card for a scene's
+    stack bound: registers a thread, static and dynamic (stack) shared
+    bytes a block, local bytes a thread, resident blocks an SM, threads a
+    block."""
+    if name == "trace_binary":
+        return _build.launch_info("trace_binary_kernel", "srt_trace_binary_info", stack_depth)
+    return _build.launch_info("trace_kernel", "srt_trace_wide_info", stack_depth,
+                              isect_code("launch_info", isect))
 
 
 @functools.cache
@@ -383,7 +425,7 @@ def _wide_entry():
     fn = _build.library("trace_kernel")[0].srt_trace_wide
     P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn.argtypes = [
-        P, P, P,                   # nodes, leaves, normals
+        P, P, P, I,                # nodes, leaves, normals, leaf test form
         P, P, P, L, I,             # P, D, active, R, width
         I, F, I, I,                # any_hit, eps, max_steps, stack
         P, P, P, P, P, P,          # t, which, normal, bad, stats, stream
@@ -417,7 +459,8 @@ def trace_wide(
     with_stats: bool = False,
     width: int = 0,
 ) -> PacketHit:
-    """Trace (R, 3) f32 object-space rays through the 8-wide tree.
+    """Trace (R, 3) f32 object-space rays through the 8-wide tree, with
+    the leaf test of ``packed.isect``.
     ``max_steps`` is the budget in node pops (0 = n_wide + 2).  A
     ``width`` > 0 says the rays are the pixels of a width-wide image,
     row-major: the kernel then walks them in 2D tiles (the results do not
@@ -425,6 +468,7 @@ def trace_wide(
     CUDA kernel."""
     tables = dict(nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals)
     device, active = _ray_args("trace_wide", tables, P, D, active, width)
+    isect = isect_code("trace_wide", packed.isect)
     if device.type == "cpu":
         return packet_hit(walk_plain(packed, P, D, active, any_hit, mt_eps, max_steps),
                            with_stats)
@@ -440,16 +484,17 @@ def trace_wide(
     t, which, normal, bad, stats = _outputs(R, device, with_stats)
     if R == 0:
         return PacketHit(t, which, normal, bad, stats)
-    with torch.cuda.device(device), _build.traced("trace_wide"):
+    name = launch_name("trace_wide", packed.isect)
+    with torch.cuda.device(device), _build.traced(name):
         err = fn(
-            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(),
+            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
             P.data_ptr(), D.data_ptr(), active.data_ptr(), R, width,
             int(any_hit), mt_eps, max_steps or Nw + 2, packed.stack_depth,
             t.data_ptr(), which.data_ptr(), normal.data_ptr(), bad.data_ptr(),
             stats.data_ptr() if with_stats else None,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _build.launched("trace_wide", err)
+    _build.launched(name, err)
     return PacketHit(t, which, normal, bad, stats)
 
 

@@ -88,9 +88,9 @@ def _settings_text(settings) -> str:
     return repr(settings)
 
 
-_KNOBS = ("packet_kernel", "packet_fused", "packet_max_steps", "min_contrib", "env_base",
-          "env_aniso", "max_leaf_tests", "collapse", "splits", "bvh_opt", "use_native",
-          "debug_nans")
+_KNOBS = ("packet_kernel", "packet_fused", "leaf_isect", "packet_max_steps", "min_contrib",
+          "env_base", "env_aniso", "max_leaf_tests", "collapse", "splits", "bvh_opt",
+          "use_native", "debug_nans")
 
 
 def describe_failure(exc: BaseException, cfg=None, packed=None, settings=None,
@@ -119,7 +119,7 @@ def describe_failure(exc: BaseException, cfg=None, packed=None, settings=None,
         pyramid = getattr(packed, "env_pyramid", None)
         if pyramid is not None:
             shapes.append(f"env{tuple(pyramid.texels.shape)} in {pyramid.n_levels} levels")
-        for name in ("n_wide", "stack_depth", "max_count"):
+        for name in ("isect", "n_wide", "stack_depth", "max_count"):
             v = getattr(packed, name, None)
             if v is not None:
                 shapes.append(f"{name}={v}")

@@ -25,6 +25,15 @@ def make_translation(x: float, y: float, z: float) -> np.ndarray:
     return m
 
 
+def make_scale(x: float, y: float, z: float) -> np.ndarray:
+    """Reference vectormath.h:494-500."""
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = x
+    m[1, 1] = y
+    m[2, 2] = z
+    return m
+
+
 def make_rotation(a: float, x: float, y: float, z: float) -> np.ndarray:
     """Axis-angle (radians, axis (x,y,z)) to rotation matrix, Rodrigues
     form (reference vectormath.h:559-586)."""
@@ -61,6 +70,10 @@ def invert(m: np.ndarray) -> np.ndarray:
 
 def to_radians(d: float) -> float:
     return float(d) * np.pi / 180.0
+
+
+def to_degrees(r: float) -> float:
+    return float(r) * 180.0 / np.pi
 
 
 def zero_bottom_row(m: np.ndarray) -> np.ndarray:

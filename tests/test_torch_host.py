@@ -111,11 +111,12 @@ def test_config_defaults_equal():
     ref = RefConfig()
     port = Config()
     fields = [f.name for f in dataclasses.fields(Config)]
-    assert len(fields) == 30
+    assert len(fields) == 31
     for name in fields:
         assert getattr(ref, name) == getattr(port, name), name
     for bad in (dict(env_base=100), dict(max_leaf_tests=32), dict(packet_max_steps=-1),
                 dict(packet_kernel="quad"), dict(env_aniso=0), dict(splits="kd"),
-                dict(bvh_opt="rotate"), dict(collapse="binary"), dict(use_native="always")):
+                dict(bvh_opt="rotate"), dict(collapse="binary"), dict(use_native="always"),
+                dict(leaf_isect="plucker")):
         with pytest.raises(ValueError):
             Config(**bad).validate()

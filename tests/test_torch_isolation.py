@@ -242,14 +242,13 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
     assert np.asarray(kc.shape).tolist() == [64, 64, 3]
 
 
-def _card_scene(device, kernel: str):
+@functools.cache
+def _card_data():
     """5000 flat-shaded triangles plus a unit sphere with smooth normals
-    (so the normal interpolation shows)."""
-    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky, uv_sphere
+    (so the normal interpolation shows), as SceneData."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
-    from shader_ray_tpu_torch.ops.pack import pack_scene
-    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 
     pos, _ = bunny_class_scene(5000)
     spos, snrm = uv_sphere(lat=24, lon=32, radius=0.7, center=(0.8, 0.8, 0.8))
@@ -257,9 +256,19 @@ def _card_scene(device, kernel: str):
     flat = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
     flat /= np.maximum(np.linalg.norm(flat, axis=1, keepdims=True), 1e-30)
     nrm = np.concatenate([np.repeat(flat[:, None], 3, axis=1), snrm]).astype(np.float32)
-    data = get_shader_data(make_world(TriangleSet.from_arrays(np.concatenate([pos, spos]), nrm)))
+    return get_shader_data(make_world(TriangleSet.from_arrays(np.concatenate([pos, spos]), nrm)))
+
+
+def _card_scene(device, kernel: str, isect: str = "woop"):
+    """_card_data's tables: binary, or wide with leaf test rows of form
+    ``isect``."""
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.models.fixtures import procedural_sky
+    from shader_ray_tpu_torch.ops.pack import pack_scene
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
     pack = pack_scene_wide if kernel == "wide" else pack_scene
-    return pack(data, procedural_sky(64)).to(device)
+    return pack(_card_data(), procedural_sky(64), Config(leaf_isect=isect)).to(device)
 
 
 @pytest.mark.cuda
@@ -643,12 +652,13 @@ def test_trace_cases_on_card(cuda_device, name):
 
 NEW_MODULES = ("shader_ray_tpu_torch.parallel", "shader_ray_tpu_torch.parallel.mesh",
                "shader_ray_tpu_torch.native", "shader_ray_tpu_torch.models.quality",
-               "shader_ray_tpu_torch.utils.kerneldiag", "shader_ray_tpu_torch.utils.profiling")
+               "shader_ray_tpu_torch.utils.kerneldiag", "shader_ray_tpu_torch.utils.profiling",
+               "shader_ray_tpu_torch.ops.reference")
 
 
 def test_new_modules_are_walked_and_stand_alone():
-    """The mesh, native-builder, quality, diagnostics and profiling modules
-    are among those the import test loads, and the native builder compiles
+    """The mesh, native-builder, quality, diagnostics, profiling and
+    brute-force oracle modules are among those the import test loads, and the native builder compiles
     the port's own copy of libscene.cpp into the port's build directory,
     never the reference's native/."""
     from shader_ray_tpu_torch import native
@@ -744,3 +754,93 @@ def test_debug_nans_and_device_trace_on_card(cuda_device, tmp_path):
         r.make_fn(statics)(params)
     (trace,) = os.listdir(tmp_path)
     assert '"frame_kernel"' in (tmp_path / trace).read_text()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.FRAME_CASES)
+def test_mt_frame_kernel_control_flow_on_card(cuda_device, name):
+    """The Moller-Trumbore instantiations of the frame kernel
+    (Config.leaf_isect="mt") against frame_plain on chip_smoke's
+    FRAME_CASES, under the Woop form's limits, counted as frame_kernel_mt."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device, "mt")
+    assert packed.isect == "mt"
+    before = dict(fk._build.LAUNCHES)
+    kc, kn = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    assert fk._build.LAUNCHES["frame_kernel_mt"] == before.get("frame_kernel_mt", 0) + 1
+    assert fk._build.LAUNCHES["frame_kernel"] == before.get("frame_kernel", 0)
+    pc, pn = fk.frame_plain(packed, uni, jit, fs, rays=rays)
+    torch.cuda.synchronize()
+    assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None
+    assert chip_smoke.case_unmet(name, fs, kc, kn.cpu(), "mt") is None
+    info = fk.launch_info(packed.stack_depth, fs.mode(), rays is not None, "mt")
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_mt_trace_kernel_matches_plain_and_oracle_on_card(cuda_device, any_hit):
+    """trace_wide's Moller-Trumbore instantiation against walk_plain (mt)
+    under the limits of test_trace_kernel_matches_plain_on_card, and its
+    closest hits against the brute-force oracle ops/reference
+    (chip_smoke.oracle_disagreement)."""
+    from shader_ray_tpu_torch.ops import trace_kernel as tk
+    from shader_ray_tpu_torch.ops.reference import intersect_brute
+
+    packed = _card_scene(cuda_device, "wide", "mt")
+    rng = np.random.default_rng(32)
+    P = torch.from_numpy(rng.uniform(-1.6, 1.6, (4096, 3)).astype(np.float32)).to(cuda_device)
+    D = rng.normal(size=(4096, 3)).astype(np.float32)
+    D[:64] = [0.0, 0.0, 1.0]
+    D = torch.from_numpy(D / np.linalg.norm(D, axis=1, keepdims=True)).to(cuda_device)
+    active = torch.ones(4096, dtype=torch.bool, device=cuda_device)
+    before = tk._build.LAUNCHES["trace_wide_mt"]
+    got = tk.trace_wide(packed, P, D, active, any_hit=any_hit, with_stats=True)
+    assert tk._build.LAUNCHES["trace_wide_mt"] == before + 1
+    want = tk.packet_hit(tk.walk_plain(packed, P, D, active, any_hit), True)
+    torch.cuda.synchronize()
+    assert chip_smoke.trace_disagreement(got, want, active, any_hit)[1] is None
+    info = tk.launch_info("trace_wide", packed.stack_depth, "mt")
+    assert info["local_bytes"] == 512 and info["blocks_per_sm"] >= 4
+    if not any_hit:
+        tris = torch.from_numpy(_card_data().tri_positions.reshape(-1, 3, 3)).to(cuda_device)
+        e, why = chip_smoke.oracle_disagreement(got, intersect_brute(tris, P, D), tris, P, D)
+        assert why is None, e
+        assert e["hits"] > 500
+
+
+@pytest.mark.parametrize("fault", [None, "id", "flip", "t"])
+def test_oracle_gate_refuses_each_fault(fault):
+    """chip_smoke's oracle gate on the CPU: the mt plain walk's closest hits
+    pass against ops/reference.intersect_brute on the trace cases' rays,
+    and each fault fails it: another triangle than the oracle's nearest
+    (not tied), a hit turned into a miss away from any edge, t off by 1e-5
+    relative."""
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops import trace_kernel as tk
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+    from shader_ray_tpu_torch.ops.reference import intersect_brute
+
+    data = get_shader_data(make_world(TriangleSet.from_arrays(*bunny_class_scene(2000))))
+    packed = pack_scene_wide(data, procedural_sky(32), Config(leaf_isect="mt"))
+    _, P, D = _trace_case_scene()
+    tris = torch.from_numpy(data.tri_positions.reshape(-1, 3, 3))
+    want = intersect_brute(tris, P, D)
+    got = tk.trace_wide(packed, P, D)
+    t_b, w_b, u_b, v_b = want
+    slack = torch.minimum(torch.minimum(u_b, v_b), 1.0 - u_b - v_b)
+    inner = torch.nonzero((t_b < 1e7) & (slack > 0.05)).squeeze(1)
+    assert inner.numel() > 100
+    r = int(inner[0])
+    if fault == "id":
+        got.which[r] = (int(w_b[r]) + tris.shape[0] // 2) % tris.shape[0]
+    elif fault == "flip":
+        got.t[r], got.which[r] = tk.INFINITELY_FAR, -1
+    elif fault == "t":
+        got.t[r] = t_b[r] * (1.0 + 1e-5)
+    e, why = chip_smoke.oracle_disagreement(got, want, tris, P, D)
+    assert (why is None) == (fault is None), (fault, e, why)
