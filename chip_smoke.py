@@ -1096,10 +1096,17 @@ def serve_phase(renderer, card: str) -> dict:
     return {"launches": launches, "render_ms": r_ms, "encode_ms": e_ms}
 
 
+# the build log's lines of a scene-cache miss (a hit builds no BVH and
+# flattens nothing); both runs print the scene's center and extent line, as
+# the reference's load_world does before it skips the build
+CLI_BUILD_LOG = ("BVH (native): ", "hitmiss: ")
+
+
 def cli_cache_phase() -> None:
     """``python -m shader_ray_tpu_torch knot.obj sky.jpg --once`` twice with
-    one SRT_CACHE_DIR: the first builds and stores the scene, the second
-    says it hit the cache; the two frames are equal."""
+    one SRT_CACHE_DIR: the first builds and stores the scene and prints the
+    reference's build log, the second says it hit the cache and prints no
+    build; the two frames are equal."""
     import tempfile
 
     import numpy as np
@@ -1108,7 +1115,7 @@ def cli_cache_phase() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         env = {**os.environ, "PYTHONPATH": ROOT, "SRT_CACHE_DIR": os.path.join(tmp, "cache")}
-        frames, hits = [], []
+        frames, hits, logs = [], [], []
         for run in (1, 2):
             out = os.path.join(tmp, f"frame{run}.ppm")
             t0 = time.perf_counter()
@@ -1119,9 +1126,14 @@ def cli_cache_phase() -> None:
             hit = "scene cache hit" in proc.stderr
             frames.append(read_ppm(out) if proc.returncode == 0 else None)
             hits.append(hit)
+            lines = proc.stderr.splitlines()
+            logs.append({head: any(x.startswith(head) for x in lines)
+                         for head in ("Finding scene center and extent: ", *CLI_BUILD_LOG)})
             print(f"cli: run {run}: knot.obj sky.jpg --once: rc {proc.returncode} in "
                   f"{time.perf_counter() - t0:.1f} s, scene cache hit {hit}, frame "
-                  f"{None if frames[-1] is None else frames[-1].shape}")
+                  f"{None if frames[-1] is None else frames[-1].shape}; build log lines {logs[-1]}")
+            if run == 1:
+                print("cli: run 1 stderr:\n  " + "\n  ".join(lines[:12]))
             if proc.returncode != 0:
                 raise AssertionError(f"cli run {run} failed: {proc.stderr[-2000:]}")
         cached = os.listdir(os.path.join(tmp, "cache"))
@@ -1129,6 +1141,8 @@ def cli_cache_phase() -> None:
     print(f"cli: cache files {cached}; the two frames equal: {same}, std {float(frames[0].std()):.1f}")
     if hits != [False, True] or not same or frames[0].shape != (512, 512, 3) or frames[0].std() < 10:
         raise AssertionError("cli: the second run did not hit the scene cache, or the frames differ")
+    if not all(logs[0].values()) or any(logs[1][head] for head in CLI_BUILD_LOG):
+        raise AssertionError(f"cli: the cold run's build log is not whole, or the cache hit built: {logs}")
 
 
 def mesh_phase(data, sky, params, singles: dict, card: str) -> dict:
@@ -1260,8 +1274,13 @@ def mesh_phase(data, sky, params, singles: dict, card: str) -> dict:
 def native_phase(sky, params, g_build_s: float, card: str) -> dict:
     """The native scene builder: its g++ build seconds (timed beside the
     nvcc builds), the bench scene through the native and the numpy
-    builder, both timed and equal on every SceneData array, and the fused
-    frame over the native tables through the golden gate."""
+    builder with ``verbose=True``, both timed and equal on every SceneData
+    array, the numpy build's ``BVHStats`` block, the native build's printed
+    node and leaf counts held to those stats, and the fused frame over the
+    native tables through the golden gate."""
+    import contextlib
+    import io
+
     import numpy as np
     import torch
 
@@ -1274,19 +1293,39 @@ def native_phase(sky, params, g_build_s: float, card: str) -> dict:
     from shader_ray_tpu_torch.ops.render import RenderStatics
 
     ts = TriangleSet.from_arrays(*bunny_class_scene(69000))
-    built, secs = {}, {}
+    built, secs, logs, stats = {}, {}, {}, None
     for way in ("require", "never", "require", "never"):
+        cfg = Config(use_native=way)
+        err = io.StringIO()
         t0 = time.perf_counter()
-        built[way] = get_shader_data(make_world(ts, Config(use_native=way)))
+        with contextlib.redirect_stderr(err):
+            w = make_world(ts, cfg, verbose=True)
+            built[way] = get_shader_data(w, cfg, verbose=True)
         secs.setdefault(way, []).append(time.perf_counter() - t0)
-    fields = ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children", "hitmiss")
+        logs.setdefault(way, err.getvalue().splitlines())
+        stats = w.bvh.stats if way == "never" else stats
+    log = logs["never"]
+    at = next(i for i, x in enumerate(log) if x.startswith("BVH: "))
+    end = next(i for i, x in enumerate(log) if x.startswith("hitmiss: "))
+    print("native: the numpy build's log (verbose=True), first run:\n  " + "\n  ".join(log[at:end + 1]))
+    nat = logs["require"]
+    counts = [int(x.split()[0]) for x in nat if x.endswith(" bvh nodes") or x.endswith(" of those are leaves")]
+    print("native: the native build's log, first run:\n  " + "\n  ".join(nat[-4:]))
+    print(f"native: printed node and leaf counts {counts} against the numpy build's stats "
+          f"{[stats.node_count, stats.leaf_count]}")
+    if counts != [stats.node_count, stats.leaf_count] or not nat[-4].startswith("BVH (native): "):
+        raise AssertionError("native: the native build's printed counts are not the numpy build's stats")
+    fields = ("tri_positions", "tri_normals", "tri_colors", "node_boxes", "node_objects",
+              "node_children", "node_axis", "hitmiss")
     same = {f: getattr(built["require"], f).tobytes() == getattr(built["never"], f).tobytes()
             for f in fields}
     ints = all(getattr(built["require"], f) == getattr(built["never"], f)
                for f in ("tree_root", "triangle_count", "group_count"))
     print(f"native: g++ build of libscene {g_build_s:.2f} s; bench scene BVH + flatten on the card's "
           f"host ({card}): native {secs['require'][0]:.3f}, {secs['require'][1]:.3f} s, numpy "
-          f"{secs['never'][0]:.3f}, {secs['never'][1]:.3f} s; every SceneData array equal: {same}, "
+          f"{secs['never'][0]:.3f}, {secs['never'][1]:.3f} s (verbose, stats printed; quiet "
+          f"builds on this card's hosts before the stats existed: native 0.05-0.07 s, numpy "
+          f"3.6-4.5 s, PERF.md); every SceneData array equal: {same}, "
           f"root and counts equal: {ints}")
     if not all(same.values()) or not ints:
         raise AssertionError("native: the native build is not the numpy build")
@@ -1299,7 +1338,8 @@ def native_phase(sky, params, g_build_s: float, card: str) -> dict:
     if launches != {"frame_kernel": 1}:
         raise AssertionError("native: the frame over the native tables is one frame_kernel launch")
     return {"launches": launches, "g++_s": g_build_s, "native_s": float(np.median(secs["require"])),
-            "numpy_s": float(np.median(secs["never"]))}
+            "numpy_s": float(np.median(secs["never"])), "bvh_nodes": stats.node_count,
+            "bvh_leaves": stats.leaf_count}
 
 
 QUALITY_SIZE = (256, 192, 4)  # width, height, tile_stride: packets 0, 4 and 8 of 12

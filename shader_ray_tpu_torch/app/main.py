@@ -74,13 +74,13 @@ def build_app(args):
         world = load_world(args.model, cfg, build_bvh=False)
     else:
         world = load_world(args.model, cfg)
-        data = get_shader_data(world)
+        data = get_shader_data(world, cfg, verbose=True)
         if key is not None:
             try:
                 save_scene_data(key, data)
             except OSError:  # a read-only cache directory costs only the cache
                 pass
-    background = load_background(args.background, cfg)
+    background = load_background(args.background, config=cfg)
     renderer = Renderer(data, background, cfg, device=device, mesh=mesh)
     print(f"device: {renderer.device}" + (f", mesh of {len(mesh)}: {', '.join(map(str, mesh))}"
                                           if mesh else ""), file=sys.stderr)

@@ -221,7 +221,7 @@ class WebViewer:
         finally:
             self.stop()
 
-    def stop(self, timeout: float = 10.0) -> None:
+    def stop(self, *, timeout: float = 10.0) -> None:
         """Stop serving and join the server thread (within ``timeout``)."""
         if self._thread is not None:
             self.server.shutdown()

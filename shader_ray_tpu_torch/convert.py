@@ -1,7 +1,6 @@
 """Scene and frame state carried over from the reference package as
 plain numpy fields, so both engines render the same scene and camera:
 ``{f: getattr(jax_obj, f) for f in ...}`` -> the port's objects.
-Fields the port does not use (vertex colours, split axes) are ignored.
 ``packed_from_numpy`` goes on to the port's packed tables, wide or
 binary, from the same host inputs the reference packers read."""
 
@@ -23,6 +22,7 @@ def scene_data_from_numpy(fields: dict[str, np.ndarray]) -> SceneData:
     return SceneData(
         tri_positions=np.ascontiguousarray(fields["tri_positions"], np.float32),
         tri_normals=np.ascontiguousarray(fields["tri_normals"], np.float32),
+        tri_colors=np.ascontiguousarray(fields["tri_colors"], np.float32),
         node_boxes=np.ascontiguousarray(fields["node_boxes"], np.float32),
         node_objects=np.ascontiguousarray(fields["node_objects"], np.int32),
         node_children=np.ascontiguousarray(fields["node_children"], np.int32),
@@ -31,6 +31,8 @@ def scene_data_from_numpy(fields: dict[str, np.ndarray]) -> SceneData:
         group_count=int(fields["group_count"]),
         hitmiss=None if fields.get("hitmiss") is None
         else np.ascontiguousarray(fields["hitmiss"], np.int32),
+        node_axis=None if fields.get("node_axis") is None
+        else np.ascontiguousarray(fields["node_axis"], np.int32),
     )
 
 

@@ -50,7 +50,7 @@ def grid_image(width: int = 2048, tilesize: int = 8, barsize: int = 1) -> np.nda
     return img
 
 
-def read_hdr(path: str, config: Config | None = None) -> np.ndarray:
+def read_hdr(path: str, *, config: Config | None = None) -> np.ndarray:
     """Radiance RGBE (.hdr) reader -> (H, W, 3) float32, scanline 0 first.
 
     Supports the common -Y H +X W orientation with both RLE and flat
@@ -120,7 +120,7 @@ def read_hdr(path: str, config: Config | None = None) -> np.ndarray:
     return img.astype(np.float32)
 
 
-def load_background(spec: str, config: Config | None = None) -> np.ndarray:
+def load_background(spec: str, *, config: Config | None = None) -> np.ndarray:
     """Parse a background spec into an (H, W, 3) float32 lat-long image,
     row 0 the top scanline (module docstring); ``config.use_native``
     picks the .hdr reader (``read_hdr``)."""
@@ -140,7 +140,7 @@ def load_background(spec: str, config: Config | None = None) -> np.ndarray:
         raise FileNotFoundError(f"Failed to load image from {spec}")
     ext = spec.rsplit(".", 1)[-1].lower()
     if ext == "hdr":
-        return read_hdr(spec, config)
+        return read_hdr(spec, config=config)
     if ext in ("ppm", "pnm"):
         from shader_ray_tpu_torch.utils.ppm import read_ppm
 

@@ -20,7 +20,7 @@ from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 
 
-def parse_obj(path: str, config: Config | None = None) -> TriangleSet:
+def parse_obj(path: str, *, config: Config | None = None) -> TriangleSet:
     """Parse an OBJ file: through the native reader where
     ``Config.use_native`` lets it (native.py; colors white, :344), else
     in Python."""

@@ -21,6 +21,7 @@ BUMPOUT = 1e-5  # reference vectormath.h:191
 class TriangleSet:
     def __init__(
         self,
+        *,
         positions: np.ndarray | None = None,
         normals: np.ndarray | None = None,
         colors: np.ndarray | None = None,
@@ -128,12 +129,15 @@ class TriangleSet:
         tri_pos: np.ndarray,
         tri_norm: np.ndarray | None = None,
         tri_color: np.ndarray | None = None,
+        dedup: bool = True,
     ) -> "TriangleSet":
         """Build from (T, 3, 3) arrays.  Vertices are deduplicated with
         np.unique over packed (position, normal, color) records and
         numbered in first-occurrence order, the reference map's
-        incremental insertion order.  Missing normals become flat face
-        normals; missing colors are white."""
+        incremental insertion order; with ``dedup=False`` every triangle
+        keeps its own three vertices (reference triangle_set.py:160-164).
+        Missing normals become flat face normals; missing colors are
+        white."""
         tri_pos = np.ascontiguousarray(tri_pos, dtype=np.float32)
         T = tri_pos.shape[0]
         if tri_norm is None:
@@ -150,11 +154,19 @@ class TriangleSet:
 
         if T == 0:
             empty = np.zeros((0, 3), np.float32)
-            return TriangleSet(empty, empty, empty, np.zeros((0, 3), np.int32))
+            return TriangleSet(positions=empty, normals=empty, colors=empty,
+                               indices=np.zeros((0, 3), np.int32))
         records = np.concatenate(
             [tri_pos.reshape(-1, 3), tri_norm.reshape(-1, 3), tri_color.reshape(-1, 3)],
             axis=1,
         )  # (3T, 9)
+        if not dedup:
+            return TriangleSet(
+                positions=np.ascontiguousarray(records[:, 0:3]),
+                normals=np.ascontiguousarray(records[:, 3:6]),
+                colors=np.ascontiguousarray(records[:, 6:9]),
+                indices=np.arange(3 * T, dtype=np.int32).reshape(T, 3),
+            )
         void_view = np.ascontiguousarray(records).view(
             np.dtype((np.void, records.dtype.itemsize * records.shape[1]))
         ).ravel()

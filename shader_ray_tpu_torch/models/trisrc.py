@@ -116,6 +116,7 @@ def write_trisrc(
     tri_color: np.ndarray | None = None,
     specular=(1.0, 1.0, 1.0, 1.0),
     shininess: float = 10.0,
+    *,
     config: Config | None = None,
 ) -> None:
     """Write (T, 3, 3) triangle arrays as a trisrc file.  Colors are

@@ -68,13 +68,15 @@ class SceneData:
 
     tri_positions: np.ndarray   # (R, 9) f32: v0 v1 v2
     tri_normals: np.ndarray     # (R, 9) f32: n0 n1 n2
+    tri_colors: np.ndarray      # (R, 9) f32: c0 c1 c2
     node_boxes: np.ndarray      # (N, 8) f32: boxmin(3) boxmax(3) pad(2)
     node_objects: np.ndarray    # (N, 2) i32: (start, count); (0,0) for branch
     node_children: np.ndarray   # (N, 2) i32: (negative, positive), -1 for leaf
     tree_root: int
     triangle_count: int
     group_count: int
-    hitmiss: np.ndarray | None = None  # (8, N, 2) i32 per-octant (hit, miss) links
+    hitmiss: np.ndarray | None = None    # (8, N, 2) i32 per-octant (hit, miss) links
+    node_axis: np.ndarray | None = None  # (N,) i32 split axis, -1 for leaf
 
 
 def load_world(
@@ -93,31 +95,33 @@ def load_world(
     elif ext == "obj":
         from shader_ray_tpu_torch.models.obj import parse_obj
 
-        triangles = parse_obj(filename, cfg)
+        triangles = parse_obj(filename, config=cfg)
     else:
         raise ValueError(f"This program doesn't know how to load a file with extension {ext}")
     if verbose:
         print(f"Parsing: {time.monotonic() - then:f} seconds", file=sys.stderr)
-    then = time.monotonic()
-    world = make_world(triangles, cfg, build_bvh, verbose)
-    if verbose and build_bvh:
-        print(f"BVH: {time.monotonic() - then:f} seconds", file=sys.stderr)
-    return world
+    return make_world(triangles, cfg, verbose=verbose, build_bvh=build_bvh)
+
+
+def _log_seconds(what: str, then: float) -> None:
+    print(f"{what}: {time.monotonic() - then:f} seconds", file=sys.stderr)
 
 
 def make_world(
-    triangles: TriangleSet, config: Config | None = None, build_bvh: bool = True,
-    verbose: bool = False,
+    triangles: TriangleSet, config: Config | None = None, verbose: bool = False,
+    build_bvh: bool = True,
 ) -> World:
     """Scene center (AABB center), extent (2x the largest vertex
     distance from it, world.cpp:106-117) and the BVH: the binned-SAH
     object-split build, or with ``splits="sbvh"`` the spatial-split one,
     then with ``bvh_opt="reinsert"`` the reinsertion optimizer
-    (shader_ray_tpu/models/world.py:161-240).  The object split without
+    (shader_ray_tpu/models/world.py:119-232).  The object split without
     reinsertion (which needs the node list) goes through the native
     builder where ``Config.use_native`` lets it.  ``verbose`` prints the
-    triangle and vertex counts to stderr, as the reference's make_world
-    (world.py:128-135)."""
+    reference's build log to stderr: the triangle and vertex counts, the
+    center and extent's seconds, then "BVH" with ``BVHStats``, "BVH
+    (native)" with its node and leaf counts, or "SBVH", and passes
+    ``verbose`` on to the builders."""
     cfg = config or Config()
     tcount = triangles.triangle_count
     if verbose:
@@ -126,41 +130,61 @@ def make_world(
         if tcount:
             print(f"{triangles.vertex_count / tcount:.2f} vertices per triangle.",
                   file=sys.stderr)
+    then = time.monotonic()
     scene_center = triangles.box_center()
     if tcount > 0:
         d = scene_center[None, None, :] - triangles.positions[triangles.indices]
         scene_extent = float(np.sqrt((d * d).sum(axis=-1).max())) * 2.0
     else:
         scene_extent = 1.0
+    if verbose:
+        _log_seconds("Finding scene center and extent", then)
+    then = time.monotonic()
     bvh = flat = order = None
     if build_bvh and cfg.splits == "object" and cfg.bvh_opt != "reinsert" and \
             native.wanted(cfg.use_native):
-        flat, order, _ = native.build_flat_bvh(
+        flat, order, leaf_count = native.build_flat_bvh(
             triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters,
             leaf_max=cfg.bvh_leaf_max, max_depth=cfg.bvh_max_depth,
             ctrav=cfg.sah_ctrav, cisec=cfg.sah_cisec,
         )
+        if verbose:
+            _log_seconds("BVH (native)", then)
+            print(f"{flat.node_count} bvh nodes", file=sys.stderr)
+            print(f"{leaf_count} of those are leaves", file=sys.stderr)
     elif build_bvh and cfg.splits == "sbvh":
         from shader_ray_tpu_torch.models.sbvh import make_sbvh
 
         verts = triangles.positions[triangles.indices] if tcount else np.zeros((0, 3, 3), np.float32)
-        bvh = make_sbvh(verts, cfg)
+        bvh = make_sbvh(verts, cfg, verbose=verbose)
+        if verbose:
+            _log_seconds("SBVH", then)
     elif build_bvh:
-        bvh = make_bvh(triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg)
+        bvh = make_bvh(triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg,
+                       verbose=verbose)
+        if verbose:
+            _log_seconds("BVH", then)
+            bvh.stats.print()
     if bvh is not None and cfg.bvh_opt == "reinsert":
         from shader_ray_tpu_torch.models.optimize import optimize_bvh
 
-        bvh = optimize_bvh(bvh, cfg)
+        bvh = optimize_bvh(bvh, cfg, verbose=verbose)
     return World(
         triangles=triangles, bvh=bvh, scene_center=scene_center,
         scene_extent=scene_extent, triangle_count=tcount, flat=flat, order=order,
     )
 
 
-def get_shader_data(world: World) -> SceneData:
+def get_shader_data(world: World, config: Config | None = None, verbose: bool = False) -> SceneData:
     """Flatten a World into SceneData (world.cpp:298-347), the triangle
-    tables sized by the reference count R = len(order)."""
+    tables sized by the reference count R = len(order).  ``verbose``
+    prints the flattening's "hitmiss" seconds to stderr, as the
+    reference's; ``config`` is the reference's parameter, which its
+    flattening does not read either."""
+    then = time.monotonic()
     flat = world.flat if world.flat is not None else flatten_bvh(world.bvh)
+    if verbose:
+        _log_seconds("hitmiss", then)
     order = world.tri_order
     ts = world.triangles
     R = len(order)
@@ -168,9 +192,9 @@ def get_shader_data(world: World) -> SceneData:
         idx = ts.indices[order]
         tri_positions = ts.positions[idx].reshape(R, 9)
         tri_normals = ts.normals[idx].reshape(R, 9)
+        tri_colors = ts.colors[idx].reshape(R, 9)
     else:
-        tri_positions = np.zeros((1, 9), np.float32)
-        tri_normals = np.zeros((1, 9), np.float32)
+        tri_positions, tri_normals, tri_colors = (np.zeros((1, 9), np.float32) for _ in range(3))
     n = flat.node_count
     node_boxes = np.zeros((n, 8), np.float32)
     node_boxes[:, 0:3] = flat.boxmin
@@ -178,6 +202,7 @@ def get_shader_data(world: World) -> SceneData:
     return SceneData(
         tri_positions=np.ascontiguousarray(tri_positions, np.float32),
         tri_normals=np.ascontiguousarray(tri_normals, np.float32),
+        tri_colors=np.ascontiguousarray(tri_colors, np.float32),
         node_boxes=node_boxes,
         node_objects=np.stack([flat.start, flat.count], axis=1).astype(np.int32),
         node_children=flat.children,
@@ -185,6 +210,7 @@ def get_shader_data(world: World) -> SceneData:
         triangle_count=R,
         group_count=n,
         hitmiss=flat.hitmiss,
+        node_axis=flat.axis,
     )
 
 

@@ -38,7 +38,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
-def intersect_brute(tri_pos, P, D, eps: float = 1e-7, device=None):
+def intersect_brute(tri_pos, P, D, eps: float = 1e-7, *, device=None):
     """All-pairs Moller-Trumbore: tri_pos (T, 3, 3), P and D (R, 3),
     numpy arrays or tensors, on ``device`` (default: P's, or the CPU).
     Returns (t, which, u, v) of the closest hit per ray: t =
@@ -89,7 +89,7 @@ def intersect_brute(tri_pos, P, D, eps: float = 1e-7, device=None):
     return t, torch.where(miss, -1, which), bu, bv
 
 
-def sample_env_bilinear(img, D, device=None) -> torch.Tensor:
+def sample_env_bilinear(img, D, *, device=None) -> torch.Tensor:
     """Level-0 bilinear lat-long sample of the (h, w, 3) ``img`` along
     directions (R, 3), REPEAT wrap, row 0 = top."""
     if device is None:
@@ -138,6 +138,7 @@ def render_reference(
     cast_shadows: bool = True,
     tonemap: bool = True,
     surface_fudge: float = 1e-4,
+    *,
     device="cpu",
 ) -> torch.Tensor:
     """The whole render model by brute force: one centred pinhole ray a
@@ -209,7 +210,7 @@ def render_reference(
         D = torch.where(hit_ok[:, None], refl_D, D)
         alive = hit_ok
 
-    color = accumulated + modulation * sample_env_bilinear(env, D, device)
+    color = accumulated + modulation * sample_env_bilinear(env, D, device=device)
     if tonemap:
         color = filmic(color)
     return color.reshape(height, width, 3).to(torch.float32)

@@ -127,10 +127,14 @@ def generate_rays(statics: RenderStatics, params: FrameParams) -> Rays:
 
 
 def default_frame_params(
-    fov: float = np.deg2rad(40.0), device: str | torch.device = "cpu"
+    statics: RenderStatics | None = None,
+    fov: float = np.deg2rad(40.0),
+    *,
+    device: str | torch.device = "cpu",
 ) -> FrameParams:
     """Identity view: camera at the origin looking down -z, light
-    (0,0,1), gold specular, no diffuse."""
+    (0,0,1), gold specular, no diffuse.  ``statics`` is the reference's
+    parameter, which its params do not read either."""
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     eye = np.eye(4, dtype=np.float32)
     return FrameParams(

@@ -24,8 +24,11 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
-def normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+def normalize(v: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    n = torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    if eps:
+        n = torch.clamp_min(n, eps)
+    return v / n
 
 
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

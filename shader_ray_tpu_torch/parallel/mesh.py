@@ -58,10 +58,11 @@ def make_mesh(devices: int | Sequence[str | torch.device] = 0) -> list[torch.dev
     return mesh
 
 
-def replicate_scene(packed, mesh: Sequence[torch.device]) -> dict:
-    """One copy of the packed tables per distinct device of ``mesh``
-    (``packed.to(device)``; the device ``packed`` lies on keeps it)."""
-    return {d: packed.to(d) for d in dict.fromkeys(mesh)}
+def replicate_scene(scene, mesh: Sequence[torch.device]) -> dict:
+    """One copy of the packed tables ``scene`` per distinct device of
+    ``mesh`` (``scene.to(device)``; the device ``scene`` lies on keeps
+    it)."""
+    return {d: scene.to(d) for d in dict.fromkeys(mesh)}
 
 
 def row_bands(height: int, n: int) -> list[tuple[int, int]]:

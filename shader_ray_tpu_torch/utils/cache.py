@@ -6,7 +6,10 @@ The reference parses, builds and flattens the scene on every launch
 the build knobs), so a relaunch skips the build.  The directory is
 ``SRT_CACHE_DIR``, else ``~/.cache/shader_ray_tpu_torch``.  The files
 carry their own name prefix and fields, so neither package reads the
-other's, even in a shared directory.
+other's, even in a shared directory.  A file without a field that
+``SceneData`` has (one written before the vertex colours and split
+axes were stored) is a miss: the scene is built again and the file
+replaced.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import numpy as np
 from shader_ray_tpu_torch.models.world import SceneData
 
 _CACHE_VERSION = 1
-_ARRAYS = ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children")
+_ARRAYS = ("tri_positions", "tri_normals", "tri_colors", "node_boxes", "node_objects",
+           "node_children")
+# stored as an empty marker where the scene has none
+_OPTIONAL = {"hitmiss": (0, 0, 2), "node_axis": (0,)}
 _INTS = ("tree_root", "triangle_count", "group_count")
 
 
@@ -46,8 +52,8 @@ def save_scene_data(key: str, data: SceneData) -> str:
         tmp,
         **{name: getattr(data, name) for name in _ARRAYS},
         **{name: np.int32(getattr(data, name)) for name in _INTS},
-        # an empty marker where the scene has no hit/miss links
-        hitmiss=data.hitmiss if data.hitmiss is not None else np.zeros((0, 0, 2), np.int32),
+        **{name: np.zeros(empty, np.int32) if getattr(data, name) is None else getattr(data, name)
+           for name, empty in _OPTIONAL.items()},
     )
     os.replace(tmp, path)
     return path
@@ -64,7 +70,7 @@ def load_scene_data(key: str) -> SceneData | None:
             return SceneData(
                 **{name: z[name] for name in _ARRAYS},
                 **{name: int(z[name]) for name in _INTS},
-                hitmiss=z["hitmiss"] if z["hitmiss"].size else None,
+                **{name: z[name] if z[name].size else None for name in _OPTIONAL},
             )
     except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
         return None

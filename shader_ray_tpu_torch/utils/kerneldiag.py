@@ -94,7 +94,7 @@ _KNOBS = ("packet_kernel", "packet_fused", "leaf_isect", "packet_max_steps", "mi
 
 
 def describe_failure(exc: BaseException, cfg=None, packed=None, settings=None,
-                     label: str = "frame fn", device=None) -> str:
+                     label: str = "frame fn", *, device=None) -> str:
     """One screen on a kernel's build or launch failure."""
     lines = [f"=== kernel failure ({label}) ===",
              f"error: {type(exc).__name__}: {str(exc).strip()[:500]}"]
@@ -134,14 +134,14 @@ def describe_failure(exc: BaseException, cfg=None, packed=None, settings=None,
 
 
 def report_failure(exc: BaseException, cfg=None, packed=None, settings=None,
-                   label: str = "frame fn", device=None) -> None:
+                   label: str = "frame fn", *, device=None) -> None:
     """Print ``describe_failure`` to stderr unless suppressed
     (``SRT_KERNEL_DIAG=0`` or a ``suppress()`` scope).  Never raises: the
     caller re-raises the real error."""
     if _suppressed or os.environ.get("SRT_KERNEL_DIAG", "1") == "0":
         return
     try:
-        print(describe_failure(exc, cfg, packed, settings, label, device), file=sys.stderr,
+        print(describe_failure(exc, cfg, packed, settings, label, device=device), file=sys.stderr,
               flush=True)
     except Exception:  # the dump must never mask the real error
         pass

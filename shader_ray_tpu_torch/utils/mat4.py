@@ -84,6 +84,11 @@ def zero_bottom_row(m: np.ndarray) -> np.ndarray:
     return r
 
 
+def transform_point(m: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """M @ (p, 1), returning xyz. Matches GLSL ``(m * vec4(p,1)).xyz``."""
+    return m[:3, :3] @ np.asarray(p, dtype=np.float32) + m[:3, 3]
+
+
 def transform_vector(m: np.ndarray, v: np.ndarray) -> np.ndarray:
     """M @ (v, 0), returning xyz. Matches GLSL ``(m * vec4(v,0)).xyz``."""
     return m[:3, :3] @ np.asarray(v, dtype=np.float32)

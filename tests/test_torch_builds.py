@@ -56,7 +56,8 @@ SCENES = {
 }
 BUILDS = {"sbvh": dict(splits="sbvh"), "sbvh-reinsert": dict(splits="sbvh", bvh_opt="reinsert"),
           "reinsert": dict(bvh_opt="reinsert")}
-SCENE_FIELDS = ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children",
+SCENE_FIELDS = ("tri_positions", "tri_normals", "tri_colors", "node_boxes", "node_objects",
+                "node_children", "node_axis",
                 "hitmiss", "tree_root", "triangle_count", "group_count")
 
 

@@ -6,8 +6,9 @@ reference: the scene fixtures (``single_triangle``, ``quad``, ``box``,
 (``intersect_brute`` chunked over the triangles, so its chunks are held
 too); the incremental, vertex-deduplicating ``TriangleSet`` builder
 against the reference's on the fixtures and a small OBJ (vertex count,
-indices, triangles), with ``make_world(verbose=True)``'s count lines;
-and ``mat4.make_scale`` and ``to_degrees``."""
+indices, triangles), with ``make_world(verbose=True)``'s count lines.
+``mat4`` is held to the reference function by function in
+tests/test_torch_parity.py."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,6 @@ from shader_ray_tpu_torch.models.obj import parse_obj_text
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.models.world import make_world
 from shader_ray_tpu_torch.ops import reference as oracle
-from shader_ray_tpu_torch.utils import mat4
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURES = {
@@ -186,16 +186,10 @@ def test_make_world_prints_the_reference_counts(capsys):
     want = capsys.readouterr().err.splitlines()[:3]
     make_world(TriangleSet.from_arrays(pos), Config(use_native="never"), verbose=True)
     got = capsys.readouterr().err.splitlines()
-    assert got == want and want == ["12 triangles.", "24 independent vertices.",
-                                    "2.00 vertices per triangle."]
+    assert got[:3] == want and want == ["12 triangles.", "24 independent vertices.",
+                                        "2.00 vertices per triangle."]
+    # the build log follows, line for line the reference's (tests/test_torch_parity.py)
+    assert got[3].startswith("Finding scene center and extent: ") and got[4].startswith("BVH: ")
     make_world(TriangleSet.from_arrays(pos), Config(use_native="never"))
     assert capsys.readouterr().err == ""
 
-
-def test_mat4_scale_and_degrees_match_reference():
-    for args in ((1.0, 2.0, 3.0), (-0.5, 1e-3, 7.25)):
-        assert mat4.make_scale(*args).tobytes() == ref_mat4.make_scale(*args).tobytes()
-        assert mat4.make_scale(*args).dtype == np.float32
-    for r in (0.0, 1.0, -np.pi / 3, 12.5):
-        assert mat4.to_degrees(r) == ref_mat4.to_degrees(r)
-        assert mat4.to_radians(mat4.to_degrees(r)) == pytest.approx(r)

@@ -137,17 +137,17 @@ def _assert_same_sets(got: TriangleSet, want: TriangleSet):
 def test_native_obj_reader_equals_python(tmp_path, with_normals):
     path = str(tmp_path / "t.obj")
     _write_obj(path, with_normals)
-    got = obj.parse_obj(path, Config(use_native="require"))
+    got = obj.parse_obj(path, config=Config(use_native="require"))
     assert got.triangle_count == (3 if with_normals else 4)
-    _assert_same_sets(got, obj.parse_obj(path, Config(use_native="never")))
+    _assert_same_sets(got, obj.parse_obj(path, config=Config(use_native="never")))
 
 
 def test_native_obj_reader_on_the_knot_asset():
     import os
 
     knot = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "knot.obj")
-    _assert_same_sets(obj.parse_obj(knot, Config(use_native="require")),
-                      obj.parse_obj(knot, Config(use_native="never")))
+    _assert_same_sets(obj.parse_obj(knot, config=Config(use_native="require")),
+                      obj.parse_obj(knot, config=Config(use_native="never")))
     native_world = load_world(knot, Config(use_native="require"), verbose=False)
     numpy_world = load_world(knot, Config(use_native="never"), verbose=False)
     _assert_same(get_shader_data(native_world), get_shader_data(numpy_world), "knot.obj")
@@ -172,21 +172,21 @@ def test_native_readers_reject_bad_files(tmp_path):
     with pytest.raises(ValueError):
         trisrc.parse_trisrc(str(bad), Config(use_native="require"))
     with pytest.raises(FileNotFoundError):
-        obj.parse_obj(str(tmp_path / "none.obj"), Config(use_native="require"))
+        obj.parse_obj(str(tmp_path / "none.obj"), config=Config(use_native="require"))
     notes = tmp_path / "notes.hdr"
     notes.write_bytes(b"not a radiance file\n")
     with pytest.raises(ValueError, match="not a Radiance HDR"):
-        background.read_hdr(str(notes), Config(use_native="require"))
+        background.read_hdr(str(notes), config=Config(use_native="require"))
 
 
 def test_native_hdr_reader_equals_python(tmp_path):
     img = procedural_sky(64).astype(np.float32)
     path = str(tmp_path / "sky.hdr")
     write_hdr(path, img)
-    got = background.read_hdr(path, Config(use_native="require"))
-    want = background.read_hdr(path, Config(use_native="never"))
+    got = background.read_hdr(path, config=Config(use_native="require"))
+    want = background.read_hdr(path, config=Config(use_native="never"))
     assert got.dtype == want.dtype and np.array_equal(got, want)
-    assert np.array_equal(background.load_background(path, Config(use_native="require")), want)
+    assert np.array_equal(background.load_background(path, config=Config(use_native="require")), want)
 
 
 @pytest.fixture
@@ -210,7 +210,7 @@ def test_require_without_a_compiler_raises(no_compiler, tmp_path):
     path = str(tmp_path / "t.obj")
     _write_obj(path, True)
     with pytest.raises(RuntimeError, match="use_native=require"):
-        obj.parse_obj(path, Config(use_native="require"))
+        obj.parse_obj(path, config=Config(use_native="require"))
     # auto falls back to numpy, the same tables
     w = make_world(ts, Config(use_native="auto"))
     assert w.flat is None and w.bvh is not None
