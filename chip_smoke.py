@@ -38,7 +38,7 @@ port's two paths through the Renderer's entry points:
 * the CLI twice with one SRT_CACHE_DIR: the second run hits the scene
   cache and writes the same frame;
 * the Moller-Trumbore leaf form (``Config(leaf_isect="mt")``, phase
-  ``isect``, last): fused which 0, 1, 2 and 5, the count and stats fns
+  ``isect``): fused which 0, 1, 2 and 5, the count and stats fns
   and the unfused frame through the Renderer, gated on the bench goldens
   and held to the Woop frames; its kernels (``frame_kernel_mt``,
   ``trace_wide_mt``: the mt instantiations) held to their plain versions
@@ -47,6 +47,12 @@ port's two paths through the Renderer's entry points:
   (``oracle_disagreement``); each instantiation's registers, spills and
   blocks an SM; the mt and Woop kernels timed in turns, with the mt
   form's bound.
+* the port's bench (phase ``bench``, last): ``python -m
+  shader_ray_tpu_torch.bench`` at its defaults (bench69k, K = 1024, the
+  occluded, which1 and large_340k sub-metrics) as a subprocess, its JSON
+  line printed and held to its fields, its golden gate, this run's cast
+  count and its own launch counts; the K = 1024 linear mean held to 16
+  launches over its 64-jitter slices (``bench_phase``).
 
 The frame kernel is also held to its plain version in each of its env
 modes and on the control-flow cases of its wave compaction (FRAME_CASES,
@@ -1433,6 +1439,99 @@ def diag_phase(renderer, params) -> dict:
     return {"launches": launches}
 
 
+BENCH_FIELDS = ("metric", "value", "unit", "rays_potential", "rays_cast", "mrays_per_s_cast",
+                "frame_ms", "frame_ms_single_dispatch", "frames_per_dispatch", "occluded", "which1",
+                "large_340k", "device")
+BENCH_K = 1024  # the bench's default batch (bench.py:50)
+BENCH_SLICE = 64  # the K = BENCH_K mean is held to BENCH_K // BENCH_SLICE launches of this many
+
+
+def bench_phase(renderer, params, cast: int, k64_ms: float, make_fn_ms: float, card: str) -> dict:
+    """The port's bench, ``python -m shader_ray_tpu_torch.bench`` at its
+    defaults (bench69k, K = BENCH_K, the sub-metrics on), as a subprocess
+    with the build directory warm and a fresh SRT_CACHE_DIR: exit 0,
+    "golden gate: ok" on its stderr, every field of its JSON line (printed
+    here) and no error in it, its rays_cast equal to this run's count at
+    the bench camera, and the frame kernel the only kernel it launched (the
+    counts it prints on stderr; this process launches nothing meanwhile).
+    Then the linear mean over halton_jitters(BENCH_K) in one launch held to
+    the mean of BENCH_K // BENCH_SLICE launches over its slices, and the
+    bench's times printed beside this run's K = 64 and make_fn times (for
+    the reader, no gate)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.bench import has_error
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, render_linear
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+
+    _build.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+        env.update(PYTHONPATH=ROOT, SRT_CACHE_DIR=os.path.join(tmp, "cache"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "shader_ray_tpu_torch.bench"],
+                              capture_output=True, text=True, timeout=600, env=env, cwd=tmp)
+        secs = time.perf_counter() - t0
+    print(f"bench: python -m shader_ray_tpu_torch.bench, rc {proc.returncode} in {secs:.1f} s; "
+          "its stderr:\n" + "\n".join(f"  {s}" for s in proc.stderr.rstrip().splitlines()))
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines else {}
+    print(f"bench: {json.dumps(out)}")
+    launches = next((json.loads(s[len("launches: "):]) for s in proc.stderr.splitlines()
+                     if s.startswith("launches: ")), {})
+    print(f"bench path launches (the bench's own counts): {launches}; this process: "
+          f"{dict(_build.LAUNCHES)}")
+    missing = [f for f in BENCH_FIELDS if f not in out]
+    if proc.returncode != 0 or "golden gate: ok" not in proc.stderr or missing or has_error(out):
+        raise AssertionError(f"bench: rc {proc.returncode}, golden gate ok "
+                             f"{'golden gate: ok' in proc.stderr}, missing fields {missing}, "
+                             f"error {has_error(out)}")
+    if (out["rays_potential"], out["frames_per_dispatch"], out["rays_cast"]) != (W * H * 6, BENCH_K, cast):
+        raise AssertionError(f"bench: rays_potential {out['rays_potential']}, frames_per_dispatch "
+                             f"{out['frames_per_dispatch']}, rays_cast {out['rays_cast']} (this run's "
+                             f"count {cast})")
+    if out["device"]["name"] != torch.cuda.get_device_name(0) or \
+            not isinstance(out["device"]["power_limit_w"], float):
+        raise AssertionError(f"bench: device {out['device']}")
+    if set(launches) != {"frame_kernel"} or launches["frame_kernel"] < 1 or _build.LAUNCHES:
+        raise AssertionError("bench: the bench must launch frame_kernel and nothing else")
+
+    # a thread sums its K samples in order, so the one launch and the
+    # slices differ only in the order of their f32 sums of the same
+    # samples (non-negative colour): sequential sums of n terms err by at
+    # most (n - 1) * 2^-24 of the sum, and /K, /64, /16 are exact, so the
+    # two means lie within (K - 1 + 63 + 15) * 2^-24 of the value
+    linear = RenderStatics(width=W, height=H, do_tonemap=False)
+    jit = torch.from_numpy(halton_jitters(BENCH_K)).cuda()
+    run = lambda j: render_linear(renderer.packed, params, linear, j, renderer.max_steps,
+                                  renderer.fused, renderer.cfg.min_contrib)
+    whole = run(jit)
+    parts = torch.stack([run(jit[i:i + BENCH_SLICE]) for i in range(0, BENCH_K, BENCH_SLICE)])
+    sliced = parts.sum(0) / parts.shape[0]
+    torch.cuda.synchronize()
+    limit = (BENCH_K - 1 + BENCH_SLICE - 1 + parts.shape[0] - 1) * 2.0 ** -24
+    scale = torch.maximum(whole.abs(), sliced.abs())
+    diff = (whole - sliced).abs()
+    rel = float((diff / scale.clamp_min(1e-30)).max())
+    print(f"bench: K={BENCH_K} linear mean (one launch) vs the mean of {parts.shape[0]} launches of "
+          f"K={BENCH_SLICE} over its slices: max abs {float(diff.max()):.3e}, max rel {rel:.3e} "
+          f"(limit {limit:.3e}), pixels differing {int((diff > 0).any(-1).sum())} of {W * H}, "
+          f"smallest value {float(torch.minimum(whole, sliced).min()):.3e}")
+    if not torch.isfinite(whole).all() or bool((diff > limit * scale).any()):
+        raise AssertionError(f"bench: the K={BENCH_K} mean strays from its slices beyond {limit:.3e}")
+    print(f"bench on {card}: time a sample at K={BENCH_K} {out['frame_ms']} ms (host clock, median of "
+          f"batches) beside this run's K={BATCH_K} kernel {k64_ms:.3f} ms a sample (CUDA events); "
+          f"single frame {out['frame_ms_single_dispatch']} ms (make_checksum_fn, host clock, "
+          f"median of 5) beside make_fn's {make_fn_ms:.3f} ms (host clock, median of {TIMED}); "
+          f"occluded {out['occluded']['frame_ms']} ms, which1 {out['which1']['frame_ms']} ms, "
+          f"large_340k {out['large_340k']['frame_ms']} ms a sample; phase {secs:.1f} s")
+    return {"launches": launches, "seconds": secs, "out": out, "k_mean_rel": rel}
+
+
 def main() -> int:
     import torch
 
@@ -2550,6 +2649,8 @@ def main() -> int:
         return [frame_entry, trace_entry]
 
     table += isect_phase()
+    # 18. the port's bench (shader_ray_tpu_torch/bench.py) at its defaults
+    benched = bench_phase(renderer, params, cast, ms_batch, e2e_ms, card)
 
     entry = {e["name"]: e for e in table}
     entry["frame_kernel"].update({
@@ -2580,7 +2681,13 @@ def main() -> int:
         "make_fn_mesh2_ms": meshed["make_fn_[cuda:0, cuda:0]_ms"],
         "native_build_s": natived["g++_s"], "native_scene_s": natived["native_s"],
         "numpy_scene_s": natived["numpy_s"],
+        "bench_launches": benched["launches"]["frame_kernel"], "bench_s": benched["seconds"],
+        "bench_frame_ms": benched["out"]["frame_ms"],
+        "bench_frame_ms_single_dispatch": benched["out"]["frame_ms_single_dispatch"],
+        "bench_k1024_mean_max_rel": benched["k_mean_rel"],
     })
+    for name in entry:
+        entry[name].setdefault("bench_launches", 0)
 
 
     print(f"card: {card}")

@@ -14,9 +14,9 @@ affine and the reference with Moller-Trumbore, so t and the barycentrics
 round differently and a grazing ray can flip between hit and miss.
 The ``which = 5`` oracle is the mean of the reference's ``trace_rays``
 over the 25 sub-sample rays, built as ``ops/render._render_tile`` builds
-them (fs:654-673) and traced through one jitted function: the
-reference's own eager loop recompiles its six traversals for each of the
-25 sub-frames and takes a minute.
+them (fs:654-673) and traced in one jitted call as one batch of 25 x
+W x H rays: the reference's own eager loop recompiles its six traversals
+for each of the 25 sub-frames and takes a minute.
 ``which = 1`` is held to the oracle's deeper mip chain (down to 1 x 1;
 the port's pyramid stops at height 16): with a 512 x 1024 sky only
 silhouette-grazing reflections have a lod past the port's last level,
@@ -115,18 +115,24 @@ def supersample_oracle(sphere):
     size, n = 24, 5
     statics = RefStatics(width=size, height=size, which=5, enable_diffuse=False,
                          tile_size=size * size)
-    rays, (right, up) = ref_generate_rays(statics, jp)
-    trace = jax.jit(lambda sc, r: ref_trace_rays(sc, r, jp, statics))
-    acc = jnp.zeros_like(rays.P)
-    for i in range(n):
-        for j in range(n):
-            D = rays.D + (i / n - 0.5) * 0.2 * right + (j / n - 0.5) * 0.2 * up
-            D = D / jnp.linalg.norm(D, axis=-1, keepdims=True)
-            zero = jnp.zeros_like(D)
-            sub = RefRays(P=rays.P, D=D, dPdx=zero, dDdx=right - (D @ right)[:, None] * D,
-                          dPdy=zero, dDdy=up - (D @ up)[:, None] * D)
-            acc = acc + trace(scene, sub)
-    return np.asarray(ref_tonemap(acc / (n * n), True)).reshape(size, size, 3)
+
+    @jax.jit
+    def oracle(sc, p):
+        rays, (right, up) = ref_generate_rays(statics, p)
+        sets = []
+        for i in range(n):
+            for j in range(n):
+                D = rays.D + (i / n - 0.5) * 0.2 * right + (j / n - 0.5) * 0.2 * up
+                D = D / jnp.linalg.norm(D, axis=-1, keepdims=True)
+                sets.append((D, right - (D @ right)[:, None] * D, up - (D @ up)[:, None] * D))
+        D, dDdx, dDdy = (jnp.concatenate(x) for x in zip(*sets))
+        zero = jnp.zeros_like(D)
+        sub = RefRays(P=jnp.tile(rays.P, (n * n, 1)), D=D, dPdx=zero, dDdx=dDdx, dPdy=zero,
+                      dDdy=dDdy)
+        colour = ref_trace_rays(sc, sub, p, statics).reshape(n * n, -1, 3)
+        return ref_tonemap(colour.mean(axis=0), True)
+
+    return np.asarray(oracle(scene, jp)).reshape(size, size, 3)
 
 
 def test_renderer_packs_by_config(sphere):
