@@ -47,12 +47,22 @@ port's two paths through the Renderer's entry points:
   (``oracle_disagreement``); each instantiation's registers, spills and
   blocks an SM; the mt and Woop kernels timed in turns, with the mt
   form's bound.
-* the port's bench (phase ``bench``, last): ``python -m
+* the port's bench (phase ``bench``): ``python -m
   shader_ray_tpu_torch.bench`` at its defaults (bench69k, K = 1024, the
-  occluded, which1 and large_340k sub-metrics) as a subprocess, its JSON
-  line printed and held to its fields, its golden gate, this run's cast
-  count and its own launch counts; the K = 1024 linear mean held to 16
-  launches over its 64-jitter slices (``bench_phase``).
+  occluded, which1 and large_340k sub-metrics) under BENCH_TUNE=0 as a
+  subprocess, its JSON line printed and held to its fields, its golden
+  gate, this run's cast count and its own launch counts; the K = 1024
+  linear mean held to 16 launches over its 64-jitter slices
+  (``bench_phase``);
+* the frame kernel's launch shapes and the autotune (phase ``tune``,
+  last, under a temporary SRT_CACHE_DIR): each of FRAME_SHAPES (tile
+  widths 8, 16, 32, 64, warp maps rows and bricks) bit for bit the
+  default launch in which = 0, which = 1 aniso 4 and the given-rays form,
+  its per-tile rows held to frame_plain's on a 256 x 192 frame, a refused
+  width raising and failing as a search candidate; each shape timed at
+  K = 1 and K = 64 with its registers; App.tune(64) on the bench scene
+  and its cache hit with no launch; the bench under BENCH_TUNE=1, then
+  auto, through its golden gate (``tune_phase``).
 
 The frame kernel is also held to its plain version in each of its env
 modes and on the control-flow cases of its wave compaction (FRAME_CASES,
@@ -1448,7 +1458,8 @@ BENCH_SLICE = 64  # the K = BENCH_K mean is held to BENCH_K // BENCH_SLICE launc
 
 def bench_phase(renderer, params, cast: int, k64_ms: float, make_fn_ms: float, card: str) -> dict:
     """The port's bench, ``python -m shader_ray_tpu_torch.bench`` at its
-    defaults (bench69k, K = BENCH_K, the sub-metrics on), as a subprocess
+    defaults (bench69k, K = BENCH_K, the sub-metrics on) under
+    BENCH_TUNE=0 (the shipped launch shape), as a subprocess
     with the build directory warm and a fresh SRT_CACHE_DIR: exit 0,
     "golden gate: ok" on its stderr, every field of its JSON line (printed
     here) and no error in it, its rays_cast equal to this run's count at
@@ -1471,7 +1482,8 @@ def bench_phase(renderer, params, cast: int, k64_ms: float, make_fn_ms: float, c
     _build.LAUNCHES.clear()
     with tempfile.TemporaryDirectory() as tmp:
         env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-        env.update(PYTHONPATH=ROOT, SRT_CACHE_DIR=os.path.join(tmp, "cache"))
+        # the shipped launch shape: no tune applied (the tune phase runs the rest)
+        env.update(PYTHONPATH=ROOT, SRT_CACHE_DIR=os.path.join(tmp, "cache"), BENCH_TUNE="0")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "shader_ray_tpu_torch.bench"],
                               capture_output=True, text=True, timeout=600, env=env, cwd=tmp)
@@ -1530,6 +1542,194 @@ def bench_phase(renderer, params, cast: int, k64_ms: float, make_fn_ms: float, c
           f"occluded {out['occluded']['frame_ms']} ms, which1 {out['which1']['frame_ms']} ms, "
           f"large_340k {out['large_340k']['frame_ms']} ms a sample; phase {secs:.1f} s")
     return {"launches": launches, "seconds": secs, "out": out, "k_mean_rel": rel}
+
+
+# the frame kernel's launch shapes (Config.frame_tile, frame_warp), the
+# default first; utils/autotune.DEFAULT_SPACE searches them
+FRAME_SHAPES = tuple((w, m) for w in (16, 32, 8, 64) for m in ("rows", "bricks"))
+TUNE_SMALL = (256, 192)  # the frame whose per-tile rows are held to frame_plain's
+TUNE_K = 64  # samples of App.tune's batches, and of the shapes' per-sample times
+
+
+def bits(x):
+    """A float tensor's bit patterns, for bit-for-bit comparisons (NaN too)."""
+    import torch
+
+    return x.contiguous().view(dtype=torch.int32)
+
+
+def tile_rows_disagreement(kr, pr) -> str | None:
+    """Why the kernel's per-tile rows disagree with the plain version's at
+    the same shape, or None.  A grazing ray that flips (nvcc's FMAs)
+    changes its own tile's row only: at most max(2, tiles / 500) tiles may
+    differ, each by at most 2 rays cast.  A wrong pixel map moves whole
+    rows of pixels between tiles, which this refuses."""
+    if kr.shape != pr.shape:
+        return f"rows {tuple(kr.shape)} vs {tuple(pr.shape)}"
+    differ = (kr != pr).any(1)
+    n, limit = int(differ.sum()), max(2, kr.shape[0] // 500)
+    cast = int((kr[:, 0] - pr[:, 0]).abs().max()) if kr.numel() else 0
+    if n > limit or cast > 2:
+        return f"{n} tiles differ (limit {limit}), rays cast by up to {cast} in a tile"
+    return None
+
+
+def tune_phase(renderer, params, card: str) -> dict:
+    """The frame kernel's launch shapes and the autotune over them, on the
+    bench scene, under a temporary SRT_CACHE_DIR that is removed after:
+    (a) every shape of FRAME_SHAPES in which = 0 K = 1, which = 1 aniso 4
+    and the given-rays form, each launch's linear colour and counter row
+    bit for bit the default launch's, and on a TUNE_SMALL frame its
+    per-tile rows summing to its row and held to frame_plain's at the
+    same shape; a shape the kernel has not raises, and inside a search is
+    a failed candidate; (b) each shape timed with CUDA events, K = 1 (n =
+    TIMED) and a sample of K = TUNE_K, in turns, beside its registers and
+    blocks an SM; (c) App.tune(TUNE_K) applying a winner, then a cache hit
+    that launches nothing; (d) the bench under BENCH_TUNE=1 then
+    BENCH_TUNE=auto (sub-metrics off), each through its golden gate, the
+    second applying the first's tune."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shader_ray_tpu_torch.app.driver import App
+    from shader_ray_tpu_torch.ops import _build
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+    from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+    from shader_ray_tpu_torch.utils.autotune import autotune
+
+    t_phase = time.perf_counter()
+    packed = renderer.packed
+    uni = pack_uniforms(params).cuda()
+    one = torch.zeros((1, 2), dtype=torch.float32, device="cuda")
+    batch = torch.from_numpy(halton_jitters(TUNE_K)).cuda()
+    fs0 = fk.FrameSettings(width=W, height=H)
+    forms = {
+        "which=0": (fs0, one, None),
+        "which=1 aniso 4": (fs0._replace(which=1, env_aniso=4), one, None),
+        "given rays": (fs0, None, fk.raygen_rays(uni, one, fs0)),
+    }
+    want = {f: fk.frame_kernel(packed, uni, jit, fs, rays=rays) for f, (fs, jit, rays) in forms.items()}
+    small = fk.FrameSettings(width=TUNE_SMALL[0], height=TUNE_SMALL[1])
+    small_row = fk.frame_kernel(packed, uni, one, small)[1]
+    print(f"tune: the frame kernel's launch shapes on {card}")
+    for tile_w, warp in FRAME_SHAPES:
+        shape = dict(tile_w=tile_w, warp_map=warp)
+        same = []
+        for f, (fs, jit, rays) in forms.items():
+            c, n = fk.frame_kernel(packed, uni, jit, fs._replace(**shape), rays=rays)
+            same.append(torch.equal(bits(c), bits(want[f][0])) and torch.equal(n, want[f][1]))
+        s = small._replace(**shape)
+        rows = torch.full((s.n_tiles(), 1 + 3 * s.phases()), -1, dtype=torch.long, device="cuda")
+        prow = torch.empty_like(rows)
+        row = fk.frame_kernel(packed, uni, one, s, tile_rows=rows)[1]
+        fk.frame_plain(packed, uni, one, s, tile_rows=prow)
+        torch.cuda.synchronize()
+        why = tile_rows_disagreement(rows.cpu(), prow.cpu())
+        against = why or ("equal" if torch.equal(rows, prow) else "within the limit")
+        print(f"  {tile_w}x{fk.BLOCK // tile_w} {warp}: colour and counter row bit for bit the "
+              f"default's ({', '.join(forms)}): {same}; {TUNE_SMALL[0]}x{TUNE_SMALL[1]} rows "
+              f"{tuple(rows.shape)} sum to the row {torch.equal(rows.sum(0), row)}, row the default's "
+              f"{torch.equal(row, small_row)}, against frame_plain's: {against}")
+        if not all(same) or not torch.equal(rows.sum(0), row) or not torch.equal(row, small_row) \
+                or why is not None:
+            raise AssertionError(f"tune: shape {tile_w} {warp} strays from the default launch")
+    try:
+        fk.frame_kernel(packed, uni, one, fs0._replace(tile_w=12))
+    except RuntimeError as e:
+        print(f"  tile_w=12 refused: {e}")
+    else:
+        raise AssertionError("tune: the kernel launched a 12-pixel tile")
+    linear = RenderStatics(width=W, height=H, do_tonemap=False)
+    failed_best, failed_res = autotune(renderer, linear, params, samples=1, frames=1, apply=False,
+                                       space=[[{"frame_tile": 16}, {"frame_tile": 12}]])
+    if len(failed_res) != 1 or failed_best != {"frame_tile": 16}:
+        raise AssertionError(f"tune: a refused shape is no failed candidate: {failed_res}")
+
+    # (b) each shape's time, in turns
+    t1 = {sh: [] for sh in FRAME_SHAPES}
+    t64 = {sh: [] for sh in FRAME_SHAPES}
+    for _ in range(2):
+        for sh in FRAME_SHAPES:
+            fs = fs0._replace(tile_w=sh[0], warp_map=sh[1])
+            t1[sh] += cuda_times(lambda: fk.frame_kernel(packed, uni, one, fs), TIMED // 2)
+            t64[sh] += [t / TUNE_K for t in cuda_times(lambda: fk.frame_kernel(packed, uni, batch, fs), 5)]
+    shapes = {}
+    for sh in FRAME_SHAPES:
+        info = fk.launch_info(packed.stack_depth, "bilinear", tile_w=sh[0], warp_map=sh[1])
+        if (info["tile_w"], info["tile_h"]) != (sh[0], fk.BLOCK // sh[0]):
+            raise AssertionError(f"tune: launch_info reports tile {info['tile_w']}x{info['tile_h']}")
+        m1, m64 = float(np.median(t1[sh])), float(np.median(t64[sh]))
+        shapes[f"{sh[0]}x{fk.BLOCK // sh[0]} {sh[1]}"] = {"k1_ms": round(m1, 4), "k64_ms": round(m64, 4)}
+        base1, base64 = np.median(t1[FRAME_SHAPES[0]]), np.median(t64[FRAME_SHAPES[0]])
+        print(f"  {sh[0]}x{fk.BLOCK // sh[0]} {sh[1]} on {card}: K=1 {summary(t1[sh])} "
+              f"({m1 / base1 - 1:+.1%} against 16x16 rows); K={TUNE_K} a sample {summary(t64[sh])} "
+              f"({m64 / base64 - 1:+.1%}); {info['registers']} registers, {info['local_bytes']} local "
+              f"bytes, {info['blocks_per_sm']} blocks an SM")
+
+    # (c) App.tune, then its cache hit; (d) the bench under BENCH_TUNE=1 and auto
+    tmp = tempfile.mkdtemp()
+    saved_cache = os.environ.get("SRT_CACHE_DIR")
+    os.environ["SRT_CACHE_DIR"] = os.path.join(tmp, "cache")
+    cfg_before = copy.copy(renderer.cfg)
+    try:
+        app = App(bench_world(), renderer, renderer.cfg, width=W, height=H)
+        app.scene_key = "chip-smoke-bench69k"
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        best = app.tune(TUNE_K, file=sys.stdout)
+        tune_s = time.perf_counter() - t0
+        launched = dict(_build.LAUNCHES)
+        print(f"tune path launches (App.tune({TUNE_K}) on bench69k, {tune_s:.1f} s): {launched}")
+        if not best or launched.get("frame_kernel", 0) < 1 or set(launched) != {"frame_kernel"} \
+                or (renderer.cfg.frame_tile, renderer.cfg.frame_warp) != (best["frame_tile"],
+                                                                           best["frame_warp"]):
+            raise AssertionError(f"tune: App.tune applied {best}, launches {launched}")
+        _build.LAUNCHES.clear()
+        again = app.tune(TUNE_K, file=sys.stdout)
+        print(f"tune: second App.tune: {again}, launches {dict(_build.LAUNCHES)}")
+        if again != best or _build.LAUNCHES:
+            raise AssertionError("tune: the second App.tune is no cache hit")
+        runs = []
+        for mode in ("1", "auto"):
+            env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+            env.update(PYTHONPATH=ROOT, BENCH_TUNE=mode, BENCH_EXTRAS="0", BENCH_OCCLUDED="0")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "shader_ray_tpu_torch.bench"],
+                                  capture_output=True, text=True, timeout=600, env=env, cwd=tmp)
+            secs = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            out = json.loads(lines[-1]) if lines else {}
+            knobs = [s_ for s_ in proc.stderr.splitlines()
+                     if s_.startswith(("autotune", "applying cached tune"))]
+            print(f"tune: bench BENCH_TUNE={mode}: rc {proc.returncode} in {secs:.1f} s, frame_ms "
+                  f"{out.get('frame_ms')}, single {out.get('frame_ms_single_dispatch')}; "
+                  + "; ".join(knobs))
+            runs.append((proc, out, secs))
+            if proc.returncode != 0 or "golden gate: ok" not in proc.stderr or "error" in out:
+                raise AssertionError(f"tune: bench BENCH_TUNE={mode} failed:\n{proc.stderr[-3000:]}")
+        searched = next((s_ for s_ in runs[0][0].stderr.splitlines() if s_.startswith("autotune best: ")),
+                        None)
+        bench_best = searched and searched[len("autotune best: "):]
+        if not bench_best or f"applying cached tune: {bench_best}" not in runs[1][0].stderr:
+            raise AssertionError("tune: BENCH_TUNE=auto did not apply the BENCH_TUNE=1 winner")
+    finally:
+        renderer.cfg = cfg_before
+        if saved_cache is None:
+            os.environ.pop("SRT_CACHE_DIR", None)
+        else:
+            os.environ["SRT_CACHE_DIR"] = saved_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"tune on {card}: App.tune({TUNE_K}) picked {best} in {tune_s:.1f} s; bench BENCH_TUNE=1 "
+          f"picked {bench_best}: frame_ms {runs[0][1]['frame_ms']} (BENCH_TUNE=1), "
+          f"{runs[1][1]['frame_ms']} (auto); phase {secs:.1f} s")
+    return {"launches": launched, "best": best, "bench_best": bench_best, "shapes": shapes,
+            "seconds": secs, "bench_frame_ms": [r[1]["frame_ms"] for r in runs]}
 
 
 def main() -> int:
@@ -2651,6 +2851,8 @@ def main() -> int:
     table += isect_phase()
     # 18. the port's bench (shader_ray_tpu_torch/bench.py) at its defaults
     benched = bench_phase(renderer, params, cast, ms_batch, e2e_ms, card)
+    # 19. the launch shapes, App.tune and the bench's BENCH_TUNE (phase tune, last)
+    tuned = tune_phase(renderer, params, card)
 
     entry = {e["name"]: e for e in table}
     entry["frame_kernel"].update({
@@ -2685,9 +2887,13 @@ def main() -> int:
         "bench_frame_ms": benched["out"]["frame_ms"],
         "bench_frame_ms_single_dispatch": benched["out"]["frame_ms_single_dispatch"],
         "bench_k1024_mean_max_rel": benched["k_mean_rel"],
+        "tune_launches": tuned["launches"]["frame_kernel"], "tune_best": tuned["best"],
+        "tune_bench_best": tuned["bench_best"], "tune_shapes": tuned["shapes"],
+        "tune_s": tuned["seconds"],
     })
     for name in entry:
         entry[name].setdefault("bench_launches", 0)
+        entry[name].setdefault("tune_launches", 0)
 
 
     print(f"card: {card}")

@@ -8,7 +8,7 @@ ray.cpp:1132-1142): state changes mark the frame dirty, ``render()``
 recomputes only then.  Per-frame state (matrices, light, material
 colors, fov) goes in as ``FrameParams`` tensors built on the host; the
 Renderer moves them to its device.  A frame function is made once per
-(which, size) and kept; ``set_knob`` drops them.
+(which, size) and kept; ``set_knob`` and ``tune`` drop them.
 """
 
 from __future__ import annotations
@@ -157,7 +157,8 @@ class App:
     def walk_stats(self, file=sys.stdout) -> np.ndarray | None:
         """Render once with the frame kernel's per-tile counters and print,
         for each bounce and shadow walk, the node pops, leaf visits and
-        triangle tests a 16 x 16 tile (mean and max)."""
+        triangle tests a tile of the launch shape (``Config.frame_tile``
+        wide; mean and max)."""
         fn = self.renderer.make_stats_fn(self._statics())
         if fn is None:
             print("walk stats need the fused frame kernel (wide tables, packet_fused)", file=file)
@@ -175,6 +176,31 @@ class App:
                 file=file,
             )
         return s
+
+    def tune(self, samples: int = 32, file=sys.stdout) -> dict | None:
+        """Autotune the frame kernel's launch shape (``frame_tile``,
+        ``frame_warp``) for this scene and view on the renderer's device
+        (utils/autotune.py) and apply the winner to the session config;
+        results persist next to the scene cache (``scene_key``).  Needs
+        the fused route (wide tables, ``packet_fused``, ``which`` not 3),
+        where the knobs act."""
+        from shader_ray_tpu_torch.ops.engine_frame import fused_route
+
+        if not fused_route(self.renderer.packed, self._statics(), self.renderer.fused):
+            print("autotune needs the fused frame kernel (wide tables, packet_fused, which != 3)",
+                  file=file)
+            return None
+        from shader_ray_tpu_torch.utils.autotune import autotune
+
+        best, results = autotune(
+            self.renderer, self._statics(), self.frame_params(),
+            samples=samples, key=getattr(self, "scene_key", None),
+        )
+        for tag, ms in sorted(results.items(), key=lambda kv: kv[1]):
+            print(f"{ms:9.2f} ms/frame  {tag}", file=file)
+        print(f"applied: {best}", file=file)
+        self._fn_cache.clear()
+        return best
 
     def set_knob(self, name: str, value: str, file=sys.stdout) -> bool:
         """Set a Config knob of the running App by field name (REPL

@@ -42,9 +42,12 @@ extra (headless equivalents of mouse gestures):
   render [F]   force a frame; optionally write it to file F (.ppm)
   prog [N]     progressive render: average N jittered samples (default 4)
   stats        per-phase walk counters (node pops, leaf visits, triangle
-               tests per 16x16 tile)
-  set K V      set a config knob live (e.g. `set min_contrib 0.004`);
-               `set` alone lists knobs
+               tests per tile of the launch shape, 16x16 by default)
+  tune [N]     autotune the frame kernel's tile shape and warp map for
+               this scene (N-sample batches, default 32)
+  set K V      set a config knob live (e.g. `set min_contrib 0.004`,
+               `set frame_tile 32`, `set frame_warp bricks`); `set`
+               alone lists knobs
   view         toggle inline ANSI-truecolor display of each frame
   serve [PORT] browser live viewer: serve frames + take mouse/keyboard
                input over HTTP until quit (also --serve PORT)
@@ -84,7 +87,10 @@ def build_app(args):
     renderer = Renderer(data, background, cfg, device=device, mesh=mesh)
     print(f"device: {renderer.device}" + (f", mesh of {len(mesh)}: {', '.join(map(str, mesh))}"
                                           if mesh else ""), file=sys.stderr)
-    return App(world, renderer, cfg, width=args.width, height=args.height)
+    app = App(world, renderer, cfg, width=args.width, height=args.height)
+    # the scene-cache key doubles as the autotune persistence key
+    app.scene_key = key
+    return app
 
 
 def cli_mesh(devices: int, device):
@@ -146,7 +152,7 @@ def repl(app, out_path: str, stream, view: bool = False) -> None:
                 break
             continue
         elif cmd == "tune":
-            print(f"{cmd}: not in this package yet", file=sys.stderr)
+            app.tune(samples=int(parts[1]) if len(parts) > 1 else 32, file=sys.stderr)
             continue
         elif cmd == "set":
             if len(parts) == 3:

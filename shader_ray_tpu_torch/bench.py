@@ -31,7 +31,11 @@ BENCH_EXTRAS=0 (skip the sub-metrics), BENCH_GOLDEN=0 (skip the gate);
 the ``SRT_*`` knobs through ``Config.from_env``.  BENCH_DEVICE names the
 torch device, the card by default; ``cpu`` runs the kernels' plain
 versions, and its numbers are the CPU's (``device.name`` is ``"cpu"``).
-BENCH_TUNE=1 is refused: the port has no autotune (ROADMAP A14).
+BENCH_TUNE picks the frame kernel's launch shape before each scene is
+timed (``_maybe_tune``, utils/autotune.py): ``auto`` (the default)
+applies a tune persisted for the scene and its statics, and never
+searches; ``1`` searches (persisted, so a rerun is a cache hit); ``0``
+keeps the shipped defaults.  The golden gate runs under the knobs applied.
 
 The last line of stdout is one JSON object: ``metric`` "mrays_per_s",
 ``value`` (potential Mrays/s of the headline), ``unit``,
@@ -42,7 +46,7 @@ The last line of stdout is one JSON object: ``metric`` "mrays_per_s",
 from nvidia-smi).  ``bench.py``'s ``vs_baseline`` (a TPU target) is left
 out, and milliseconds keep 3 decimals.
 
-Exit codes: 0; 2 without the asked-for device or with BENCH_TUNE=1; 3 when
+Exit codes: 0; 2 without the asked-for device; 3 when
 the golden gate fails (the line then carries ``value`` 0.0 and ``error``);
 4 when a measurement after the headline raised: its key holds
 ``{"error": ...}`` and the line is still printed.
@@ -50,6 +54,7 @@ the golden gate fails (the line then carries ``value`` 0.0 and ``error``);
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -196,10 +201,34 @@ def has_error(out) -> bool:
     return isinstance(out, dict) and ("error" in out or any(has_error(v) for v in out.values()))
 
 
+def _maybe_tune(renderer, statics, params, scene_key) -> None:
+    """The launch-shape autotune before a measurement (bench.py:585-625).
+    BENCH_TUNE modes: "1" runs the search on the device (persisted next
+    to the scene cache; a rerun is a cache hit); "auto" (the default)
+    applies a persisted tune if there is one and never searches; "0"
+    keeps the shipped defaults.  Each sub-benchmark starts from its
+    renderer's pre-tune config, so one scene's winner does not leak into
+    another's measurement."""
+    mode = os.environ.get("BENCH_TUNE", "auto")
+    if mode == "0" or BATCH <= 1:
+        return
+    from shader_ray_tpu_torch.utils.autotune import autotune, load_tuned
+
+    if not hasattr(renderer, "_pretune_cfg"):
+        renderer._pretune_cfg = copy.copy(renderer.cfg)
+    renderer.cfg = copy.copy(renderer._pretune_cfg)
+    samples = min(BATCH, 1024)
+    if mode != "1":
+        best = load_tuned(scene_key, statics, samples, device=renderer.device)
+        if best:
+            print(f"applying cached tune: {best}", file=sys.stderr)
+            for k, v in best.items():
+                setattr(renderer.cfg, k, v)
+        return
+    autotune(renderer, statics, params, samples=samples, frames=2, key=scene_key)
+
+
 def main() -> None:
-    if os.environ.get("BENCH_TUNE") == "1":
-        _emit_error("BENCH_TUNE=1: the port has no autotune yet (ROADMAP A14): its frame kernel "
-                    "has no launch knob to search", 2)
     device = _device()
     info = _device_info(device)
     power = info["power_limit_w"]
@@ -207,7 +236,7 @@ def main() -> None:
     print(f"device: {device} ({where}), count {info['count']}", file=sys.stderr)
     cfg = Config.from_env()
 
-    data, env, _ = build_scene_data()
+    data, env, scene_key = build_scene_data()
     print(f"scene: {data.triangle_count} tris, {data.group_count} bvh nodes", file=sys.stderr)
     renderer = Renderer(data, env, cfg, device=device)
 
@@ -226,6 +255,7 @@ def main() -> None:
     fov = np.deg2rad(40.0)
     # the bunny-class sphere has extent ~2.6
     params = _frame_params(2.6, fov, (0.8, 0.2, 0.2), 0.05)
+    _maybe_tune(renderer, statics, params, scene_key)
 
     fn = renderer.make_fn(statics)
     fsum = renderer.make_checksum_fn(statics)
@@ -268,14 +298,22 @@ def main() -> None:
     if os.environ.get("BENCH_OCCLUDED", "1") != "0":
         subs["occluded"] = lambda: bench_occluded(statics, fov, device=device)
     if os.environ.get("BENCH_EXTRAS", "1") != "0":
-        subs["which1"] = lambda: _time_progressive(renderer, statics._replace(which=1), params)
+        def which1():
+            # its own tune: the statics differ by which, and so may the winner
+            s1 = statics._replace(which=1)
+            _maybe_tune(renderer, s1, params, scene_key)
+            return _time_progressive(renderer, s1, params)
 
         def large():
             t0 = time.perf_counter()
-            data_l, env_l, _ = build_scene_data(LARGE_TRIS)
+            data_l, env_l, key_l = build_scene_data(LARGE_TRIS)
             print(f"large scene: {data_l.triangle_count} tris, {data_l.group_count} bvh nodes, "
                   f"built or loaded in {time.perf_counter() - t0:.2f}s", file=sys.stderr)
-            return _time_progressive(Renderer(data_l, env_l, cfg, device=device), statics, params)
+            r_l = Renderer(data_l, env_l, cfg, device=device)
+            _maybe_tune(r_l, statics, params, key_l)
+            return _time_progressive(r_l, statics, params)
+
+        subs["which1"] = which1
 
         subs["large_340k"] = large
     for key, measure in subs.items():
@@ -359,11 +397,12 @@ def bench_occluded(statics, fov, *, device: torch.device | None = None) -> dict:
     (BENCH_TRIS triangles) under a grazing light, so shadow rays hit real
     occluders, timed as the headline; ``device`` defaults to BENCH_DEVICE."""
     tris = int(os.environ.get("BENCH_TRIS", "69000"))
-    data, _ = _fixture_scene("terrain", terrain_scene, tris)
+    data, key = _fixture_scene("terrain", terrain_scene, tris)
     renderer = Renderer(data, procedural_sky(2048), Config.from_env(), device=device or _device())
     light = np.array([0.78, 0.5, 0.37], np.float32)
     light /= np.linalg.norm(light)
     params = _frame_params(2.9, fov, (0.7, 0.6, 0.45), 0.04, light)
+    _maybe_tune(renderer, statics, params, key)
     fsum = renderer.make_checksum_fn(statics)
     fsum(params).item()
     if BATCH > 1:

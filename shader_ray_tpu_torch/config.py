@@ -2,7 +2,10 @@
 
 The fields the port reads, with the reference package's defaults, names
 and checks (shader_ray_tpu/config.py); ``from_env`` reads the
-reference's environment variables for them.  Tests hold the defaults and
+reference's environment variables for them.  Two fields are the port's
+own: ``frame_tile`` and ``frame_warp``, the frame kernel's launch shape
+(set through ``Config``, the REPL's ``set`` or a tune; no environment
+variable).  Tests hold the defaults and
 ``from_env`` equal.  The reference's TPU schedule knobs are not here:
 they tune machinery the port does not have, the TPU's or the reference's
 XLA wavefront engine's (ROADMAP.md lists each field the port lacks and
@@ -95,6 +98,14 @@ class Config:
     debug_nans: bool = False         # raise FloatingPointError when a frame
                                      # function's output holds a NaN (engine.py)
 
+    # --- frame kernel launch shape (no reference field; the counterparts
+    # of its prog_tile and jitter_pack: which pixels one program covers).
+    # Read at each launch; searched by utils/autotune.py; not in from_env ---
+    frame_tile: int = 16             # a block's tile width in pixels: 8, 16, 32
+                                     # or 64; its height is 256 / width
+    frame_warp: str = "rows"         # the pixels a warp covers: "rows" (thread t
+                                     # at (t mod w, t div w)) | "bricks" (8x4)
+
     # choice sets of the string fields, checked by validate
     _CHOICES = {
         "packet_kernel": ("wide", "binary"),
@@ -103,7 +114,9 @@ class Config:
         "use_native": ("auto", "never", "require"),
         "collapse": ("sah", "greedy"),
         "leaf_isect": ("mt", "woop"),
+        "frame_warp": ("rows", "bricks"),
     }
+    FRAME_TILES = (8, 16, 32, 64)
 
     def validate(self) -> "Config":
         for name, choices in self._CHOICES.items():
@@ -123,6 +136,8 @@ class Config:
             raise ValueError(f"packet_max_steps={self.packet_max_steps}: need >= 0")
         if self.min_contrib < 0.0:
             raise ValueError(f"min_contrib={self.min_contrib} invalid: need >= 0")
+        if self.frame_tile not in self.FRAME_TILES:
+            raise ValueError(f"frame_tile={self.frame_tile}: use one of {self.FRAME_TILES}")
         return self
 
     @staticmethod

@@ -45,8 +45,12 @@
 // pixel through every bounce, and the counter array and the stack
 // spilled.  This design (1.06 ms; 1.01 ms with the walk's split leaf
 // records, H100 80GB HBM3 at 700 W; PERF.md):
-//   * bounces in waves: a block owns a 16x16 tile of pixels (one thread
-//     a pixel) for all K samples.  Each walk phase compacts the tile's
+//   * bounces in waves: a block owns a tile of 256 pixels (one thread a
+//     pixel) for all K samples: w x 256/w pixels, w = 8, 16 (the
+//     default), 32 or 64, and either thread t at (t mod w, t div w) of
+//     the tile ("rows", the default) or each warp on an 8x4 brick of it
+//     ("bricks"); the launch picks both (Config.frame_tile, frame_warp),
+//     and they move only which thread walks which pixel.  Each walk phase compacts the tile's
 //     live rays into a dense queue in shared memory (warp ballot + a
 //     prefix over the block's warps), so busy lanes walk live rays and
 //     dead rays leave whole warps idle;
@@ -62,12 +66,16 @@
 //     leave the block with one 64-bit atomic per counter;
 //   * nodes and Woop test rows are read with 16-byte loads, a hit's
 //     normal terms once a walk (walk.cuh).
-// What holds it now: 106 registers (which = 0; 108-125 in the grad
-// modes) and the 64 KB stack (+6 KB of differentials in the grad modes)
+// What holds it now: 107 registers (which = 0 raygen; 100-125 over the
+// modes and forms; each slot's pixel index waits in shared memory, so the
+// walks' registers do not carry it, while its float coordinates stay in
+// registers, which keeps raygen's FMA contractions) and the 64 KB stack
+// (+6 KB of differentials in the grad modes)
 // allow 2 blocks (16 warps) an SM, and a block waits at each phase's
-// barrier for its slowest walk.  Tiles of 16x8, 16x4, 32x8, 32x16 and 16x32, part of
-// the stack in local memory, fewer registers and persistent blocks were
-// all slower or no faster (PERF.md section 6).
+// barrier for its slowest walk.  Blocks of 128, 64 and 512 threads (16x8,
+// 16x4, 32x8, 32x16 and 16x32 tiles), part of the stack in local memory,
+// fewer registers and persistent blocks were all slower or no faster
+// (PERF.md section 6).
 //
 // Sums are deterministic: a pixel's owner thread adds its samples in
 // order k = 0..K-1 and writes their mean (no atomics on colour).
@@ -92,9 +100,13 @@ namespace {
 
 using namespace srt;  // Scene, Walk, walk(), the table constants (walk.cuh); the env lookup (env.cuh)
 
-constexpr int TILE_W = 16, TILE_H = 16;
-constexpr int BLOCK = TILE_W * TILE_H;  // one thread a pixel of the tile
+constexpr int LOG2_BLOCK = 8;
+constexpr int BLOCK = 1 << LOG2_BLOCK;  // one thread a pixel of the tile
 constexpr int WARPS = BLOCK / 32;
+// the tile's width, log2: 8 to 64 pixels, so its height (BLOCK / width)
+// holds whole 8x4 bricks
+constexpr int LOG2_TILE_MIN = 3, LOG2_TILE_MAX = 6;
+constexpr int WARP_ROWS = 0, WARP_BRICKS = 1;  // the warp maps
 constexpr int MAX_PHASES = 16;
 constexpr int N_COUNTERS = 1 + 3 * MAX_PHASES;
 static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "a tile is whole warps");
@@ -189,7 +201,7 @@ template <int ENV, bool GIVEN, int ISECT>
 __global__ void __launch_bounds__(BLOCK, 1)
 frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
       const float* __restrict__ uni_g, const float* __restrict__ jit, GivenRays rays, int K,
-      int W, int H, int tiles_x,
+      int W, int H, int tiles_x, int log2w, int warp_map,
       float inv_w, float inv_h, float aspect, int bounces,
       bool shadows, bool diffuse, float fudge, float min_contrib, int n_counters,
       float* __restrict__ out, unsigned long long* __restrict__ counters,
@@ -203,6 +215,7 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
     __shared__ unsigned char sFlag[BLOCK], sBad[BLOCK];
     __shared__ short q[BLOCK];
     __shared__ int wcount[WARPS];
+    __shared__ int sPix[BLOCK];  // each slot's pixel, y * W + x; -1 outside the frame
     extern __shared__ int stack_sh[];  // (stack_depth, BLOCK); grad modes: then (N_GRAD, BLOCK) floats
     // grad modes: the slots' dDdx (rows 0-2) and dDdy (rows 3-5)
     float* const sG = reinterpret_cast<float*>(stack_sh + s.stack_depth * BLOCK);
@@ -227,17 +240,32 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
     const int phase_stride = shadows ? 2 : 1;
 
     {
-        const int tile = blockIdx.x;
-        const int px = (tile % tiles_x) * TILE_W + tid % TILE_W;
-        const int py = (tile / tiles_x) * TILE_H + tid / TILE_W;
-        const bool valid = px < W && py < H;
+        // this thread's pixel: tile (tx, ty) of the w x 256/w tiles,
+        // w = 2^log2w, and in it (lx, ly) by the warp map
+        const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
+        int lx, ly;
+        if (warp_map == WARP_BRICKS) {
+            // warp v on the brick (v mod w/8, v div w/8), lane l at (l mod 8, l div 8) in it
+            const int v = tid >> 5, l = tid & 31, lb = log2w - 3;
+            lx = ((v & ((1 << lb) - 1)) << 3) | (l & 7);
+            ly = ((v >> lb) << 2) | (l >> 3);
+        } else {
+            lx = tid & ((1 << log2w) - 1);
+            ly = tid >> log2w;
+        }
+        const int px = (tx << log2w) + lx;
+        const int py = (ty << (LOG2_BLOCK - log2w)) + ly;
+        // read back where it is needed, so no register holds it through the walks
+        sPix[tid] = px < W && py < H ? py * W + px : -1;
         const float iif = (float)px, jf = (float)py;
         float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f;
         for (int k = 0; k < K; ++k) {
+            const int pixel = sPix[tid];
+            const bool valid = pixel >= 0;
             if (valid && GIVEN) {
                 // given rays (kernel_mega.py:233-241): P of the pixel, D and
                 // the differentials of sample k
-                const size_t pix = (size_t)py * W + px;
+                const size_t pix = (size_t)pixel;
                 const size_t r = (size_t)k * W * H + pix;
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
@@ -417,7 +445,7 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                 count(cnt, ph + 3, st, lf, tr);
             }
             __syncthreads();
-            if (valid) {
+            if (sPix[tid] >= 0) {
                 float col0 = 1.0f, col1 = 0.0f, col2 = 0.0f;  // bad-ray paint
                 if (!sBad[tid]) {
                     const float Dx = sD[0][tid], Dy = sD[1][tid], Dz = sD[2][tid];
@@ -447,8 +475,8 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                 sum2 += col2;
             }
         }
-        if (valid) {
-            float* o = out + ((size_t)py * W + px) * 3;
+        if (sPix[tid] >= 0) {
+            float* o = out + (size_t)sPix[tid] * 3;
             o[0] = sum0 / (float)K;
             o[1] = sum1 / (float)K;
             o[2] = sum2 / (float)K;
@@ -465,8 +493,8 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
 }
 
 using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, GivenRays,
-                        int, int, int, int, float, float, float, int, bool, bool, float, float, int,
-                        float*, unsigned long long*, unsigned long long*);
+                        int, int, int, int, int, int, float, float, float, int, bool, bool, float,
+                        float, int, float*, unsigned long long*, unsigned long long*);
 // [isect][form][mode]: isect 0 Woop, 1 Moller-Trumbore (walk.cuh); form 0
 // raygen, 1 given rays
 constexpr int N_ISECT = 2;
@@ -500,6 +528,13 @@ cudaError_t allow_stack_smem() {
     return err;
 }
 
+// log2 of a tile width of 8, 16, 32 or 64 pixels; -1 for any other
+int log2_tile(int tile_w) {
+    for (int l = LOG2_TILE_MIN; l <= LOG2_TILE_MAX; ++l)
+        if (tile_w == 1 << l) return l;
+    return -1;
+}
+
 // the kernel of a frame's which (0, 1, 2) and aniso; -1 if none
 int env_mode(int which, int aniso) {
     if (aniso < 1) return -1;
@@ -515,7 +550,9 @@ int env_mode(int which, int aniso) {
 // in the grad modes rays_gx, rays_gy (K, W*H, 3).  min_contrib: the lane
 // retirement threshold, 0 = none.  rows: null, or the (tiles, 1 + 3 *
 // phases) per-tile counter rows.  isect: the leaves' form, 0 Woop or 1
-// Moller-Trumbore.
+// Moller-Trumbore.  tile_w: the tile's width, 8, 16, 32 or 64 pixels (its
+// height 256 / tile_w; tiles row-major, and rows so); warp_map: 0 rows, 1
+// 8x4 bricks.
 extern "C" int srt_frame_kernel(
     const float* nodes, const float* leaves, const float* normals, int isect,
     const void* env, const int* levels, int n_levels, int which, int aniso,
@@ -524,15 +561,17 @@ extern "C" int srt_frame_kernel(
     int K, int W, int H,
     float inv_w, float inv_h, float aspect,
     int bounces, int shadows, int diffuse, float fudge, float mt_eps, float min_contrib,
-    int max_steps, int stack_depth,
+    int max_steps, int stack_depth, int tile_w, int warp_map,
     float* out, unsigned long long* counters, unsigned long long* rows, void* stream) {
     const bool cast = shadows != 0 && diffuse != 0;
     const int phases = bounces * (cast ? 2 : 1);
     const int mode = env_mode(which, aniso);
     const bool given = rays_D != nullptr;
     const bool grads = mode != BILINEAR;
+    const int log2w = log2_tile(tile_w);
     Levels lv;
-    if (K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
+    if (log2w < 0 || (warp_map != WARP_ROWS && warp_map != WARP_BRICKS) ||
+        K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
         stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv) ||
         !(min_contrib >= 0.0f) || isect < 0 || isect >= N_ISECT ||
         (given ? (rays_P == nullptr || jitters != nullptr ||
@@ -541,14 +580,16 @@ extern "C" int srt_frame_kernel(
         return (int)cudaErrorInvalidValue;
     cudaError_t err = allow_stack_smem();
     if (err != cudaSuccess) return (int)err;
-    const int tiles_x = (W + TILE_W - 1) / TILE_W;
-    const unsigned grid = (unsigned)tiles_x * (unsigned)((H + TILE_H - 1) / TILE_H);
+    const int tile_h = BLOCK >> log2w;
+    const int tiles_x = (W + tile_w - 1) / tile_w;
+    const unsigned grid = (unsigned)tiles_x * (unsigned)((H + tile_h - 1) / tile_h);
     Scene s{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(leaves),
             reinterpret_cast<const float4*>(normals), stack_depth, max_steps, mt_eps};
     const GivenRays rays{rays_P, rays_D, rays_gx, rays_gy};
     KERNELS[isect][given][mode]<<<grid, BLOCK, smem_bytes(mode, stack_depth), (cudaStream_t)stream>>>(
         s, static_cast<const float4*>(env), lv, (float)aniso, uni, jitters, rays, K, W, H, tiles_x,
-        inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, min_contrib, 1 + 3 * phases,
+        log2w, warp_map, inv_w, inv_h, aspect, bounces, cast, diffuse != 0, fudge, min_contrib,
+        1 + 3 * phases,
         out, counters, rows);
     return (int)cudaGetLastError();
 }
@@ -556,15 +597,18 @@ extern "C" int srt_frame_kernel(
 // The launch's resources of the kernel of env mode 0 (which = 0), 1
 // (which = 1, aniso 1), 2 (which = 1, aniso > 1) or 3 (which = 2) in
 // form 0 (raygen) or 1 (given rays) with leaf test isect (0 Woop, 1
-// Moller-Trumbore) for a scene's stack bound, into
+// Moller-Trumbore) for a scene's stack bound, launched with tiles tile_w
+// pixels wide and warp map warp_map (as srt_frame_kernel takes them), into
 // info[0..8): registers a thread, static shared bytes, local bytes a
 // thread (stack frame), dynamic shared bytes (the stack and the
 // differentials), resident blocks an SM, threads a block, tile width,
 // tile height.
-extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int isect,
-                                     int* info) {
+extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int isect, int tile_w,
+                                     int warp_map, int* info) {
+    const int log2w = log2_tile(tile_w);
     if (stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || mode >= N_MODES || given < 0 ||
-        given > 1 || isect < 0 || isect >= N_ISECT)
+        given > 1 || isect < 0 || isect >= N_ISECT || log2w < 0 ||
+        (warp_map != WARP_ROWS && warp_map != WARP_BRICKS))
         return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(mode, stack_depth);
     cudaError_t err = allow_stack_smem();
@@ -583,7 +627,7 @@ extern "C" int srt_frame_kernel_info(int stack_depth, int mode, int given, int i
     info[3] = (int)smem;
     info[4] = per_sm;
     info[5] = BLOCK;
-    info[6] = TILE_W;
-    info[7] = TILE_H;
+    info[6] = tile_w;
+    info[7] = BLOCK >> log2w;
     return 0;
 }

@@ -5,7 +5,10 @@ frame functions per static render configuration.  A frame function runs
 the fused frame kernel once per call (wide tables, ``Config.packet_fused``,
 every ``which`` but 3; ``which = 5`` over its 25 given sub-ray sets) or
 the unfused trace engine; ops/engine_frame.py routes.  Every fused route
-retires spent lanes at ``Config.min_contrib``, read at each call.
+retires spent lanes at ``Config.min_contrib`` and launches in the tile
+shape of ``Config.frame_tile`` and ``frame_warp``, all read at each call:
+a ``copy.copy`` of a Renderer with another ``cfg`` renders the same
+tables under that config's knobs (utils/autotune.py measures so).
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.  With
@@ -116,6 +119,11 @@ class Renderer:
     def fused(self) -> bool:
         return self.cfg.packet_fused
 
+    @property
+    def shape(self) -> dict:
+        """The frame kernel's launch shape, as the fused routes take it."""
+        return dict(tile_w=self.cfg.frame_tile, warp_map=self.cfg.frame_warp)
+
     def _wrap(self, fn, label: str, statics: RenderStatics):
         """``fn`` with the failure dump and ``Config.debug_nans`` (module
         docstring)."""
@@ -142,7 +150,7 @@ class Renderer:
         kernel's ``FrameSettings`` on the fused route, else the unfused
         route's trace and env settings."""
         if fused_route(self.packed, statics, self.fused):
-            return frame_settings(statics, self.max_steps, self.cfg.min_contrib)
+            return frame_settings(statics, self.max_steps, self.cfg.min_contrib, **self.shape)
         return dict(route="unfused", tables=type(self.packed).__name__, which=statics.which,
                     width=statics.width, height=statics.height, bounce_count=statics.bounce_count,
                     cast_shadows=statics.cast_shadows, mt_eps=statics.mt_eps,
@@ -155,7 +163,8 @@ class Renderer:
         from shader_ray_tpu_torch.parallel import shard_rows
 
         return shard_rows(self.replicas, self.mesh, statics.height, lambda packed, rows: render_linear(
-            packed, params, statics, jitters, self.max_steps, self.fused, self.cfg.min_contrib, rows))
+            packed, params, statics, jitters, self.max_steps, self.fused, self.cfg.min_contrib, rows,
+            **self.shape))
 
     def make_fn(self, statics: RenderStatics):
         """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter;
@@ -165,7 +174,7 @@ class Renderer:
             if self.mesh is not None:
                 return finish(self._sharded_linear(params, statics, frame_jitter(params)), statics)
             return render_frame(self.packed, params, statics, self.max_steps, self.fused,
-                                self.cfg.min_contrib)
+                                self.cfg.min_contrib, **self.shape)
 
         return self._wrap(fn, "frame fn", statics)
 
@@ -189,13 +198,13 @@ class Renderer:
 
                 out = finish(sample_sharded(self.replicas, self.mesh, jitters, lambda packed, block: render_linear(
                     packed, params, statics, block, self.max_steps, self.fused,
-                    self.cfg.min_contrib)), statics)
+                    self.cfg.min_contrib, **self.shape)), statics)
             elif self.mesh is not None:
                 out = finish(self._sharded_linear(params, statics, jitters), statics)
             else:
                 out = render_progressive(
                     self.packed, params, statics, jitters, self.max_steps, self.fused,
-                    self.cfg.min_contrib,
+                    self.cfg.min_contrib, **self.shape,
                 )
             return out.sum() if reduce_sum else out
 
@@ -209,14 +218,15 @@ class Renderer:
 
         def fn(params: FrameParams) -> int:
             return count_cast(self.packed, params, statics, self.max_steps, self.fused,
-                              self.cfg.min_contrib)
+                              self.cfg.min_contrib, **self.shape)
 
         return self._wrap(fn, "cast-count fn", statics)
 
     def make_stats_fn(self, statics: RenderStatics):
         """``fn(params) -> (n_tiles, 1 + 3 * phases)`` int64 per-tile walk
         counters of one ``which = 0`` frame at params.pixel_jitter from
-        the fused frame kernel, one row a 16 x 16 pixel tile: column 0
+        the fused frame kernel, one row a pixel tile of the launch shape
+        (``Config.frame_tile`` wide, 16 x 16 by default): column 0
         rays cast, columns 1+3p / 2+3p / 3+3p phase p's node pops, leaf
         visits and triangle tests (``frame_kernel.stats_phases`` names
         the phases).  None where there is no fused route (binary tables,
@@ -226,6 +236,7 @@ class Renderer:
             return None
 
         def fn(params: FrameParams) -> torch.Tensor:
-            return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib)
+            return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib,
+                              **self.shape)
 
         return self._wrap(fn, "stats fn", statics._replace(which=0))

@@ -26,7 +26,12 @@ Routing is by configuration, decided in ``fused_route``:
 * any other ``which`` renders as ``which = 0`` does, as in the reference.
 
 ``tile_stats`` is the stats fn's frame: the fused kernel's counter row
-of each 16 x 16 pixel tile of a ``which = 0`` frame.
+of each pixel tile of a ``which = 0`` frame.
+
+Every fused route launches the kernel in the tile shape of ``tile_w``
+and ``warp_map`` (``Config.frame_tile`` and ``frame_warp``, read by the
+Renderer at each call; 16 x 16 tiles in rows by default): the frame is
+the same under each, and ``tile_stats``' rows follow the tiles.
 
 ``render_linear(rows=(r0, r1))`` renders only image rows r0 to r1 - 1
 (a shard of parallel/mesh.shard_rows), each ray the whole frame's: on the
@@ -54,6 +59,7 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     UNI_NORMAL_INVERSE,
     UNI_NORMAL_MATRIX,
     UNI_OBJECT_MATRIX,
+    TILE,
     UNI_SIZE,
     UNI_SPECULAR,
     FrameSettings,
@@ -115,7 +121,8 @@ def fused_route(packed: Packed, statics: RenderStatics, fused: bool) -> bool:
 
 
 def frame_settings(
-    statics: RenderStatics, max_steps: int = 0, min_contrib: float = 0.0
+    statics: RenderStatics, max_steps: int = 0, min_contrib: float = 0.0,
+    tile_w: int = TILE, warp_map: str = "rows",
 ) -> FrameSettings:
     """The fused frame kernel's settings.  ``which = 3`` traces nothing
     and must not arrive here; ``which = 5`` is the bilinear mode over
@@ -138,6 +145,8 @@ def frame_settings(
         which=statics.which if statics.which in (1, 2) else 0,
         env_aniso=statics.env_aniso,
         min_contrib=min_contrib,
+        tile_w=tile_w,
+        warp_map=warp_map,
     )
 
 
@@ -201,6 +210,7 @@ def supersample_directions(D: torch.Tensor, right: torch.Tensor, up: torch.Tenso
 def fused_linear(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
     jitters: torch.Tensor, max_steps: int = 0, min_contrib: float = 0.0,
+    tile_w: int = TILE, warp_map: str = "rows",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE frame-kernel launch: the linear (H, W, 3) mean over the
     (K, 2) jitters + the kernel's counter row (ops/frame_kernel.py).  The
@@ -209,13 +219,14 @@ def fused_linear(
     dev = packed.leaves.device
     return frame_kernel(
         packed, pack_uniforms(params).to(dev), jitters.to(dev),
-        frame_settings(statics, max_steps, min_contrib),
+        frame_settings(statics, max_steps, min_contrib, tile_w, warp_map),
     )
 
 
 def fused_supersample(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
     max_steps: int = 0, min_contrib: float = 0.0, rows: tuple[int, int] | None = None,
+    tile_w: int = TILE, warp_map: str = "rows",
 ) -> torch.Tensor:
     """The which = 5 frame at ``params.pixel_jitter`` as ONE launch of
     the frame kernel's given-rays form: the primaries' origins and their
@@ -225,7 +236,7 @@ def fused_supersample(
     params = _on(params, packed.leaves.device)
     rays, (right, up) = primary_rays(statics, params, rows)
     given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
-    fs = frame_settings(statics, max_steps, min_contrib)
+    fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
     return frame_kernel(packed, pack_uniforms(params), None,
                         fs._replace(height=rays.P.shape[0] // fs.width), rays=given)[0]
 
@@ -233,6 +244,7 @@ def fused_supersample(
 def fused_given(
     packed: PackedWide, params: FrameParams, statics: RenderStatics, jitters: torch.Tensor,
     rows: tuple[int, int], max_steps: int = 0, min_contrib: float = 0.0,
+    tile_w: int = TILE, warp_map: str = "rows",
 ) -> torch.Tensor:
     """Image ``rows`` (r0, r1) of the fused frame over the (K, 2)
     ``jitters`` as ONE launch of the frame kernel's given-rays form: the
@@ -242,7 +254,7 @@ def fused_given(
     given-rays form."""
     dev = packed.leaves.device
     uni = pack_uniforms(params).to(dev)
-    fs = frame_settings(statics, max_steps, min_contrib)
+    fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
     rays = raygen_rays(uni, jitters.to(dev), fs, rows)
     return frame_kernel(packed, uni, None, fs._replace(height=rows[1] - rows[0]), rays=rays)[0]
 
@@ -256,6 +268,8 @@ def render_linear(
     fused: bool = True,
     min_contrib: float = 0.0,
     rows: tuple[int, int] | None = None,
+    tile_w: int = TILE,
+    warp_map: str = "rows",
 ) -> torch.Tensor:
     """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
     the configuration (module docstring); with ``rows`` = (r0, r1) the
@@ -263,14 +277,15 @@ def render_linear(
     the kernel's given-rays form (``fused_given``), elsewhere the same
     function as the whole frame's."""
     on_kernel = fused_route(packed, statics, fused)
+    shape = dict(tile_w=tile_w, warp_map=warp_map)
     if on_kernel and statics.which != 5:
         if rows is not None:
-            return fused_given(packed, params, statics, jitters, rows, max_steps, min_contrib)
-        return fused_linear(packed, params, statics, jitters, max_steps, min_contrib)[0]
+            return fused_given(packed, params, statics, jitters, rows, max_steps, min_contrib, **shape)
+        return fused_linear(packed, params, statics, jitters, max_steps, min_contrib, **shape)[0]
     total = None
     for jit in jitters:
         jittered = params._replace(pixel_jitter=jit)
-        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib, rows)
+        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib, rows, **shape)
                  if on_kernel else unfused_linear(packed, jittered, statics, max_steps, rows))
         total = frame if total is None else total + frame
     return total / jitters.shape[0]
@@ -279,6 +294,7 @@ def render_linear(
 def count_cast(
     packed: Packed, params: FrameParams, statics: RenderStatics,
     max_steps: int = 0, fused: bool = True, min_contrib: float = 0.0,
+    tile_w: int = TILE, warp_map: str = "rows",
 ) -> int:
     """Rays actually cast for one frame at ``params.pixel_jitter``: live
     bounce rays + shadow rays from light-facing hits.  It is one trace of
@@ -288,7 +304,7 @@ def count_cast(
         if statics.which == 5:
             statics = statics._replace(which=0)
         return int(fused_linear(packed, params, statics, frame_jitter(params), max_steps,
-                                min_contrib)[1][0])
+                                min_contrib, tile_w, warp_map)[1][0])
     params = _on(params, packed.env_pyramid.texels.device)
     rays = generate_rays(statics, params)
     return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
@@ -296,15 +312,15 @@ def count_cast(
 
 def tile_stats(
     packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
-    min_contrib: float = 0.0,
+    min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
 ) -> torch.Tensor:
     """The per-tile counter rows of one ``which = 0`` frame at
     ``params.pixel_jitter`` through the fused frame kernel:
-    (n_tiles, 1 + 3 * phases) int64, one row a 16 x 16 pixel tile,
-    tiles row-major.  Column 0 rays cast; columns 1+3p, 2+3p, 3+3p phase
+    (n_tiles, 1 + 3 * phases) int64, one row a tile of ``tile_w`` x
+    256 / ``tile_w`` pixels, tiles row-major.  Column 0 rays cast; columns 1+3p, 2+3p, 3+3p phase
     p's node pops, leaf visits and triangle tests (phases in
     ``frame_kernel.stats_phases`` order), summed over the tile's rays."""
-    fs = frame_settings(statics._replace(which=0), max_steps, min_contrib)
+    fs = frame_settings(statics._replace(which=0), max_steps, min_contrib, tile_w, warp_map)
     dev = packed.leaves.device
     rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long, device=dev)
     frame_kernel(packed, pack_uniforms(params).to(dev), frame_jitter(params).to(dev), fs,
@@ -326,12 +342,12 @@ def finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
 
 def render_frame(
     packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
-    fused: bool = True, min_contrib: float = 0.0,
+    fused: bool = True, min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
     unless ``statics.do_tonemap`` is off."""
     color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused,
-                          min_contrib)
+                          min_contrib, tile_w=tile_w, warp_map=warp_map)
     return finish(color, statics)
 
 
@@ -343,8 +359,10 @@ def render_progressive(
     max_steps: int = 0,
     fused: bool = True,
     min_contrib: float = 0.0,
+    tile_w: int = TILE,
+    warp_map: str = "rows",
 ) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
-    return finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib),
-                   statics)
+    return finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
+                                tile_w=tile_w, warp_map=warp_map), statics)

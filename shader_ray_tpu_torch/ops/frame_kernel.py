@@ -35,8 +35,18 @@ walk phase p (bounce walks and shadow walks interleaved, as the
 reference stats row) ``[1+3p]`` node pops, ``[2+3p]`` leaf visits,
 ``[3+3p]`` triangle tests.  Given ``tile_rows``, an int64
 (n_tiles, 1 + 3 * phases) tensor, both also write the same counts of
-each 16 x 16 pixel tile (all K samples) into its row, tiles row-major;
-the rows' column sums are the frame's row.
+each pixel tile (all K samples) into its row, tiles row-major; the rows'
+column sums are the frame's row.
+
+A block of 256 threads renders one tile, one thread a pixel.  The tile's
+shape and which pixels a warp covers are launch arguments
+(``FrameSettings.tile_w`` and ``warp_map``; ``Config.frame_tile`` and
+``frame_warp``): tiles ``tile_w`` x 256 / ``tile_w`` pixels, ``tile_w``
+one of ``TILE_WIDTHS``; ``"rows"`` puts thread t at (t mod w, t div w)
+of the tile, ``"bricks"`` each warp on an 8 x 4 brick of it.  They change
+which thread walks which pixel, not what a pixel gets: colour and
+counter row are the same bit for bit under every shape; the per-tile
+rows follow the tiles.
 """
 
 from __future__ import annotations
@@ -62,7 +72,10 @@ from shader_ray_tpu_torch.ops.trace_kernel import (
 )
 
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
-TILE = 16                # a block renders a TILE x TILE pixel tile
+BLOCK = 256              # threads a block: a tile of BLOCK pixels
+TILE = 16                # the default tile width (Config.frame_tile): 16 x 16 pixels
+TILE_WIDTHS = (8, 16, 32, 64)
+WARP_MAPS = ("rows", "bricks")  # the kernel's warp_map argument, in its order
 FRAME_MODES = ("bilinear", "grad", "probes", "dy")  # the kernel's instantiations
 
 # uniform table layout (kernel_mega.py:43-54; ops/engine_frame.pack_uniforms)
@@ -104,6 +117,8 @@ class FrameSettings(NamedTuple):
     which: int = 0              # env term: 0 level-0 bilinear, 1 textureGrad, 2 dY picture
     env_aniso: int = 1          # which = 1: probes when > 1
     min_contrib: float = 0.0    # lane retirement threshold (Config.min_contrib); 0 = none
+    tile_w: int = TILE          # tile width in pixels (TILE_WIDTHS); height BLOCK / tile_w
+    warp_map: str = "rows"      # the pixels a warp covers (WARP_MAPS)
 
     def phases(self) -> int:
         return len(stats_phases(self.bounce_count, self.cast_shadows, self.enable_diffuse))
@@ -117,8 +132,16 @@ class FrameSettings(NamedTuple):
             return "probes" if self.env_aniso > 1 else "grad"
         return "dy" if self.which == 2 else "bilinear"
 
+    def tile(self) -> tuple[int, int]:
+        """(width, height) of a tile; raises on a shape the kernel has not."""
+        if self.tile_w not in TILE_WIDTHS or self.warp_map not in WARP_MAPS:
+            raise ValueError(f"frame_kernel: tile_w={self.tile_w} warp_map={self.warp_map!r}: "
+                             f"need a width in {TILE_WIDTHS} and a map in {WARP_MAPS}")
+        return self.tile_w, BLOCK // self.tile_w
+
     def n_tiles(self) -> int:
-        return -(-self.width // TILE) * -(-self.height // TILE)
+        tw, th = self.tile()
+        return -(-self.width // tw) * -(-self.height // th)
 
 
 class GivenRays(NamedTuple):
@@ -153,6 +176,7 @@ def frame_plain(
     with ``"env_dDdx"`` and ``"env_dDdy"``, their differentials, in the
     grad modes."""
     fs.mode()  # a mode the kernel has
+    tw, th = fs.tile()  # and a tile shape
     W, H = fs.width, fs.height
     K = _samples(jitters, rays, fs)
     HW = W * H
@@ -178,8 +202,8 @@ def frame_plain(
         gx = list(rays.dDdx.reshape(R, 3).unbind(1))
         gy = list(rays.dDdy.reshape(R, 3).unbind(1))
     # the tile of each ray's pixel, for the per-tile rows
-    tiles_x = -(-W // TILE)
-    tile = (pix // W) // TILE * tiles_x + (pix % W) // TILE
+    tiles_x = -(-W // tw)
+    tile = (pix // W) // th * tiles_x + (pix % W) // tw
     if tile_rows is not None:
         _build.check("frame_plain", "tile_rows", tile_rows, torch.long,
                      (fs.n_tiles(), 1 + 3 * fs.phases()))
@@ -405,6 +429,7 @@ def _entry():
         I, I, I,                   # K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
         I, I, I, F, F, F, I, I,    # bounces, shadows, diffuse, fudge, eps, min_contrib, max_steps, stack
+        I, I,                      # tile width, warp map
         P, P, P, P,                # out, counters, tile rows, stream
     ]
     fn.restype = I
@@ -412,17 +437,24 @@ def _entry():
 
 
 def launch_info(stack_depth: int, mode: str = "bilinear", given: bool = False,
-                isect: str = "woop") -> dict[str, int]:
+                isect: str = "woop", tile_w: int = TILE, warp_map: str = "rows") -> dict[str, int]:
     """The launch of the frame kernel of ``mode`` (one of ``FRAME_MODES``)
     in its raygen or given-rays form with leaf test ``isect`` on the
-    current card for a scene's stack bound: registers a thread, static
-    and dynamic (stack, and the differentials in the grad modes) shared
-    bytes a block, local bytes a thread, resident blocks an SM, threads a
-    block and the tile."""
+    current card for a scene's stack bound, in tiles ``tile_w`` pixels
+    wide under ``warp_map``: registers a thread, static and dynamic
+    (stack, and the differentials in the grad modes) shared bytes a
+    block, local bytes a thread, resident blocks an SM, threads a block
+    and the tile's ``tile_w`` and ``tile_h``."""
     return _build.launch_info("frame_kernel", "srt_frame_kernel_info", stack_depth,
                               FRAME_MODES.index(mode), int(given),
-                              isect_code("launch_info", isect),
+                              isect_code("launch_info", isect), tile_w, _warp_code(warp_map),
                               keys=(*_build.INFO_KEYS, "tile_w", "tile_h"))
+
+
+def _warp_code(warp_map: str) -> int:
+    """The kernel's code of a warp map; an unknown map gets -1, which the
+    kernel refuses."""
+    return WARP_MAPS.index(warp_map) if warp_map in WARP_MAPS else -1
 
 
 def frame_kernel(
@@ -490,7 +522,7 @@ def frame_kernel(
             inv_w, inv_h, aspect,
             fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
             fs.surface_fudge, fs.mt_eps, fs.min_contrib, fs.max_steps or Nw + 2,
-            packed.stack_depth,
+            packed.stack_depth, fs.tile_w, _warp_code(fs.warp_map),
             out.data_ptr(), counters.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(), stream,
         )

@@ -83,9 +83,17 @@ def assert_frame_close(got, want):
     assert (err.max(axis=-1) <= 2e-2).mean() >= 0.99, (err.max(axis=-1) > 2e-2).mean()
 
 
+# the frame kernel's launch shape: the port's own fields, no reference analog
+PORT_ONLY = ("frame_tile", "frame_warp")
+
+
+def shared_fields():
+    return [f for f in dataclasses.fields(Config) if f.name not in PORT_ONLY]
+
+
 def test_config_defaults_and_checks_match_the_reference():
     ref, port = RefConfig(), Config()
-    for f in dataclasses.fields(Config):
+    for f in shared_fields():
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
     for bad in (dict(min_contrib=-0.1), dict(env_base=100), dict(splits="kd"),
                 dict(bvh_opt="rotate")):
@@ -105,8 +113,10 @@ def test_config_from_env_matches_the_reference(monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     ref, port = RefConfig.from_env(), Config.from_env()
-    for f in dataclasses.fields(Config):
+    for f in shared_fields():
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    for name in PORT_ONLY:  # no environment variable sets the launch shape
+        assert getattr(port, name) == getattr(Config(), name), name
     assert port != Config()  # every variable was read
     assert sum(getattr(port, f.name) != getattr(Config(), f.name) for f in dataclasses.fields(Config)) \
         == len(env)

@@ -4,8 +4,10 @@ same arrays; ``build_scene_data`` gives bench.py's key and tables; ``main``
 under BENCH_DEVICE=cpu at a tiny size prints a last line with every
 field (and no ``vs_baseline``), its value consistent with its frame time
 and its cast rays the Renderer's count; a sub-metric or the cast count
-that raises leaves an ``error`` entry and exit 4; BENCH_TUNE=1 exits 2;
-without a card the bench exits non-zero; the functions the port keeps
+that raises leaves an ``error`` entry and exit 4; BENCH_TUNE=1 searches
+the launch shape of each scene (a fake timer), ``auto`` applies the
+persisted tunes without searching and ``0`` keeps the defaults, each
+scene timed under its own; without a card the bench exits non-zero; the functions the port keeps
 take bench.py's parameters (an AST walk)."""
 
 import ast
@@ -200,13 +202,87 @@ def test_a_failed_measurement_exits_4(fails, tiny_run, monkeypatch):
     assert f"{fails} failed: injected failure" in err
 
 
-def test_tune_is_refused(monkeypatch, capsys):
-    monkeypatch.setenv("BENCH_TUNE", "1")
-    with pytest.raises(SystemExit) as e:
-        port_bench.main()
-    assert e.value.code == 2
-    out = capsys.readouterr()
-    assert "A14" in json.loads(out.out.strip().splitlines()[-1])["error"]
+def _fake_time(renderer, cfg, statics, params, samples, frames):
+    """A candidate timer that favours 32-pixel tiles in rows (64-pixel
+    tiles at which=1)."""
+    want = 64 if statics.which == 1 else 32
+    return 1e-3 * (1 + (cfg.frame_tile != want) + (cfg.frame_warp != "rows"))
+
+
+def _bench_tune(cache: str, mode: str | None):
+    """``_run_main`` in ``cache`` under BENCH_TUNE=``mode`` (None: unset),
+    with no repo tune store and the fake timer; its result and the
+    (which, tile, warp) of each scene's timed batches."""
+    import shader_ray_tpu_torch.utils.autotune as at
+
+    timed = []
+    sample_time = port_bench._sample_time
+
+    def recording(renderer, statics, params, batch, frames):
+        timed.append((statics.which, renderer.cfg.frame_tile, renderer.cfg.frame_warp))
+        return sample_time(renderer, statics, params, batch, frames)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(at, "_repo_tune_dir", lambda: None)
+        mp.setattr(at, "_time_candidate", _fake_time)
+        env = {"SRT_CACHE_DIR": cache, **({} if mode is None else {"BENCH_TUNE": mode})}
+        return (*_run_main(env, _sample_time=recording), timed)
+
+
+@pytest.fixture(scope="module")
+def tuned_run(tiny_run, tmp_path_factory):
+    """BENCH_TUNE=1 in a cache dir with the tiny run's scenes and no tune."""
+    import shutil
+
+    cache = tmp_path_factory.mktemp("tuned_cache")
+    for scene in pathlib.Path(tiny_run[0]).glob("torch-scene-*.npz"):
+        shutil.copy(scene, cache)
+    return cache, _bench_tune(str(cache), "1")
+
+
+def _copy_of(tuned_run, tmp_path) -> pathlib.Path:
+    import shutil
+
+    cache = tmp_path / "cache"
+    shutil.copytree(tuned_run[0], cache)
+    return cache
+
+
+def test_bench_tune_1_searches_each_scene_and_persists(tuned_run):
+    cache, (code, line, err, timed) = tuned_run
+    assert code == 0, err
+    assert "error" not in _keys(line)
+    # the headline, occluded, which1 and large_340k: one search each, 5 shapes
+    assert err.count("autotune best: ") == 4
+    assert err.count("autotune best: {'frame_tile': 32, 'frame_warp': 'rows'}") == 3
+    assert err.count("autotune best: {'frame_tile': 64, 'frame_warp': 'rows'}") == 1
+    assert err.count("autotune[0]: ") == 4 * 5 and "autotune[1]: " not in err
+    records = sorted(cache.glob("tune-*.json"))
+    assert len(records) == 4
+    assert all(json.loads(r.read_text())["samples"] == TINY["BATCH"] for r in records)
+    # each scene timed under its own winner: the headline batches, occluded,
+    # then which1 at its own tune (not the headline's), large_340k
+    assert timed == [(0, 32, "rows"), (0, 32, "rows"), (1, 64, "rows"), (0, 32, "rows")]
+
+
+def test_bench_tune_auto_applies_without_searching(tuned_run, tmp_path):
+    cache = _copy_of(tuned_run, tmp_path)
+    which1 = [r for r in cache.glob("tune-bench-bunny-class-2k-*.json")
+              if json.loads(r.read_text())["best"]["frame_tile"] == 64]
+    assert len(which1) == 1
+    which1[0].unlink()  # which1 then has no tune and runs from the pre-tune config
+    code, line, err, timed = _bench_tune(str(cache), None)  # unset: auto
+    assert code == 0, err
+    assert "autotune" not in err
+    assert err.count("applying cached tune: {'frame_tile': 32, 'frame_warp': 'rows'}") == 3
+    assert timed == [(0, 32, "rows"), (0, 32, "rows"), (1, 16, "rows"), (0, 32, "rows")]
+
+
+def test_bench_tune_0_keeps_the_defaults(tuned_run, tmp_path):
+    code, _, err, timed = _bench_tune(str(_copy_of(tuned_run, tmp_path)), "0")
+    assert code == 0, err
+    assert "autotune" not in err and "applying cached tune" not in err
+    assert timed == [(0, 16, "rows")] * 2 + [(1, 16, "rows"), (0, 16, "rows")]
 
 
 def test_no_card_exits_nonzero(monkeypatch, capsys):

@@ -110,8 +110,12 @@ def test_halton_and_mat4_identical():
 def test_config_defaults_equal():
     ref = RefConfig()
     port = Config()
-    fields = [f.name for f in dataclasses.fields(Config)]
+    # the frame kernel's launch shape is the port's own (no reference field)
+    own = {"frame_tile", "frame_warp"}
+    fields = [f.name for f in dataclasses.fields(Config) if f.name not in own]
     assert len(fields) == 31
+    assert own <= {f.name for f in dataclasses.fields(Config)} and not own & set(vars(ref))
+    assert (port.frame_tile, port.frame_warp) == (16, "rows")
     for name in fields:
         assert getattr(ref, name) == getattr(port, name), name
     for bad in (dict(env_base=100), dict(max_leaf_tests=32), dict(packet_max_steps=-1),

@@ -520,6 +520,51 @@ def test_frame_kernel_tile_rows_on_card(cuda_device, mode):
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["which1", "k3-ragged", "given-raygen"])
+def test_frame_kernel_every_launch_shape_on_card(cuda_device, name):
+    """Under each tile shape and warp map the kernel's colour and counter
+    row are the default launch's bit for bit; its tile rows sum to the row
+    and agree with the plain version's at that shape; a width it has not
+    is refused with CUDA's invalid-argument error."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+
+    packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device)
+    colour, row = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    for tile_w, warp_map in chip_smoke.FRAME_SHAPES:
+        s = fs._replace(tile_w=tile_w, warp_map=warp_map)
+        rows = torch.full((s.n_tiles(), 1 + 3 * s.phases()), -1, dtype=torch.long, device=cuda_device)
+        prows = torch.empty_like(rows)
+        kc, kn = fk.frame_kernel(packed, uni, jit, s, tile_rows=rows, rays=rays)
+        fk.frame_plain(packed, uni, jit, s, tile_rows=prows, rays=rays)
+        torch.cuda.synchronize()
+        assert torch.equal(chip_smoke.bits(kc), chip_smoke.bits(colour)) and torch.equal(kn, row)
+        assert torch.equal(rows.sum(0), kn)
+        assert chip_smoke.tile_rows_disagreement(rows.cpu(), prows.cpu()) is None
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fk.frame_kernel(packed, uni, jit, fs._replace(tile_w=12), rays=rays)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fk.frame_kernel(packed, uni, jit, fs._replace(warp_map="columns"), rays=rays)
+    info = fk.launch_info(packed.stack_depth, fs.mode(), rays is not None, tile_w=64,
+                          warp_map="bricks")
+    assert (info["tile_w"], info["tile_h"], info["local_bytes"]) == (64, 4, 0)
+
+
+def test_tile_rows_gate_refuses_a_wrong_pixel_map():
+    """chip_smoke.tile_rows_disagreement passes a flipped ray's tile and
+    refuses rows binned by another map."""
+    rng = np.random.default_rng(3)
+    per_pixel = torch.from_numpy(rng.integers(0, 50, (48, 64, 4)))
+    rows = per_pixel.reshape(3, 16, 4, 16, 4).sum((1, 3)).reshape(12, 4)
+    flipped = rows.clone()
+    flipped[5, 0] += 1
+    flipped[5, 1:] += 7
+    assert chip_smoke.tile_rows_disagreement(flipped, rows) is None
+    transposed = per_pixel.reshape(3, 16, 4, 16, 4).sum((3, 1)).transpose(0, 1).reshape(12, 4)
+    assert chip_smoke.tile_rows_disagreement(transposed, rows) is not None
+    assert chip_smoke.tile_rows_disagreement(rows[:6], rows) is not None
+
+
 @functools.cache
 def _trace_case_scene():
     """A 2000-triangle bench-like scene as wide and binary tables, and

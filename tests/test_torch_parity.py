@@ -75,7 +75,6 @@ ALLOWED_RENAMES = {
     ("utils/kerneldiag.py", "report_failure"): {"statics": "settings"},
 }
 NOT_PORTED = {
-    ("app/driver.py", "App.tune"): "A14: the autotune searches TPU knobs the port lacks",
     ("config.py", "get_config"): "the process-wide config: the port's functions take a Config",
     ("config.py", "set_config"): "the process-wide config",
     ("config.py", "use_config"): "the process-wide config",
