@@ -190,6 +190,8 @@ def device_breakdown(fn, ours: tuple[str, ...], n: int) -> dict | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from shader_ray_tpu_torch.utils import profiling
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -198,9 +200,11 @@ def device_breakdown(fn, ours: tuple[str, ...], n: int) -> dict | None:
         torch.cuda.synchronize()
     out = {name: [0.0, 0.0] for name in (*ours, "other")}
     for e in prof.key_averages():
-        # a wrapper's record_function range (ops/_build.traced) shows on the
-        # device too, under the wrapper's bare name: not a kernel
-        if e.device_type != DeviceType.CUDA or e.key in ours:
+        # a span (utils/profiling.span: a launch's range under the wrapper's
+        # bare name, a layer's under a dotted one) shows on the device too:
+        # not a kernel
+        if e.device_type != DeviceType.CUDA or e.key in ours or \
+                e.key.split(":")[0] in profiling.SPANS:
             continue
         name = next((o for o in ours if o in e.key), "other")
         out[name][0] += e.self_device_time_total / 1e3 / n

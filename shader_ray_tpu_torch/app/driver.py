@@ -9,6 +9,10 @@ recomputes only then.  Per-frame state (matrices, light, material
 colors, fov) goes in as ``FrameParams`` tensors built on the host; the
 Renderer moves them to its device.  A frame function is made once per
 (which, size) and kept; ``set_knob`` and ``tune`` drop them.
+
+``frames`` counts the frames drawn; it is the frame id of their spans
+(utils/profiling.span: ``app.drag``, ``app.frame_params``, ``app.copy``
+and the Renderer's inside), a drag's the frame it leads to.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from shader_ray_tpu_torch.ops.frame_kernel import stats_phases
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
 from shader_ray_tpu_torch.utils import mat4
 from shader_ray_tpu_torch.utils.ppm import write_ppm
+from shader_ray_tpu_torch.utils.profiling import set_frame, span
 
 
 class MotionTarget(Enum):
@@ -87,6 +92,7 @@ class App:
 
         self._fn_cache: dict[tuple, object] = {}
         self._frame: np.ndarray | None = None
+        self.frames = 0
 
         cam.update_view_params(self.world, self.zoom, self.object_rotation, self.object_position)
         self.light_dir = cam.update_light(self.light_rotation)
@@ -116,24 +122,33 @@ class App:
 
     def frame_params(self) -> FrameParams:
         """The frame's uniforms as f32 tensors on the host."""
-        spec, diff = resolve_material(self.which_material, self.which_diffuse_color)
-        w = self.world
-        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
-        return FrameParams(
-            camera_matrix=f32(w.camera_matrix),
-            camera_normal_matrix=f32(w.camera_normal_matrix),
-            object_matrix=f32(w.object_matrix),
-            object_normal_matrix=f32(w.object_normal_matrix),
-            object_normal_inverse=f32(w.object_normal_inverse),
-            light_dir=f32(self.light_dir),
-            specular_color=f32(spec),
-            diffuse_color=f32(diff),
-            image_plane_width=f32(2.0 * np.tan(self.fov / 2.0)),
-        )
+        with span("app.frame_params"):
+            spec, diff = resolve_material(self.which_material, self.which_diffuse_color)
+            w = self.world
+            f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+            return FrameParams(
+                camera_matrix=f32(w.camera_matrix),
+                camera_normal_matrix=f32(w.camera_normal_matrix),
+                object_matrix=f32(w.object_matrix),
+                object_normal_matrix=f32(w.object_normal_matrix),
+                object_normal_inverse=f32(w.object_normal_inverse),
+                light_dir=f32(self.light_dir),
+                specular_color=f32(spec),
+                diffuse_color=f32(diff),
+                image_plane_width=f32(2.0 * np.tan(self.fov / 2.0)),
+            )
+
+    def _to_host(self, fn) -> np.ndarray:
+        """Draw the next frame with ``fn`` and copy it to the host."""
+        self.frames += 1
+        set_frame(self.frames)
+        out = fn(self.frame_params())
+        with span("app.copy"):
+            self._frame = out.cpu().numpy()
+        return self._frame
 
     def draw_frame(self) -> np.ndarray:
-        self._frame = self._render_fn()(self.frame_params()).cpu().numpy()
-        return self._frame
+        return self._to_host(self._render_fn())
 
     def render(self) -> np.ndarray | None:
         """Damage-driven render: computes a frame only if state changed
@@ -150,7 +165,7 @@ class App:
         fused route)."""
         key = ("progressive", samples, self.which, self.width, self.height)
         fn = self._cached(key, lambda: self.renderer.make_progressive_fn(self._statics(), samples))
-        self._frame = fn(self.frame_params()).cpu().numpy()
+        self._to_host(fn)
         self.redraw = False
         return self._frame
 
@@ -375,8 +390,10 @@ class App:
 
     def drag(self, dx: float, dy: float, shift: bool = False) -> None:
         """A full press-move-release gesture in pixels."""
-        x0, y0 = self.width / 2.0, self.height / 2.0
-        self._motion_reported = True
-        self.button(True, x0, y0, shift)
-        self.motion(x0 + dx, y0 + dy)
-        self.button(False, x0 + dx, y0 + dy)
+        set_frame(self.frames + 1)
+        with span("app.drag"):
+            x0, y0 = self.width / 2.0, self.height / 2.0
+            self._motion_reported = True
+            self.button(True, x0, y0, shift)
+            self.motion(x0 + dx, y0 + dy)
+            self.button(False, x0 + dx, y0 + dy)

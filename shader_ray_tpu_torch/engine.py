@@ -25,7 +25,9 @@ reference turns in-kernel raygen off under a mesh, engine_pallas.py:
 ``mesh[0]``, as the reference's do.
 
 Every function handed out is wrapped (``_wrap``, the reference's
-``_cfg_wrap``, engine.py:106-129): a kernel's build or launch failure
+``_cfg_wrap``, engine.py:106-129) in the span ``engine.frame``
+(utils/profiling.span; the constructor's are ``renderer.pack`` and
+``renderer.upload``): a kernel's build or launch failure
 prints the diagnostic of utils/kerneldiag.py before it is re-raised, and
 under ``Config.debug_nans`` (read at each call) an output holding a NaN
 raises ``FloatingPointError`` naming the function, the counterpart of
@@ -55,6 +57,7 @@ from shader_ray_tpu_torch.ops.engine_frame import (
 from shader_ray_tpu_torch.ops.pack import pack_scene
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
+from shader_ray_tpu_torch.utils.profiling import span
 
 
 def pick_device(device: str | torch.device | None) -> torch.device:
@@ -102,7 +105,10 @@ class Renderer:
 
             validate_scene_data(data)
         pack = pack_scene_wide if self.cfg.packet_kernel == "wide" else pack_scene
-        self.packed = pack(data, background, self.cfg).to(self.device)
+        with span("renderer.pack"):
+            packed = pack(data, background, self.cfg)
+        with span("renderer.upload"):
+            self.packed = packed.to(self.device)
         self.replicas = None
         if mesh is not None:
             from shader_ray_tpu_torch.parallel import replicate_scene
@@ -129,19 +135,20 @@ class Renderer:
         docstring)."""
 
         def wrapped(params: FrameParams):
-            try:
-                out = fn(params)
-            except Exception as e:
-                from shader_ray_tpu_torch.utils.kerneldiag import report_failure
+            with span("engine.frame"):
+                try:
+                    out = fn(params)
+                except Exception as e:
+                    from shader_ray_tpu_torch.utils.kerneldiag import report_failure
 
-                report_failure(e, cfg=self.cfg, packed=self.packed,
-                               settings=self._settings(statics), label=label,
-                               device=self.mesh or self.device)
-                raise
-            if self.cfg.debug_nans and isinstance(out, torch.Tensor) and \
-                    out.is_floating_point() and bool(torch.isnan(out).any()):
-                raise FloatingPointError(f"{label}: NaN in its output (Config.debug_nans)")
-            return out
+                    report_failure(e, cfg=self.cfg, packed=self.packed,
+                                   settings=self._settings(statics), label=label,
+                                   device=self.mesh or self.device)
+                    raise
+                if self.cfg.debug_nans and isinstance(out, torch.Tensor) and \
+                        out.is_floating_point() and bool(torch.isnan(out).any()):
+                    raise FloatingPointError(f"{label}: NaN in its output (Config.debug_nans)")
+                return out
 
         return wrapped
 

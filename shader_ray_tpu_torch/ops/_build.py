@@ -11,13 +11,13 @@ imported.
 ``LAUNCHES`` counts launches per kernel name, process-wide: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
 set a count to 0, drive a path and read how often the kernel really ran.
-``traced`` names a launch in a profiler's trace.
+An nvcc run is the span ``kernels.build:<name>``, a library's load
+``kernels.load:<name>`` (utils/profiling.span).
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,6 +28,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from shader_ray_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -88,7 +90,8 @@ def build(names: list[str] | tuple[str, ...]) -> None:
         jobs.append((name, so, log, tmp, proc))
     failed = []
     for name, so, log, tmp, proc in jobs:
-        out, err = proc.communicate()
+        with span(f"kernels.build:{name}"):
+            out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed building {name}.cu:\n{err}")
             continue
@@ -104,7 +107,9 @@ def library(name: str) -> tuple[ctypes.CDLL, str]:
     Returns (library, the compiler's resource report)."""
     build([name])
     so, log = _paths(name)
-    return ctypes.CDLL(str(so)), log.read_text() if log.exists() else ""
+    with span(f"kernels.load:{name}"):
+        lib = ctypes.CDLL(str(so))
+    return lib, log.read_text() if log.exists() else ""
 
 
 def one_device(where: str, tensors: dict[str, torch.Tensor]) -> torch.device:
@@ -170,11 +175,3 @@ def launched(name: str, err: int) -> None:
                            f"({CUDA_ERRORS.get(err, 'see cudaGetErrorString')})")
     LAUNCHES[name] += 1
 
-
-def traced(name: str):
-    """A ``record_function`` range named after the kernel around its
-    launch while a profiler records (utils/profiling.device_trace), so a
-    trace names the wrapper; nothing otherwise."""
-    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()

@@ -43,6 +43,11 @@ them in order, except on the fused route outside ``which = 5``, where it
 is one launch.  The tonemap runs once on the linear mean, in plain
 PyTorch, as it runs in plain XLA outside the Pallas kernels in the
 reference.
+
+Spans (utils/profiling.span): ``engine.uniforms`` around the uniform
+table's fill and copy at each fused call site, ``engine.jitter`` around
+a single frame's jitter table and its copy, ``engine.finish`` around the
+tonemap.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from shader_ray_tpu_torch.ops.render import (
 from shader_ray_tpu_torch.ops.shading import Rays, tonemap_and_gamma
 from shader_ray_tpu_torch.ops.vecmath import dot, normalize
 from shader_ray_tpu_torch.utils.halton import halton
+from shader_ray_tpu_torch.utils.profiling import span
 
 
 def pack_uniforms(params: FrameParams) -> torch.Tensor:
@@ -98,6 +104,12 @@ def pack_uniforms(params: FrameParams) -> torch.Tensor:
     uni[UNI_CAM_NORMAL : UNI_CAM_NORMAL + 9] = f32(params.camera_normal_matrix)[:3, :3].reshape(-1)
     uni[UNI_IPW] = f32(params.image_plane_width)
     return uni
+
+
+def uniforms_on(params: FrameParams, device) -> torch.Tensor:
+    """``pack_uniforms`` copied to ``device``."""
+    with span("engine.uniforms"):
+        return pack_uniforms(params).to(device)
 
 
 def halton_jitters(samples: int) -> np.ndarray:
@@ -218,7 +230,7 @@ def fused_linear(
     copied to the scene's device once."""
     dev = packed.leaves.device
     return frame_kernel(
-        packed, pack_uniforms(params).to(dev), jitters.to(dev),
+        packed, uniforms_on(params, dev), jitters.to(dev),
         frame_settings(statics, max_steps, min_contrib, tile_w, warp_map),
     )
 
@@ -237,7 +249,7 @@ def fused_supersample(
     rays, (right, up) = primary_rays(statics, params, rows)
     given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
     fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
-    return frame_kernel(packed, pack_uniforms(params), None,
+    return frame_kernel(packed, uniforms_on(params, packed.leaves.device), None,
                         fs._replace(height=rays.P.shape[0] // fs.width), rays=given)[0]
 
 
@@ -253,7 +265,7 @@ def fused_given(
     the linear (r1 - r0, W, 3) mean.  Rows (0, H) give the whole frame's
     given-rays form."""
     dev = packed.leaves.device
-    uni = pack_uniforms(params).to(dev)
+    uni = uniforms_on(params, dev)
     fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
     rays = raygen_rays(uni, jitters.to(dev), fs, rows)
     return frame_kernel(packed, uni, None, fs._replace(height=rows[1] - rows[0]), rays=rays)[0]
@@ -323,8 +335,7 @@ def tile_stats(
     fs = frame_settings(statics._replace(which=0), max_steps, min_contrib, tile_w, warp_map)
     dev = packed.leaves.device
     rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long, device=dev)
-    frame_kernel(packed, pack_uniforms(params).to(dev), frame_jitter(params).to(dev), fs,
-                 tile_rows=rows)
+    frame_kernel(packed, uniforms_on(params, dev), jitter_on(params, dev), fs, tile_rows=rows)
     return rows
 
 
@@ -335,9 +346,16 @@ def frame_jitter(params: FrameParams) -> torch.Tensor:
     return torch.as_tensor(params.pixel_jitter, dtype=torch.float32).reshape(1, 2)
 
 
+def jitter_on(params: FrameParams, device) -> torch.Tensor:
+    """``frame_jitter`` copied to ``device``."""
+    with span("engine.jitter"):
+        return frame_jitter(params).to(device)
+
+
 def finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
     """The tonemap of a linear frame, unless ``statics.do_tonemap`` is off."""
-    return tonemap_and_gamma(color, statics.use_filmic) if statics.do_tonemap else color
+    with span("engine.finish"):
+        return tonemap_and_gamma(color, statics.use_filmic) if statics.do_tonemap else color
 
 
 def render_frame(
@@ -346,8 +364,9 @@ def render_frame(
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
     unless ``statics.do_tonemap`` is off."""
-    color = render_linear(packed, params, statics, frame_jitter(params), max_steps, fused,
-                          min_contrib, tile_w=tile_w, warp_map=warp_map)
+    jitters = jitter_on(params, packed.env_pyramid.texels.device)
+    color = render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
+                          tile_w=tile_w, warp_map=warp_map)
     return finish(color, statics)
 
 

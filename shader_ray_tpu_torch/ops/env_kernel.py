@@ -38,6 +38,7 @@ from shader_ray_tpu_torch.ops.envmap import (
     env_coords,
     env_derivatives,
 )
+from shader_ray_tpu_torch.utils.profiling import span
 
 
 def env_sample_plain(
@@ -150,7 +151,7 @@ def env_sample(
     if R == 0:
         return out
     levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
-    with torch.cuda.device(device), _build.traced("env_sample"):
+    with torch.cuda.device(device), span("env_sample"):
         err = fn(
             env.texels.data_ptr(), levels, env.n_levels,
             D.data_ptr(), dDdx.data_ptr() if grad else None,

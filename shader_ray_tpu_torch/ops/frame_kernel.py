@@ -70,6 +70,7 @@ from shader_ray_tpu_torch.ops.trace_kernel import (
     launch_name,
     walk_plain,
 )
+from shader_ray_tpu_torch.utils.profiling import span
 
 MAX_PHASES = 16          # walk phases the kernel's counter row holds
 BLOCK = 256              # threads a block: a tile of BLOCK pixels
@@ -470,61 +471,63 @@ def frame_kernel(
     linear colour mean and the int64 counter row; fills ``tile_rows`` if
     given (module docstring).  The walks test leaves in the tables' form
     (``packed.isect``).  CPU tensors run ``frame_plain``; CUDA tensors
-    launch the CUDA kernel."""
-    env = packed.env_pyramid
-    isect = isect_code("frame_kernel", packed.isect)
-    tensors = dict(
-        nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
-        uni=uni, jitters=jitters, tile_rows=tile_rows,
-        **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()}),
-    )
-    device = _build.one_device("frame_kernel", {k: v for k, v in tensors.items() if v is not None})
-    if device.type == "cpu":
-        return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows, rays=rays)
-    fs.mode()  # a mode the kernel has
-    K = _samples(jitters, rays, fs)
-    Nw = packed.n_wide
-    check = functools.partial(_build.check, "frame_kernel")
-    check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
-    check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
-    check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
-    check("env", env.texels, torch.float32, (None, TEXEL))
-    check("uni", uni, torch.float32, (UNI_SIZE,))
-    if jitters is not None:
-        check("jitters", jitters, torch.float32, (None, 2))
-    if tile_rows is not None:
-        check("tile_rows", tile_rows, torch.long, (fs.n_tiles(), 1 + 3 * fs.phases()))
-    if K < 1 or fs.width < 1 or fs.height < 1:
-        raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
-    if not fs.min_contrib >= 0.0:
-        raise ValueError(f"frame_kernel: min_contrib={fs.min_contrib}: need >= 0")
-    if not 1 <= packed.stack_depth <= MAX_STACK:
-        raise ValueError(f"frame_kernel: stack depth {packed.stack_depth} > {MAX_STACK}")
-    if fs.phases() > MAX_PHASES:
-        raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
-    if not 1 <= env.n_levels <= MAX_LEVELS:
-        raise ValueError(f"frame_kernel: {env.n_levels} env levels, the kernel takes 1 to {MAX_LEVELS}")
-
-    fn = _entry()
-    out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
-    counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
-    levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
-    inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    given = rays or GivenRays(None, None)
-    name = launch_name("frame_kernel", packed.isect)
-    with torch.cuda.device(device), _build.traced(name):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
-            env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
-            uni.data_ptr(), ptr(jitters), *(ptr(x) for x in given), K, fs.width, fs.height,
-            inv_w, inv_h, aspect,
-            fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
-            fs.surface_fudge, fs.mt_eps, fs.min_contrib, fs.max_steps or Nw + 2,
-            packed.stack_depth, fs.tile_w, _warp_code(fs.warp_map),
-            out.data_ptr(), counters.data_ptr(),
-            None if tile_rows is None else tile_rows.data_ptr(), stream,
+    launch the CUDA kernel.  The span ``frame_kernel.call`` covers the
+    whole call, the range named after the kernel its launch."""
+    with span("frame_kernel.call"):
+        env = packed.env_pyramid
+        isect = isect_code("frame_kernel", packed.isect)
+        tensors = dict(
+            nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
+            uni=uni, jitters=jitters, tile_rows=tile_rows,
+            **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()}),
         )
-    _build.launched(name, err)
-    return out, counters
+        device = _build.one_device("frame_kernel", {k: v for k, v in tensors.items() if v is not None})
+        if device.type == "cpu":
+            return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows, rays=rays)
+        fs.mode()  # a mode the kernel has
+        K = _samples(jitters, rays, fs)
+        Nw = packed.n_wide
+        check = functools.partial(_build.check, "frame_kernel")
+        check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
+        check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
+        check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
+        check("env", env.texels, torch.float32, (None, TEXEL))
+        check("uni", uni, torch.float32, (UNI_SIZE,))
+        if jitters is not None:
+            check("jitters", jitters, torch.float32, (None, 2))
+        if tile_rows is not None:
+            check("tile_rows", tile_rows, torch.long, (fs.n_tiles(), 1 + 3 * fs.phases()))
+        if K < 1 or fs.width < 1 or fs.height < 1:
+            raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
+        if not fs.min_contrib >= 0.0:
+            raise ValueError(f"frame_kernel: min_contrib={fs.min_contrib}: need >= 0")
+        if not 1 <= packed.stack_depth <= MAX_STACK:
+            raise ValueError(f"frame_kernel: stack depth {packed.stack_depth} > {MAX_STACK}")
+        if fs.phases() > MAX_PHASES:
+            raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
+        if not 1 <= env.n_levels <= MAX_LEVELS:
+            raise ValueError(f"frame_kernel: {env.n_levels} env levels, the kernel takes 1 to {MAX_LEVELS}")
+
+        fn = _entry()
+        out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
+        counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
+        levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
+        inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        given = rays or GivenRays(None, None)
+        name = launch_name("frame_kernel", packed.isect)
+        with torch.cuda.device(device), span(name):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(
+                packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
+                env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
+                uni.data_ptr(), ptr(jitters), *(ptr(x) for x in given), K, fs.width, fs.height,
+                inv_w, inv_h, aspect,
+                fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
+                fs.surface_fudge, fs.mt_eps, fs.min_contrib, fs.max_steps or Nw + 2,
+                packed.stack_depth, fs.tile_w, _warp_code(fs.warp_map),
+                out.data_ptr(), counters.data_ptr(),
+                None if tile_rows is None else tile_rows.data_ptr(), stream,
+            )
+        _build.launched(name, err)
+        return out, counters

@@ -43,6 +43,7 @@ from shader_ray_tpu_torch.ops.pack_wide import (
     WIDE,
     PackedWide,
 )
+from shader_ray_tpu_torch.utils.profiling import span
 
 INFINITELY_FAR = 1.0e7   # fs:115
 RANGE_T1 = 1.0e8         # fs:463,491
@@ -485,7 +486,7 @@ def trace_wide(
     if R == 0:
         return PacketHit(t, which, normal, bad, stats)
     name = launch_name("trace_wide", packed.isect)
-    with torch.cuda.device(device), _build.traced(name):
+    with torch.cuda.device(device), span(name):
         err = fn(
             packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
             P.data_ptr(), D.data_ptr(), active.data_ptr(), R, width,
@@ -527,7 +528,7 @@ def trace_binary(
     t, which, normal, bad, stats = _outputs(R, device, with_stats)
     if R == 0:
         return PacketHit(t, which, normal, bad, stats)
-    with torch.cuda.device(device), _build.traced("trace_binary"):
+    with torch.cuda.device(device), span("trace_binary"):
         err = fn(
             packed.nodes.data_ptr(), packed.tris.data_ptr(), packed.normals.data_ptr(),
             N, max_steps or 2 * N + 2, mt_eps,

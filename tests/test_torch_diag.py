@@ -7,14 +7,13 @@ errors' names select their hints; ``suppress`` and ``SRT_KERNEL_DIAG=0``
 silence the dump only where they apply.  Under ``debug_nans`` a grad-mode
 frame with a ray exactly along +y (NaN, as in the reference) raises
 ``FloatingPointError`` naming the function, while a normal frame and a
-frame painted red by the walk budget do not.  ``phase``, ``FrameMeter``
-and ``device_trace`` (a torch.profiler trace whose kernel ranges carry
-the wrappers' names) work; ``Config.from_env`` reads ``SRT_NATIVE``,
+frame painted red by the walk budget do not.  ``device_trace`` (a
+torch.profiler trace whose kernel ranges carry the wrappers' names)
+works; ``Config.from_env`` reads ``SRT_NATIVE``,
 ``SRT_COLLAPSE`` and ``SRT_DEBUG_NANS`` as the reference's does."""
 
 import contextlib
 import dataclasses
-import io
 import json
 import os
 
@@ -160,30 +159,18 @@ def test_debug_nans_is_read_at_each_call_and_ignores_red_paint(sphere):
     assert bool(((img - red).abs() < 1e-6).all(-1).any())
 
 
-def test_phase_and_frame_meter():
-    out = io.StringIO()
-    with profiling.phase("Parsing", file=out):
-        pass
-    assert out.getvalue().startswith("Parsing: ") and out.getvalue().endswith(" seconds\n")
-    meter = profiling.FrameMeter(64, 32)
-    assert meter.rays == 64 * 32 * 6
-    meter.start()
-    ms, mrays = meter.stop()
-    assert ms == meter.last_ms and ms >= 0.0 and mrays > 0.0
-
-
 def test_device_trace_names_the_kernel_ranges(tmp_path, sphere):
     data, env, params = sphere
     logdir = tmp_path / "trace"
     with profiling.device_trace(str(logdir)):
-        with _build.traced("frame_kernel"):
+        with profiling.span("frame_kernel"):
             Renderer(data, env, device="cpu").make_fn(RenderStatics(width=8, height=8))(params)
     (trace,) = os.listdir(logdir)
     events = json.loads((logdir / trace).read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "frame_kernel" in names and any(str(n).startswith("aten::") for n in names)
     # outside a trace, a launch opens no range
-    assert isinstance(_build.traced("frame_kernel"), contextlib.nullcontext)
+    assert isinstance(profiling.span("frame_kernel"), contextlib.nullcontext)
 
 
 def test_config_from_env_reads_the_new_variables_as_the_reference(monkeypatch):

@@ -87,6 +87,10 @@ NOT_PORTED = {
     ("ops/render.py", "trace_rays"): "the XLA wavefront engine",
     ("parallel/mesh.py", "make_sharded_render_fn"): "shards the XLA wavefront engine",
     ("parallel/mesh.py", "shard_rays_spec"): "shards the XLA wavefront engine",
+    ("utils/profiling.py", "phase"): "no path reads it: the spans and Recorder.totals replace it",
+    ("utils/profiling.py", "FrameMeter.__init__"): "no path reads it: the spans replace it",
+    ("utils/profiling.py", "FrameMeter.start"): "no path reads it: the spans replace it",
+    ("utils/profiling.py", "FrameMeter.stop"): "no path reads it: the spans replace it",
 }
 
 
