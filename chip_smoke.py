@@ -1562,6 +1562,31 @@ def bits(x):
     return x.contiguous().view(dtype=torch.int32)
 
 
+def block_of(uni):
+    """The (UNI_SIZE,) uniform table ``uni`` as the frame kernel's host
+    block (ops/frame_kernel.frame_kernel), beside a zero jitter."""
+    import numpy as np
+
+    from shader_ray_tpu_torch.ops.frame_kernel import UNI_BLOCK, UNI_SIZE
+
+    block = np.zeros(UNI_BLOCK, np.float32)
+    block[:UNI_SIZE] = uni.cpu().numpy()
+    return block
+
+
+def planned(packed, params, fs, jitters=None, rays=None):
+    """A launch of the frame kernel as a frame function makes it: one
+    ``FramePlan``, its host block filled from ``params`` at each call (the
+    uniforms, and with neither ``jitters`` nor ``rays`` the frame's
+    jitter, by value)."""
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+    from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
+
+    plan = fk.FramePlan()
+    return lambda: fk.frame_kernel(packed, fill_uniforms(plan.block, params), jitters, fs,
+                                   rays=rays, plan=plan)
+
+
 def tile_rows_disagreement(kr, pr) -> str | None:
     """Why the kernel's per-tile rows disagree with the plain version's at
     the same shape, or None.  A grazing ray that flips (nvcc's FMAs)
@@ -1609,6 +1634,7 @@ def tune_phase(renderer, params, card: str) -> dict:
     t_phase = time.perf_counter()
     packed = renderer.packed
     uni = pack_uniforms(params).cuda()
+    blk = block_of(uni)
     one = torch.zeros((1, 2), dtype=torch.float32, device="cuda")
     batch = torch.from_numpy(halton_jitters(TUNE_K)).cuda()
     fs0 = fk.FrameSettings(width=W, height=H)
@@ -1617,20 +1643,20 @@ def tune_phase(renderer, params, card: str) -> dict:
         "which=1 aniso 4": (fs0._replace(which=1, env_aniso=4), one, None),
         "given rays": (fs0, None, fk.raygen_rays(uni, one, fs0)),
     }
-    want = {f: fk.frame_kernel(packed, uni, jit, fs, rays=rays) for f, (fs, jit, rays) in forms.items()}
+    want = {f: fk.frame_kernel(packed, blk, jit, fs, rays=rays) for f, (fs, jit, rays) in forms.items()}
     small = fk.FrameSettings(width=TUNE_SMALL[0], height=TUNE_SMALL[1])
-    small_row = fk.frame_kernel(packed, uni, one, small)[1]
+    small_row = fk.frame_kernel(packed, blk, one, small)[1]
     print(f"tune: the frame kernel's launch shapes on {card}")
     for tile_w, warp in FRAME_SHAPES:
         shape = dict(tile_w=tile_w, warp_map=warp)
         same = []
         for f, (fs, jit, rays) in forms.items():
-            c, n = fk.frame_kernel(packed, uni, jit, fs._replace(**shape), rays=rays)
+            c, n = fk.frame_kernel(packed, blk, jit, fs._replace(**shape), rays=rays)
             same.append(torch.equal(bits(c), bits(want[f][0])) and torch.equal(n, want[f][1]))
         s = small._replace(**shape)
         rows = torch.full((s.n_tiles(), 1 + 3 * s.phases()), -1, dtype=torch.long, device="cuda")
         prow = torch.empty_like(rows)
-        row = fk.frame_kernel(packed, uni, one, s, tile_rows=rows)[1]
+        row = fk.frame_kernel(packed, blk, one, s, tile_rows=rows)[1]
         fk.frame_plain(packed, uni, one, s, tile_rows=prow)
         torch.cuda.synchronize()
         why = tile_rows_disagreement(rows.cpu(), prow.cpu())
@@ -1643,7 +1669,7 @@ def tune_phase(renderer, params, card: str) -> dict:
                 or why is not None:
             raise AssertionError(f"tune: shape {tile_w} {warp} strays from the default launch")
     try:
-        fk.frame_kernel(packed, uni, one, fs0._replace(tile_w=12))
+        fk.frame_kernel(packed, blk, one, fs0._replace(tile_w=12))
     except RuntimeError as e:
         print(f"  tile_w=12 refused: {e}")
     else:
@@ -1660,8 +1686,8 @@ def tune_phase(renderer, params, card: str) -> dict:
     for _ in range(2):
         for sh in FRAME_SHAPES:
             fs = fs0._replace(tile_w=sh[0], warp_map=sh[1])
-            t1[sh] += cuda_times(lambda: fk.frame_kernel(packed, uni, one, fs), TIMED // 2)
-            t64[sh] += [t / TUNE_K for t in cuda_times(lambda: fk.frame_kernel(packed, uni, batch, fs), 5)]
+            t1[sh] += cuda_times(planned(packed, params, fs), TIMED // 2)
+            t64[sh] += [t / TUNE_K for t in cuda_times(planned(packed, params, fs, batch), 5)]
     shapes = {}
     for sh in FRAME_SHAPES:
         info = fk.launch_info(packed.stack_depth, "bilinear", tile_w=sh[0], warp_map=sh[1])
@@ -1758,7 +1784,7 @@ def main() -> int:
     from shader_ray_tpu_torch.ops import env_kernel as ek
     from shader_ray_tpu_torch.ops import frame_kernel as fk
     from shader_ray_tpu_torch.ops import trace_kernel as tk
-    from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+    from shader_ray_tpu_torch.ops.engine_frame import frame_jitter, halton_jitters, pack_uniforms
     from shader_ray_tpu_torch.ops.envmap import ANISO_PROBES
     from shader_ray_tpu_torch.ops.pack import pack_scene
     from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
@@ -1845,25 +1871,37 @@ def main() -> int:
               f"{info['threads']} threads a block, {info['blocks_per_sm']} blocks an SM")
     params_cuda = type(params)(*[x.cuda() for x in params])
     uni = pack_uniforms(params).cuda()
+    blk = block_of(uni)
     statics = RenderStatics(width=W, height=H)
     linear = statics._replace(do_tonemap=False)
     errs = dict.fromkeys(("frame_kernel", "trace_wide", "trace_binary", "env_sample",
                           "frame_kernel_mt", "trace_wide_mt"), 0.0)
 
     # 4. each kernel vs its plain version on the card
-    def compare(w: int, h: int, jit: torch.Tensor, probe: dict | None = None, which: int = 0,
-                aniso: int = 1, tables=None):
+    def compare(w: int, h: int, jit: torch.Tensor | None, probe: dict | None = None,
+                which: int = 0, aniso: int = 1, tables=None, view=None):
         """The frame kernel against frame_plain on the bench tables (or
-        ``tables``, whose leaf form names the kernel)."""
+        ``tables``, whose leaf form names the kernel).  With a ``view``
+        (FrameParams; ``jit`` None) the kernel launches as a frame function
+        launches it (``planned``: a plan, the uniforms and the view's jitter
+        by value) and frame_plain takes the uploaded table and a (1, 2)
+        jitter table."""
         tables = tables or packed
         name = tk.launch_name("frame_kernel", tables.isect)
-        k = jit.shape[0]
         fs = fk.FrameSettings(width=w, height=h, which=which, env_aniso=aniso)
-        kc, kn = fk.frame_kernel(tables, uni, jit, fs)
-        pc, pn = fk.frame_plain(tables, uni, jit, fs, probe)
+        if view is None:
+            kc, kn = fk.frame_kernel(tables, blk, jit, fs)
+            p_uni = uni
+        else:
+            kc, kn = planned(tables, view, fs)()
+            p_uni, jit = pack_uniforms(view).cuda(), frame_jitter(view).cuda()
+            name += " (planned, by value)"
+        k = jit.shape[0]
+        pc, pn = fk.frame_plain(tables, p_uni, jit, fs, probe)
         torch.cuda.synchronize()
         diff = (kc - pc).abs()
-        errs[name] = max(errs[name], float(diff.nan_to_num(0.0).max()))
+        key = tk.launch_name("frame_kernel", tables.isect)
+        errs[key] = max(errs[key], float(diff.nan_to_num(0.0).max()))
         kn, pn = kn.cpu(), pn.cpu()
         cast_rel = abs(int(kn[0]) - int(pn[0])) / max(int(pn[0]), 1)
         excess, i = walk_counter_excess(kn, pn)
@@ -1888,7 +1926,7 @@ def main() -> int:
 
     def frame_case_check(name, kname, c_packed, c_uni, c_jit, c_fs, c_rays, isect):
         """Kernel ``kname`` against frame_plain on FRAME_CASES' case ``name``."""
-        kc, kn = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
+        kc, kn = fk.frame_kernel(c_packed, block_of(c_uni), c_jit, c_fs, rays=c_rays)
         pc, pn = fk.frame_plain(c_packed, c_uni, c_jit, c_fs, rays=c_rays)
         torch.cuda.synchronize()
         painted = int((kc == red).all(-1).sum()), int((pc == red).all(-1).sum())
@@ -1909,7 +1947,7 @@ def main() -> int:
         if c_fs.min_contrib >= 1.0:
             # every hit lane retires after bounce 0: the kernel's own
             # one-bounce frame, bit for bit, and no later walk
-            oc, on = fk.frame_kernel(c_packed, c_uni, c_jit, c_fs._replace(bounce_count=1))
+            oc, on = fk.frame_kernel(c_packed, block_of(c_uni), c_jit, c_fs._replace(bounce_count=1))
             same = torch.equal(kc, oc) and torch.equal(kn[:on.numel()], on) and \
                 not kn[on.numel():].any()
             print(f"  case {name}: the kernel's frame equals its bounce_count=1 frame bit for bit, "
@@ -1925,6 +1963,10 @@ def main() -> int:
             frame_case_check(name, kname, *frame_case(name, torch.device("cuda"), isect), isect)
 
     compare_small()
+    # a frame function's launch at the bench shape, its jitter by value
+    view = params._replace(pixel_jitter=torch.tensor([0.25, -0.375]))
+    compare(W, H, None, view=view)
+    compare(W, H, None, which=1, aniso=4, view=view)
     frame_cases()
 
     def rays_at(w: int, h: int):
@@ -2122,7 +2164,7 @@ def main() -> int:
     # the stats fn: a which=0 frame's counter row per 16x16 tile
     rows = renderer.make_stats_fn(statics)(params)
     fs0 = fk.FrameSettings(width=W, height=H)
-    frame_row = fk.frame_kernel(packed, uni, torch.zeros((1, 2), device="cuda"), fs0)[1]
+    frame_row = fk.frame_kernel(packed, blk, torch.zeros((1, 2), device="cuda"), fs0)[1]
     torch.cuda.synchronize()
     phases = fk.stats_phases(statics.bounce_count, statics.cast_shadows, statics.enable_diffuse)
     print(f"stats fn: rows {tuple(rows.shape)} ({fs0.n_tiles()} tiles x 1 + 3 x {len(phases)} "
@@ -2259,9 +2301,9 @@ def main() -> int:
     fs = fk.FrameSettings(width=W, height=H)
     one = torch.zeros((1, 2), dtype=torch.float32, device="cuda")
     batch = torch.from_numpy(halton_jitters(BATCH_K)).cuda()
-    kernel_t = cuda_times(lambda: fk.frame_kernel(packed, uni, one, fs), TIMED)
+    kernel_t = cuda_times(planned(packed, params, fs), TIMED)
     ms = float(np.median(kernel_t))
-    batch_t = [t / BATCH_K for t in cuda_times(lambda: fk.frame_kernel(packed, uni, batch, fs), 5)]
+    batch_t = [t / BATCH_K for t in cuda_times(planned(packed, params, fs, batch), 5)]
     plain_t = cuda_times(lambda: fk.frame_plain(packed, uni, one, fs), 2)
     frame = renderer.make_fn(statics)
     e2e_t = host_times(lambda: frame(params), TIMED)
@@ -2309,7 +2351,7 @@ def main() -> int:
             tk.trace_wide(unfused.packed, P, D, active, **kw)
 
     ab = {"fused": [], "walks": []}
-    fns = {"fused": lambda: fk.frame_kernel(packed, uni, one, fs), "walks": six_walks}
+    fns = {"fused": planned(packed, params, fs), "walks": six_walks}
     for which in ("fused", "walks", "walks", "fused"):  # in turns on one card
         ab[which] += cuda_times(fns[which], TIMED // 2)
     print(f"  A/B on {card}: frame_kernel {W}x{H} K=1 {summary(ab['fused'])}; the same "
@@ -2324,7 +2366,7 @@ def main() -> int:
     grad_entry, grad_e2e = {}, {}
     for which, aniso in GRAD_MODES:
         fsg = fk.FrameSettings(width=W, height=H, which=which, env_aniso=aniso)
-        t_k = cuda_times(lambda: fk.frame_kernel(packed, uni, one, fsg), TIMED)
+        t_k = cuda_times(planned(packed, params, fsg), TIMED)
         t_p = cuda_times(lambda: fk.frame_plain(packed, uni, one, fsg), 2)
         frame_g = renderer.make_fn(statics._replace(which=which, env_aniso=aniso))
         grad_e2e[which] = host_times(lambda: frame_g(params), TIMED)
@@ -2367,8 +2409,8 @@ def main() -> int:
 
     t5_sets = cuda_times(sets5, 10)
     given5 = sets5()
-    t5_k = cuda_times(lambda: fk.frame_kernel(packed, uni, None, fs, rays=given5), 20)
-    k5, n5 = fk.frame_kernel(packed, uni, None, fs, rays=given5)
+    t5_k = cuda_times(planned(packed, params, fs, rays=given5), 20)
+    k5, n5 = fk.frame_kernel(packed, blk, None, fs, rays=given5)
     ops5, moved5, t5_p, pops5 = 0, nbytes(given5.P, given5.D, uni) + W * H * 3 * 4 + wide_tables, 0.0, 0
     sum5 = torch.zeros((H, W, 3), device="cuda")
     touched5 = torch.zeros(pyramid.texels.shape[0], dtype=torch.bool, device="cuda")
@@ -2411,9 +2453,9 @@ def main() -> int:
 
     # lane retirement on the bench frame: min_contrib = 0.004
     fs_mc = fs._replace(min_contrib=0.004)
-    t_mc = cuda_times(lambda: fk.frame_kernel(packed, uni, one, fs_mc), TIMED)
-    c_mc, n_mc = fk.frame_kernel(packed, uni, one, fs_mc)
-    n0 = fk.frame_kernel(packed, uni, one, fs)[1]
+    t_mc = cuda_times(planned(packed, params, fs_mc), TIMED)
+    c_mc, n_mc = fk.frame_kernel(packed, blk, one, fs_mc)
+    n0 = fk.frame_kernel(packed, blk, one, fs)[1]
     phases_n = fk.stats_phases(3, True, True)
     print(f"  frame_kernel {W}x{H} K=1 min_contrib=0.004 (CUDA events): {summary(t_mc)} (0: "
           f"{summary(kernel_t)}); rays cast {int(n_mc[0])} (0: {int(n0[0])}); node pops by phase "
@@ -2563,7 +2605,7 @@ def main() -> int:
     # the same golden; each a path of its own through the Renderer.  These
     # phases run after the timings above, so those see the process state
     # they saw before the phases existed
-    base_row = fk.frame_kernel(packed, uni, one, fs0)[1].cpu()
+    base_row = fk.frame_kernel(packed, blk, one, fs0)[1].cpu()
     rays_p = generate_rays(statics, params_cuda)
     P_p, D_p = rays_p.P.contiguous(), rays_p.D.contiguous()
     all_p = torch.ones(P_p.shape[0], dtype=torch.bool, device="cuda")
@@ -2604,7 +2646,7 @@ def main() -> int:
         print(f"{tag} path launches: {path}")
         if set(path) != need:
             raise AssertionError(f"{tag}: the path must launch {sorted(need)}")
-        kc, kn = fk.frame_kernel(pk, uni, one, fs0)
+        kc, kn = fk.frame_kernel(pk, blk, one, fs0)
         pc, pn = fk.frame_plain(pk, uni, one, fs0)
         torch.cuda.synchronize()
         kn, pn = kn.cpu(), pn.cpu()
@@ -2626,8 +2668,7 @@ def main() -> int:
                     compare_trace(name, kernel, plain, ways[way].packed, P_p, D_p, all_p, any_hit,
                                   f"{tag}, {'any-hit' if any_hit else 'closest'}, primaries {W}x{H}", W)
         t = {base: [], tag: []}
-        fns = {base: lambda: fk.frame_kernel(packed, uni, one, fs0),
-               tag: lambda: fk.frame_kernel(pk, uni, one, fs0)}
+        fns = {base: planned(packed, params, fs0), tag: planned(pk, params, fs0)}
         for which in (base, tag, tag, base):  # in turns on one card
             t[which] += cuda_times(fns[which], TIMED // 2)
         pops, base_pops = int(kn[1::3].sum()), int(base_row[1::3].sum())
@@ -2726,7 +2767,7 @@ def main() -> int:
         if set(path) != {"frame_kernel_mt", "trace_wide_mt", "env_sample"}:
             raise AssertionError("isect: the mt path must launch frame_kernel_mt, trace_wide_mt "
                                  "and env_sample, and no Woop instantiation")
-        row_mt = fk.frame_kernel(pk, uni, torch.zeros((1, 2), device="cuda"), fs0)[1]
+        row_mt = fk.frame_kernel(pk, blk, torch.zeros((1, 2), device="cuda"), fs0)[1]
         d_woop = float((lin_mt - fused_linear).abs().mean())
         d_unf = float((lin_u - lin_mt).abs().mean())
         print(f"isect: mt fused frame vs Woop's: mean abs {d_woop:.3e} on linear colour (limit "
@@ -2801,8 +2842,8 @@ def main() -> int:
         # mt and Woop in turns on one card
         fs1 = fs._replace(which=1, env_aniso=4)
         series = {
-            "frame_kernel which=0": (lambda t: lambda: fk.frame_kernel(t, uni, one, fs)),
-            "frame_kernel which=1 aniso=4": (lambda t: lambda: fk.frame_kernel(t, uni, one, fs1)),
+            "frame_kernel which=0": (lambda t: planned(t, params, fs)),
+            "frame_kernel which=1 aniso=4": (lambda t: planned(t, params, fs1)),
             "trace_wide closest": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f, width=W)),
             "trace_wide any-hit": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f,
                                                                    any_hit=True, width=W)),

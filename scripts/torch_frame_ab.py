@@ -11,10 +11,15 @@ Each run is a fresh process that imports ``shader_ray_tpu_torch`` and
 at K=1 (n=100) and a sample of K=64 (n=10), which=1 aniso 4 at K=1
 (n=100) and the given-rays form of the which=0 rays (n=100); it prints
 the medians with the raygen which=0 instantiation's registers and blocks
-an SM.  The pairs alternate which checkout runs first.  The script prints
-every run, the median of each side's medians, and the card's name and
-power limit.  Each checkout builds its kernels into its own
-``shader_ray_tpu_torch/build/`` on its first run.
+an SM, each instantiation's registers, and the most local bytes and the
+fewest blocks an SM over them.  A checkout with launch plans
+(ops/frame_kernel.FramePlan) launches through one plan a series, its
+uniforms by value from the plan's host block and, at K=1, the zero
+jitter with them; an older one with the uploaded table.  The pairs
+alternate which checkout runs first.  The script prints every run, the
+median of each side's medians, and the card's name and power limit.
+Each checkout builds its kernels into its own ``shader_ray_tpu_torch/
+build/`` on its first run.
 """
 
 from __future__ import annotations
@@ -40,16 +45,35 @@ one = torch.zeros((1, 2), dtype=torch.float32, device="cuda")
 batch = torch.from_numpy(halton_jitters(64)).cuda()
 fs = fk.FrameSettings(width=chip_smoke.W, height=chip_smoke.H)
 given = fk.raygen_rays(uni, one, fs)
+
+
+def launch(jit, fs, rays=None):
+    if not hasattr(fk, "FramePlan"):
+        return lambda: fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
+    plan = fk.FramePlan()
+    block = fill_uniforms(plan.block, params)
+    jit = None if jit is one else jit
+    return lambda: fk.frame_kernel(packed, block, jit, fs, rays=rays, plan=plan)
+
+
 runs = {
-    "which0_k1": (lambda: fk.frame_kernel(packed, uni, one, fs), 100, 1),
-    "which0_k64_per_sample": (lambda: fk.frame_kernel(packed, uni, batch, fs), 10, 64),
-    "which1_aniso4_k1": (lambda: fk.frame_kernel(packed, uni, one, fs._replace(which=1, env_aniso=4)),
-                         100, 1),
-    "given_k1": (lambda: fk.frame_kernel(packed, uni, None, fs, rays=given), 100, 1),
+    "which0_k1": (launch(one, fs), 100, 1),
+    "which0_k64_per_sample": (launch(batch, fs), 10, 64),
+    "which1_aniso4_k1": (launch(one, fs._replace(which=1, env_aniso=4)), 100, 1),
+    "given_k1": (launch(None, fs, given), 100, 1),
 }
 out = {k: float(np.median(chip_smoke.cuda_times(fn, n))) / k_ for k, (fn, n, k_) in runs.items()}
 info = fk.launch_info(packed.stack_depth)
 out.update(registers=info["registers"], blocks_per_sm=info["blocks_per_sm"])
+local, blocks = 0, 99
+for isect in ("woop", "mt"):
+    for given_form in (False, True):
+        for mode in fk.FRAME_MODES:
+            i = fk.launch_info(packed.stack_depth, mode, given_form, isect)
+            out[f"registers {isect} {'given' if given_form else 'raygen'} {mode}"] = i["registers"]
+            local, blocks = max(local, i["local_bytes"]), min(blocks, i["blocks_per_sm"])
+out.update(max_local_bytes=local, min_blocks_per_sm=blocks)
 print(json.dumps(out))
 """
 
@@ -82,7 +106,8 @@ def main() -> int:
     for key in got[args.a][0]:
         a = float(np.median([r[key] for r in got[args.a]]))
         b = float(np.median([r[key] for r in got[args.b]]))
-        print(f"{key}: {args.a} {a:.4f}, {args.b} {b:.4f} ({b / a - 1:+.2%}) on {card}")
+        change = f" ({b / a - 1:+.2%})" if a else ""
+        print(f"{key}: {args.a} {a:.4f}, {args.b} {b:.4f}{change} on {card}")
     return 0
 
 

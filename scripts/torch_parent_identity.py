@@ -4,13 +4,20 @@ checkout's on one card: env_sample in its three modes (seeded directions
 over the whole sphere with wide footprints, and directions exactly along
 +-y, NaN in grad mode), the frame kernel's bench frame in each of its
 raygen modes, which=0, which=1 with aniso 1 and 4, which=2, and in its
-given-rays form (which=5's 25 sets; colour and counter row), and both
-trace kernels, closest and any hit, on the bench primaries (t, id,
-normal, bad flag and per-ray counts), all on the default (Woop) tables;
-and the binary trace kernel's machine code (cuobjdump -sass, its
-instructions without their addresses and encodings), where the toolkit
-has cuobjdump.  Each checkout builds its own kernels in a process of
-its own; the outputs are compared here with NaN equal to NaN.
+given-rays form (which=5's 25 sets; colour and counter row), on the
+Woop and the Moller-Trumbore tables; both trace kernels, closest and any
+hit, on the bench primaries (t, id, normal, bad flag and per-ray
+counts) on the Woop tables; the frames of the App's frame functions on
+both tables after a drag, an interactive 512x512 view at which 0, 1 and
+5 with its cast count and tile rows, and a converging 1024x768 view of
+64 samples; and the binary trace kernel's machine code (cuobjdump -sass,
+its instructions without their addresses and encodings), where the
+toolkit has cuobjdump.  A checkout with launch plans
+(ops/frame_kernel.FramePlan) launches the frame kernel through one, its
+uniforms and a single frame's jitter by value from the plan's host
+block; an older one as it did.  Each checkout builds its own kernels in
+a process of its own; the outputs are compared here with NaN equal to
+NaN.
 
     python3 scripts/torch_parent_identity.py OTHER_CHECKOUT   # on a machine with one NVIDIA GPU
 
@@ -36,6 +43,7 @@ def dump(root: str, path: str) -> None:
     import torch
 
     import chip_smoke
+    from shader_ray_tpu_torch.app.driver import App
     from shader_ray_tpu_torch.engine import Renderer
     from shader_ray_tpu_torch.models.fixtures import procedural_sky
     from shader_ray_tpu_torch.config import Config
@@ -67,21 +75,47 @@ def dump(root: str, path: str) -> None:
         out[f"env_sample {mode}, rays along +-y"] = ek.env_sample(pyr, Dp, gxp, gyp, grad=grad,
                                                                    aniso=aniso)
     data, sky, params = chip_smoke.bench_inputs()
-    packed = Renderer(data, sky).packed
-    for which, aniso in ((0, 1), (1, 1), (1, 4), (2, 1)):
-        fs = fk.FrameSettings(width=chip_smoke.W, height=chip_smoke.H, which=which, env_aniso=aniso)
-        colour, counters = fk.frame_kernel(packed, pack_uniforms(params).cuda(),
-                                           torch.zeros((1, 2), device="cuda"), fs)
-        mode = f"which={which} aniso={aniso}"
-        out[f"frame_kernel {mode} colour"], out[f"frame_kernel {mode} counters"] = colour, counters
+    renderers = {isect: Renderer(data, sky, Config(leaf_isect=isect)) for isect in ("woop", "mt")}
+    packed = renderers["woop"].packed
+    planned = hasattr(fk, "FramePlan")
+
+    def frame(tables, fs, rays=None):
+        if planned:  # the uniforms and the zero jitter by value, through a plan
+            from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
+
+            plan = fk.FramePlan()
+            return fk.frame_kernel(tables, fill_uniforms(plan.block, params), None, fs, rays=rays,
+                                   plan=plan)
+        jit = None if rays is not None else torch.zeros((1, 2), device="cuda")
+        return fk.frame_kernel(tables, pack_uniforms(params).cuda(), jit, fs, rays=rays)
+
     statics = RenderStatics(width=chip_smoke.W, height=chip_smoke.H)
     on_card = type(params)(*[x.cuda() for x in params])
     rays, (right, up) = primary_rays(statics, on_card)
     given = fk.GivenRays(rays.P.contiguous(), supersample_directions(rays.D, right, up))
-    colour, counters = fk.frame_kernel(packed, pack_uniforms(params).cuda(), None,
-                                       fk.FrameSettings(width=statics.width, height=statics.height),
-                                       rays=given)
-    out["frame_kernel which=5 colour"], out["frame_kernel which=5 counters"] = colour, counters
+    for isect, r in renderers.items():
+        for which, aniso in ((0, 1), (1, 1), (1, 4), (2, 1)):
+            fs = fk.FrameSettings(width=chip_smoke.W, height=chip_smoke.H, which=which, env_aniso=aniso)
+            mode = f"{isect} which={which} aniso={aniso}"
+            out[f"frame_kernel {mode} colour"], out[f"frame_kernel {mode} counters"] = \
+                frame(r.packed, fs)
+        out[f"frame_kernel {isect} which=5 colour"], out[f"frame_kernel {isect} which=5 counters"] = \
+            frame(r.packed, fk.FrameSettings(width=statics.width, height=statics.height), given)
+    world = chip_smoke.bench_world()
+    for isect, r in renderers.items():
+        app = App(world, r, width=512, height=512)
+        app.drag(12.0, -7.0)
+        for which in (0, 1, 5):
+            app.which = which
+            out[f"App {isect} 512x512 which={which} frame"] = torch.from_numpy(app.draw_frame())
+        view = app.frame_params()
+        st = RenderStatics(width=512, height=512)
+        out[f"App {isect} 512x512 cast count"] = torch.tensor([r.make_count_fn(st)(view)])
+        out[f"App {isect} 512x512 tile rows"] = r.make_stats_fn(st)(view)
+        converge = App(world, r, width=chip_smoke.W, height=chip_smoke.H)
+        converge.drag(-40.0, 25.0)
+        out[f"App {isect} {chip_smoke.W}x{chip_smoke.H} 64 samples"] = \
+            torch.from_numpy(converge.render_progressive(64))
     rays = generate_rays(statics, on_card)
     P, D = rays.P.contiguous(), rays.D.contiguous()
     binary = Renderer(data, sky, Config(packet_kernel="binary")).packed

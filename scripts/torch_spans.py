@@ -23,6 +23,9 @@ It prints one JSON object as the last line of stdout:
 * ``window``: each span's total and self milliseconds a request over the
   untraced window, ``requests``, ``frame_ms_mean`` and the proxy's
   ``engine_host_ms`` over every frame beside ``engine.frame``'s;
+* ``plans``: over set-up and the untraced window, the frame kernel's
+  launch plans built (``ops/_build.PLANS``), its launches, those made
+  through a plan, and their share;
 * ``traced``: the profiled window's seconds, requests, device
   operations (kernels, copies, memsets) a request, the card's idle
   share, and its idle seconds by the innermost program span
@@ -160,6 +163,7 @@ def main(argv: list[str] | None = None) -> int:
     from portbench import harness, spec, traffic
     from portbench.run import power_limit_w
     from portbench.trace import Spans, profiler
+    from shader_ray_tpu_torch.ops import _build
     from shader_ray_tpu_torch.utils import profiling
 
     cell = spec.find_cell(args.workload)
@@ -178,9 +182,14 @@ def main(argv: list[str] | None = None) -> int:
         timed.counting = True
         return timed
 
+    plans = _build.PLANS
+    counts0 = dict(_build.LAUNCHES), dict(plans)
     with profiling.recording() as rec:
         session = harness.Session(cell.config, device, wrap=wrap)
         run, _, _ = harness.run_window(session, cell.name, mix, args.seed, args.seconds, False)
+    frame_kernels = [k for k in _build.LAUNCHES if k.startswith("frame_kernel")]
+    launches = sum(_build.LAUNCHES[k] - counts0[0].get(k, 0) for k in frame_kernels)
+    planned = sum(plans.get(k, 0) - counts0[1].get(k, 0) for k in frame_kernels)
     setup, window = split(rec, int(mix["warmup"]))
     n = run.requests
     frame = rec.totals().get("engine.frame")
@@ -192,6 +201,9 @@ def main(argv: list[str] | None = None) -> int:
                    "engine_frame_ms_all_frames": 1e3 * frame.total_s / frame.count if frame else None,
                    "ms_a_request": {k: [1e3 * t.total_s / n, 1e3 * t.self_s / n]
                                     for k, t in sorted(window.items())}},
+        "plans": {"built": plans.get("built", 0) - counts0[1].get("built", 0),
+                  "frame_kernel_launches": launches, "through_a_plan": planned,
+                  "share": planned / launches if launches else None},
     }
 
     # the profiled window, on a fresh App (the profiler's first start, which

@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
 
 #include "env.cuh"
 #include "walk.cuh"
@@ -134,6 +135,15 @@ constexpr int UNI_CAM_ORIGIN = 39;
 constexpr int UNI_CAM_NORMAL = 42;
 constexpr int UNI_IPW = 51;
 constexpr int UNI_SIZE = 52;
+constexpr int UNI_JITTER = 52;  // a single frame's jitter (x, y), after the uniforms
+constexpr int UNI_BLOCK = 54;
+
+// The uniforms and a single frame's jitter, passed by value: the launch
+// copies them into the kernel's parameters, so a frame uploads no table
+// (216 bytes of the 4 KB a launch's parameters may take)
+struct Uniforms {
+    float f[UNI_BLOCK];
+};
 
 // ray flags a walker leaves for the slot's owner
 constexpr unsigned char ALIVE = 1;    // hit: bounces on
@@ -200,14 +210,14 @@ struct GivenRays {
 template <int ENV, bool GIVEN, int ISECT>
 __global__ void __launch_bounds__(BLOCK, 1)
 frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
-      const float* __restrict__ uni_g, const float* __restrict__ jit, GivenRays rays, int K,
+      const Uniforms uni, const float* __restrict__ jit, GivenRays rays, int K,
       int W, int H, int tiles_x, int log2w, int warp_map,
       float inv_w, float inv_h, float aspect, int bounces,
       bool shadows, bool diffuse, float fudge, float min_contrib, int n_counters,
       float* __restrict__ out, unsigned long long* __restrict__ counters,
       unsigned long long* __restrict__ rows) {
     constexpr bool GRADS = ENV != BILINEAR;
-    __shared__ float u[UNI_SIZE];
+    __shared__ float u[UNI_BLOCK];
     __shared__ unsigned long long cnt[N_COUNTERS];
     // ray state of the tile's slots (slot = owner thread = pixel)
     __shared__ float sP[3][BLOCK], sD[3][BLOCK], sAcc[3][BLOCK], sMod[3][BLOCK];
@@ -221,7 +231,12 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
     float* const sG = reinterpret_cast<float*>(stack_sh + s.stack_depth * BLOCK);
 
     const int tid = threadIdx.x;
-    for (int i = tid; i < UNI_SIZE; i += BLOCK) u[i] = uni_g[i];
+    if (tid == 0) {
+        // constant indices: the parameters are read in place, never copied
+        // to local memory
+#pragma unroll
+        for (int i = 0; i < UNI_BLOCK; ++i) u[i] = uni.f[i];
+    }
     for (int c = tid; c < N_COUNTERS; c += BLOCK) cnt[c] = 0;
     __syncthreads();
 
@@ -279,9 +294,13 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
                     sMod[c][tid] = 1.0f;
                 }
             } else if (valid) {
-                // pinhole raygen (kernel_mega.py:203-220), two normalisations
-                const float uu = (iif + 0.5f + __ldg(jit + 2 * k)) * inv_w;
-                const float vv = 1.0f - (jf + 0.5f + __ldg(jit + 2 * k + 1)) * inv_h;
+                // pinhole raygen (kernel_mega.py:203-220), two normalisations;
+                // sample k's jitter from the table, or a single frame's from
+                // the uniforms
+                const float jx = jit ? __ldg(jit + 2 * k) : u[UNI_JITTER];
+                const float jy = jit ? __ldg(jit + 2 * k + 1) : u[UNI_JITTER + 1];
+                const float uu = (iif + 0.5f + jx) * inv_w;
+                const float vv = 1.0f - (jf + 0.5f + jy) * inv_h;
                 const float ex = ipw * (uu - 0.5f);
                 const float ey = (ipw * aspect) * (vv - 0.5f);
                 const float inv_e = 1.0f / sqrtf(ex * ex + ey * ey + 1.0f);
@@ -492,7 +511,7 @@ frame(Scene s, const float4* __restrict__ env, Levels lv, float aniso,
     }
 }
 
-using Kernel = void (*)(Scene, const float4*, Levels, float, const float*, const float*, GivenRays,
+using Kernel = void (*)(Scene, const float4*, Levels, float, Uniforms, const float*, GivenRays,
                         int, int, int, int, int, int, float, float, float, int, bool, bool, float,
                         float, int, float*, unsigned long long*, unsigned long long*);
 // [isect][form][mode]: isect 0 Woop, 1 Moller-Trumbore (walk.cuh); form 0
@@ -545,18 +564,23 @@ int env_mode(int which, int aniso) {
 }  // namespace
 
 // env: the pyramid's texels; levels: host array of n_levels (texel
-// offset, height, width) rows, level 0 first.  jitters: (K, 2) for
-// raygen, or null with given rays: rays_P (W*H, 3), rays_D (K, W*H, 3) and
-// in the grad modes rays_gx, rays_gy (K, W*H, 3).  min_contrib: the lane
-// retirement threshold, 0 = none.  rows: null, or the (tiles, 1 + 3 *
-// phases) per-tile counter rows.  isect: the leaves' form, 0 Woop or 1
-// Moller-Trumbore.  tile_w: the tile's width, 8, 16, 32 or 64 pixels (its
-// height 256 / tile_w; tiles row-major, and rows so); warp_map: 0 rows, 1
-// 8x4 bricks.
+// offset, height, width) rows, level 0 first.  block: host array of
+// UNI_BLOCK floats, the uniforms and a single frame's jitter, copied into
+// the launch's parameters before this returns (the caller may rewrite it
+// at once).  jitters: the (K, 2) device table for raygen, or null with
+// K = 1 for the block's jitter, or null with given rays: rays_P (W*H, 3),
+// rays_D (K, W*H, 3) and in the grad modes rays_gx, rays_gy (K, W*H, 3).
+// min_contrib: the lane retirement threshold, 0 = none.  counters: the
+// (1 + 3 * phases) counter row, zeroed here on the stream before the
+// launch.  rows: null, or
+// the (tiles, 1 + 3 * phases) per-tile counter rows.  isect: the leaves'
+// form, 0 Woop or 1 Moller-Trumbore.  tile_w: the tile's width, 8, 16, 32
+// or 64 pixels (its height 256 / tile_w; tiles row-major, and rows so);
+// warp_map: 0 rows, 1 8x4 bricks.
 extern "C" int srt_frame_kernel(
     const float* nodes, const float* leaves, const float* normals, int isect,
     const void* env, const int* levels, int n_levels, int which, int aniso,
-    const float* uni, const float* jitters,
+    const float* block, const float* jitters,
     const float* rays_P, const float* rays_D, const float* rays_gx, const float* rays_gy,
     int K, int W, int H,
     float inv_w, float inv_h, float aspect,
@@ -573,12 +597,17 @@ extern "C" int srt_frame_kernel(
     if (log2w < 0 || (warp_map != WARP_ROWS && warp_map != WARP_BRICKS) ||
         K < 1 || W < 1 || H < 1 || bounces < 0 || phases > MAX_PHASES ||
         stack_depth < 1 || stack_depth > MAX_STACK || mode < 0 || !env_levels(levels, n_levels, lv) ||
-        !(min_contrib >= 0.0f) || isect < 0 || isect >= N_ISECT ||
+        !(min_contrib >= 0.0f) || isect < 0 || isect >= N_ISECT || block == nullptr ||
         (given ? (rays_P == nullptr || jitters != nullptr ||
                   (grads && (rays_gx == nullptr || rays_gy == nullptr)))
-               : jitters == nullptr))
+               : jitters == nullptr && K != 1))
         return (int)cudaErrorInvalidValue;
+    Uniforms uni;
+    memcpy(uni.f, block, sizeof uni.f);
     cudaError_t err = allow_stack_smem();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(counters, 0, (size_t)(1 + 3 * phases) * sizeof(unsigned long long),
+                          (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
     const int tile_h = BLOCK >> log2w;
     const int tiles_x = (W + tile_w - 1) / tile_w;

@@ -8,7 +8,9 @@ the unfused trace engine; ops/engine_frame.py routes.  Every fused route
 retires spent lanes at ``Config.min_contrib`` and launches in the tile
 shape of ``Config.frame_tile`` and ``frame_warp``, all read at each call:
 a ``copy.copy`` of a Renderer with another ``cfg`` renders the same
-tables under that config's knobs (utils/autotune.py measures so).
+tables under that config's knobs (utils/autotune.py measures so).  Each
+function keeps a ``FramePlan`` (ops/frame_kernel.py) for its launches,
+rebuilt at the call that brings other tables or settings.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.  With
@@ -54,6 +56,7 @@ from shader_ray_tpu_torch.ops.engine_frame import (
     render_progressive,
     tile_stats,
 )
+from shader_ray_tpu_torch.ops.frame_kernel import FramePlan
 from shader_ray_tpu_torch.ops.pack import pack_scene
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
@@ -176,12 +179,13 @@ class Renderer:
     def make_fn(self, statics: RenderStatics):
         """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter;
         ray-sharded under a mesh."""
+        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
             if self.mesh is not None:
                 return finish(self._sharded_linear(params, statics, frame_jitter(params)), statics)
             return render_frame(self.packed, params, statics, self.max_steps, self.fused,
-                                self.cfg.min_contrib, **self.shape)
+                                self.cfg.min_contrib, **self.shape, plan=plan)
 
         return self._wrap(fn, "frame fn", statics)
 
@@ -198,6 +202,7 @@ class Renderer:
         (each device one launch over its block), else the rays."""
         jitters = torch.from_numpy(halton_jitters(samples)).to(self.device)
         sample_shards = self.mesh is not None and samples % len(self.mesh) == 0
+        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
             if sample_shards:
@@ -211,7 +216,7 @@ class Renderer:
             else:
                 out = render_progressive(
                     self.packed, params, statics, jitters, self.max_steps, self.fused,
-                    self.cfg.min_contrib, **self.shape,
+                    self.cfg.min_contrib, **self.shape, plan=plan,
                 )
             return out.sum() if reduce_sum else out
 
@@ -222,10 +227,11 @@ class Renderer:
         """``fn(params) -> int`` rays actually cast for one frame (live
         bounce rays + shadow rays from light-facing hits), the honest
         Mrays/s denominator vs the W*H*6 potential."""
+        plan = FramePlan()
 
         def fn(params: FrameParams) -> int:
             return count_cast(self.packed, params, statics, self.max_steps, self.fused,
-                              self.cfg.min_contrib, **self.shape)
+                              self.cfg.min_contrib, **self.shape, plan=plan)
 
         return self._wrap(fn, "cast-count fn", statics)
 
@@ -241,9 +247,10 @@ class Renderer:
         packet engine."""
         if not fused_route(self.packed, statics._replace(which=0), self.fused):
             return None
+        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
             return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib,
-                              **self.shape)
+                              **self.shape, plan=plan)
 
         return self._wrap(fn, "stats fn", statics._replace(which=0))

@@ -11,6 +11,9 @@ imported.
 ``LAUNCHES`` counts launches per kernel name, process-wide: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
 set a count to 0, drive a path and read how often the kernel really ran.
+``PLANS`` counts the frame kernel's launch plans (ops/frame_kernel.
+FramePlan): ``"built"`` the plans built, and by launch name the launches
+made through a plan (``PLANS[name] / LAUNCHES[name]``, their share).
 An nvcc run is the span ``kernels.build:<name>``, a library's load
 ``kernels.load:<name>`` (utils/profiling.span).
 """
@@ -40,6 +43,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+PLANS: collections.Counter = collections.Counter()
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -166,6 +170,18 @@ CUDA_ERRORS = {
     700: "an illegal memory access was encountered",
     701: "too many resources requested for launch",
 }
+
+
+# torch's own accessor of a device's current stream as a raw handle (its
+# generated kernels launch so): no Stream object built for each launch
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launch."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def launched(name: str, err: int) -> None:

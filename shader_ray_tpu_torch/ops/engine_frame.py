@@ -44,10 +44,19 @@ is one launch.  The tonemap runs once on the linear mean, in plain
 PyTorch, as it runs in plain XLA outside the Pallas kernels in the
 reference.
 
-Spans (utils/profiling.span): ``engine.uniforms`` around the uniform
-table's fill and copy at each fused call site, ``engine.jitter`` around
-a single frame's jitter table and its copy, ``engine.finish`` around the
-tonemap.
+Every fused route hands the frame kernel its uniforms, and a single
+frame its jitter, by value: a host block (``fill_uniforms``) that the
+launch copies into its parameters, so a single frame uploads nothing; a
+progressive batch's jitters stay the device table its function made
+once.  The routes take the frame function's ``FramePlan``
+(ops/frame_kernel.py), which keeps the block and the launch's fixed
+arguments from one call to the next; a call without one fills a block
+of its own and the wrapper builds that launch's fixed part for it.
+
+Spans (utils/profiling.span): ``engine.uniforms`` around the block's
+fill at each fused call site, ``engine.jitter`` around the (1, 2) jitter
+table and its copy where a route takes a table (the unfused route and
+``which = 5``), ``engine.finish`` around the tonemap.
 """
 
 from __future__ import annotations
@@ -59,7 +68,9 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     UNI_CAM_NORMAL,
     UNI_CAM_ORIGIN,
     UNI_DIFFUSE,
+    UNI_BLOCK,
     UNI_IPW,
+    UNI_JITTER,
     UNI_LIGHT_DIR,
     UNI_NORMAL_INVERSE,
     UNI_NORMAL_MATRIX,
@@ -67,6 +78,7 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     TILE,
     UNI_SIZE,
     UNI_SPECULAR,
+    FramePlan,
     FrameSettings,
     GivenRays,
     frame_kernel,
@@ -90,7 +102,9 @@ from shader_ray_tpu_torch.utils.profiling import span
 
 def pack_uniforms(params: FrameParams) -> torch.Tensor:
     """FrameParams -> the kernel's (UNI_SIZE,) f32 uniform table
-    (kernel_mega.py:43-54; engine_pallas._pack_uniforms)."""
+    (kernel_mega.py:43-54; engine_pallas._pack_uniforms) as a tensor where
+    ``params`` live: the table ``fill_uniforms`` writes into the launch's
+    host block, bit for bit."""
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
     cam = f32(params.camera_matrix)
     uni = torch.zeros(UNI_SIZE, dtype=torch.float32, device=cam.device)
@@ -106,10 +120,39 @@ def pack_uniforms(params: FrameParams) -> torch.Tensor:
     return uni
 
 
-def uniforms_on(params: FrameParams, device) -> torch.Tensor:
-    """``pack_uniforms`` copied to ``device``."""
+def _host(x) -> np.ndarray:
+    """A parameter's values on the host (a CPU tensor's own storage)."""
+    try:
+        return x.numpy()
+    except (AttributeError, TypeError, RuntimeError):  # not a host tensor without grad
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def fill_uniforms(block: np.ndarray, params: FrameParams) -> np.ndarray:
+    """Write ``params`` into ``block``, the frame kernel's (UNI_BLOCK,) f32
+    host block, and return it: ``pack_uniforms``' table bit for bit (each
+    value rounded to f32 once), then ``params.pixel_jitter``, (0, 0)
+    without one."""
     with span("engine.uniforms"):
-        return pack_uniforms(params).to(device)
+        # matrices row by row into views of the block: no flattened copies
+        rows = lambda at, n: block[at : at + 3 * n].reshape(3, n)
+        rows(UNI_OBJECT_MATRIX, 4)[...] = _host(params.object_matrix)[:3, :4]
+        rows(UNI_NORMAL_MATRIX, 3)[...] = _host(params.object_normal_matrix)[:3, :3]
+        rows(UNI_NORMAL_INVERSE, 3)[...] = _host(params.object_normal_inverse)[:3, :3]
+        block[UNI_LIGHT_DIR : UNI_LIGHT_DIR + 3] = _host(params.light_dir).reshape(3)
+        block[UNI_SPECULAR : UNI_SPECULAR + 3] = _host(params.specular_color).reshape(3)
+        block[UNI_DIFFUSE : UNI_DIFFUSE + 3] = _host(params.diffuse_color).reshape(3)
+        block[UNI_CAM_ORIGIN : UNI_CAM_ORIGIN + 3] = _host(params.camera_matrix)[:3, 3]  # camera * (0,0,0,1)
+        rows(UNI_CAM_NORMAL, 3)[...] = _host(params.camera_normal_matrix)[:3, :3]
+        block[UNI_IPW] = _host(params.image_plane_width)
+        block[UNI_JITTER : UNI_JITTER + 2] = (0.0, 0.0) if params.pixel_jitter is None else \
+            _host(params.pixel_jitter).reshape(2)
+    return block
+
+
+def _block(plan: FramePlan | None) -> np.ndarray:
+    """The host block a launch is filled into: the plan's, or a new one."""
+    return np.zeros(UNI_BLOCK, np.float32) if plan is None else plan.block
 
 
 def halton_jitters(samples: int) -> np.ndarray:
@@ -221,54 +264,57 @@ def supersample_directions(D: torch.Tensor, right: torch.Tensor, up: torch.Tenso
 
 def fused_linear(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
-    jitters: torch.Tensor, max_steps: int = 0, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows",
+    jitters: torch.Tensor | None, max_steps: int = 0, min_contrib: float = 0.0,
+    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE frame-kernel launch: the linear (H, W, 3) mean over the
-    (K, 2) jitters + the kernel's counter row (ops/frame_kernel.py).  The
-    uniform table is built where ``params`` live (usually the host) and
-    copied to the scene's device once."""
-    dev = packed.leaves.device
+    (K, 2) jitters, or with ``jitters`` None the one frame at
+    ``params.pixel_jitter``, + the kernel's counter row
+    (ops/frame_kernel.py).  The uniforms go by value, from the plan's
+    host block."""
     return frame_kernel(
-        packed, uniforms_on(params, dev), jitters.to(dev),
-        frame_settings(statics, max_steps, min_contrib, tile_w, warp_map),
+        packed, fill_uniforms(_block(plan), params),
+        None if jitters is None else jitters.to(packed.leaves.device),
+        frame_settings(statics, max_steps, min_contrib, tile_w, warp_map), plan=plan,
     )
 
 
 def fused_supersample(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
     max_steps: int = 0, min_contrib: float = 0.0, rows: tuple[int, int] | None = None,
-    tile_w: int = TILE, warp_map: str = "rows",
+    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """The which = 5 frame at ``params.pixel_jitter`` as ONE launch of
     the frame kernel's given-rays form: the primaries' origins and their
     25 sub-sample direction sets, built on the scene's device; the
     linear (H, W, 3) mean of the 25 sub-frames, or (r1 - r0, W, 3) of
     image ``rows`` (r0, r1)."""
-    params = _on(params, packed.leaves.device)
-    rays, (right, up) = primary_rays(statics, params, rows)
+    block = fill_uniforms(_block(plan), params)
+    rays, (right, up) = primary_rays(statics, _on(params, packed.leaves.device), rows)
     given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
     fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
-    return frame_kernel(packed, uniforms_on(params, packed.leaves.device), None,
-                        fs._replace(height=rays.P.shape[0] // fs.width), rays=given)[0]
+    return frame_kernel(packed, block, None, fs._replace(height=rays.P.shape[0] // fs.width),
+                        rays=given, plan=plan)[0]
 
 
 def fused_given(
     packed: PackedWide, params: FrameParams, statics: RenderStatics, jitters: torch.Tensor,
     rows: tuple[int, int], max_steps: int = 0, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows",
+    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """Image ``rows`` (r0, r1) of the fused frame over the (K, 2)
     ``jitters`` as ONE launch of the frame kernel's given-rays form: the
     rays its raygen would make for those rows (``raygen_rays``, with
     their differentials in the grad modes), built on the scene's device;
     the linear (r1 - r0, W, 3) mean.  Rows (0, H) give the whole frame's
-    given-rays form."""
+    given-rays form; the rays' uniform table is the host block's, copied
+    to the scene's device."""
     dev = packed.leaves.device
-    uni = uniforms_on(params, dev)
+    block = fill_uniforms(_block(plan), params)
     fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
-    rays = raygen_rays(uni, jitters.to(dev), fs, rows)
-    return frame_kernel(packed, uni, None, fs._replace(height=rows[1] - rows[0]), rays=rays)[0]
+    rays = raygen_rays(torch.tensor(block[:UNI_SIZE]).to(dev), jitters.to(dev), fs, rows)
+    return frame_kernel(packed, block, None, fs._replace(height=rows[1] - rows[0]), rays=rays,
+                        plan=plan)[0]
 
 
 def render_linear(
@@ -282,6 +328,7 @@ def render_linear(
     rows: tuple[int, int] | None = None,
     tile_w: int = TILE,
     warp_map: str = "rows",
+    plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
     the configuration (module docstring); with ``rows`` = (r0, r1) the
@@ -289,7 +336,7 @@ def render_linear(
     the kernel's given-rays form (``fused_given``), elsewhere the same
     function as the whole frame's."""
     on_kernel = fused_route(packed, statics, fused)
-    shape = dict(tile_w=tile_w, warp_map=warp_map)
+    shape = dict(tile_w=tile_w, warp_map=warp_map, plan=plan)
     if on_kernel and statics.which != 5:
         if rows is not None:
             return fused_given(packed, params, statics, jitters, rows, max_steps, min_contrib, **shape)
@@ -306,7 +353,7 @@ def render_linear(
 def count_cast(
     packed: Packed, params: FrameParams, statics: RenderStatics,
     max_steps: int = 0, fused: bool = True, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows",
+    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
 ) -> int:
     """Rays actually cast for one frame at ``params.pixel_jitter``: live
     bounce rays + shadow rays from light-facing hits.  It is one trace of
@@ -315,8 +362,8 @@ def count_cast(
     if fused_route(packed, statics, fused):
         if statics.which == 5:
             statics = statics._replace(which=0)
-        return int(fused_linear(packed, params, statics, frame_jitter(params), max_steps,
-                                min_contrib, tile_w, warp_map)[1][0])
+        return int(fused_linear(packed, params, statics, None, max_steps, min_contrib, tile_w,
+                                warp_map, plan)[1][0])
     params = _on(params, packed.env_pyramid.texels.device)
     rays = generate_rays(statics, params)
     return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
@@ -325,6 +372,7 @@ def count_cast(
 def tile_stats(
     packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
     min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
+    plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """The per-tile counter rows of one ``which = 0`` frame at
     ``params.pixel_jitter`` through the fused frame kernel:
@@ -333,9 +381,9 @@ def tile_stats(
     p's node pops, leaf visits and triangle tests (phases in
     ``frame_kernel.stats_phases`` order), summed over the tile's rays."""
     fs = frame_settings(statics._replace(which=0), max_steps, min_contrib, tile_w, warp_map)
-    dev = packed.leaves.device
-    rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long, device=dev)
-    frame_kernel(packed, uniforms_on(params, dev), jitter_on(params, dev), fs, tile_rows=rows)
+    rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long,
+                       device=packed.leaves.device)
+    frame_kernel(packed, fill_uniforms(_block(plan), params), None, fs, tile_rows=rows, plan=plan)
     return rows
 
 
@@ -361,12 +409,18 @@ def finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
 def render_frame(
     packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
     fused: bool = True, min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
+    plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
-    unless ``statics.do_tonemap`` is off."""
-    jitters = jitter_on(params, packed.env_pyramid.texels.device)
-    color = render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
-                          tile_w=tile_w, warp_map=warp_map)
+    unless ``statics.do_tonemap`` is off; on the fused route outside
+    ``which = 5`` its jitter goes by value, with no table."""
+    if fused_route(packed, statics, fused) and statics.which != 5:
+        color = fused_linear(packed, params, statics, None, max_steps, min_contrib, tile_w,
+                             warp_map, plan)[0]
+    else:
+        jitters = jitter_on(params, packed.env_pyramid.texels.device)
+        color = render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
+                              tile_w=tile_w, warp_map=warp_map, plan=plan)
     return finish(color, statics)
 
 
@@ -380,8 +434,9 @@ def render_progressive(
     min_contrib: float = 0.0,
     tile_w: int = TILE,
     warp_map: str = "rows",
+    plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
     return finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
-                                tile_w=tile_w, warp_map=warp_map), statics)
+                                tile_w=tile_w, warp_map=warp_map, plan=plan), statics)

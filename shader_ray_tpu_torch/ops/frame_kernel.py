@@ -28,7 +28,15 @@ term uses its current direction, and it casts no further ray.
 ``frame_kernel`` is the wrapper: CPU tensors run ``frame_plain``, the
 same function in plain PyTorch; CUDA tensors launch the hand-written
 kernel in ``csrc/frame_kernel.cu`` (built with nvcc at first use into
-``shader_ray_tpu_torch/build/``) or raise.  Both return the linear
+``shader_ray_tpu_torch/build/``) or raise.  The kernel takes the
+uniform table and a single frame's jitter by value: the wrapper passes a
+(UNI_BLOCK,) f32 host block, which the launch copies into its parameters,
+so a single frame uploads nothing and the block may be rewritten as soon
+as the call returns; a batch's (K, 2) jitters stay a device table.  A
+frame function keeps a ``FramePlan``: its host block, and what a launch
+takes that depends only on the tables, the settings and their device
+(the checks, the entry, the fixed ctypes arguments), built once and
+rebuilt only for other tables or settings.  Both return the linear
 colour mean over the jitter samples and an int64 counter row:
 ``[0]`` rays cast (live bounce rays + lcos-gated shadow rays), then per
 walk phase p (bounce walks and shadow walks interleaved, as the
@@ -51,6 +59,7 @@ rows follow the tiles.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -90,6 +99,10 @@ UNI_CAM_ORIGIN = 39      # (3,) world camera position
 UNI_CAM_NORMAL = 42      # [:3,:3] row-major camera normal matrix
 UNI_IPW = 51             # () image plane width = 2*tan(fov/2)
 UNI_SIZE = 52
+# the launch's host block, which the kernel takes by value: the table, then
+# a single frame's jitter (x, y) (ops/engine_frame.fill_uniforms)
+UNI_JITTER = 52
+UNI_BLOCK = 54
 
 
 def stats_phases(bounce_count: int, cast_shadows: bool, enable_diffuse: bool) -> list[str]:
@@ -425,7 +438,7 @@ def _entry():
     fn.argtypes = [
         P, P, P, I,                # nodes, leaves, normals, leaf test form
         P, P, I, I, I,             # env texels, level table, levels, which, aniso
-        P, P,                      # uni, jitters
+        P, P,                      # the host block (by value), the jitter table or null
         P, P, P, P,                # given rays: P, D, dDdx, dDdy
         I, I, I,                   # K, W, H
         F, F, F,                   # 1/W, 1/H, H/W
@@ -458,46 +471,31 @@ def _warp_code(warp_map: str) -> int:
     return WARP_MAPS.index(warp_map) if warp_map in WARP_MAPS else -1
 
 
-def frame_kernel(
-    packed: PackedWide,
-    uni: torch.Tensor,
-    jitters: torch.Tensor | None,
-    fs: FrameSettings,
-    tile_rows: torch.Tensor | None = None,
-    rays: GivenRays | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Render K samples of a W x H frame, from the (K, 2) ``jitters`` or
-    from the K sets of given ``rays`` (``jitters`` None): (H, W, 3) f32
-    linear colour mean and the int64 counter row; fills ``tile_rows`` if
-    given (module docstring).  The walks test leaves in the tables' form
-    (``packed.isect``).  CPU tensors run ``frame_plain``; CUDA tensors
-    launch the CUDA kernel.  The span ``frame_kernel.call`` covers the
-    whole call, the range named after the kernel its launch."""
-    with span("frame_kernel.call"):
+class _Launch:
+    """What a launch of the frame kernel takes that depends only on the
+    tables, the settings and their device: the tables' device, and on a
+    card the checks of the tables and settings, the entry, the launch name
+    and the fixed ctypes arguments (``head`` before the host block's
+    pointer, ``tail`` after K)."""
+
+    __slots__ = ("packed", "fs", "device", "fn", "name", "n_counters", "head", "tail")
+
+    def __init__(self, packed: PackedWide, fs: FrameSettings) -> None:
         env = packed.env_pyramid
         isect = isect_code("frame_kernel", packed.isect)
-        tensors = dict(
-            nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels,
-            uni=uni, jitters=jitters, tile_rows=tile_rows,
-            **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()}),
-        )
-        device = _build.one_device("frame_kernel", {k: v for k, v in tensors.items() if v is not None})
-        if device.type == "cpu":
-            return frame_plain(packed, uni, jitters, fs, tile_rows=tile_rows, rays=rays)
+        self.packed, self.fs, self.fn = packed, fs, None
+        self.device = _build.one_device("frame_kernel", dict(
+            nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels))
+        if self.device.type == "cpu":
+            return
         fs.mode()  # a mode the kernel has
-        K = _samples(jitters, rays, fs)
         Nw = packed.n_wide
         check = functools.partial(_build.check, "frame_kernel")
         check("nodes", packed.nodes, torch.float32, (Nw, WIDE, 8))
         check("leaves", packed.leaves, torch.float32, (None, LEAF_STRIDE))
         check("normals", packed.normals, torch.float32, (packed.leaves.shape[0], LEAF_STRIDE))
         check("env", env.texels, torch.float32, (None, TEXEL))
-        check("uni", uni, torch.float32, (UNI_SIZE,))
-        if jitters is not None:
-            check("jitters", jitters, torch.float32, (None, 2))
-        if tile_rows is not None:
-            check("tile_rows", tile_rows, torch.long, (fs.n_tiles(), 1 + 3 * fs.phases()))
-        if K < 1 or fs.width < 1 or fs.height < 1:
+        if fs.width < 1 or fs.height < 1:
             raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
         if not fs.min_contrib >= 0.0:
             raise ValueError(f"frame_kernel: min_contrib={fs.min_contrib}: need >= 0")
@@ -507,27 +505,114 @@ def frame_kernel(
             raise ValueError(f"frame_kernel: {fs.phases()} walk phases > {MAX_PHASES}")
         if not 1 <= env.n_levels <= MAX_LEVELS:
             raise ValueError(f"frame_kernel: {env.n_levels} env levels, the kernel takes 1 to {MAX_LEVELS}")
+        self.fn = _entry()
+        self.name = launch_name("frame_kernel", packed.isect)
+        self.n_counters = 1 + 3 * fs.phases()
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        levels = (I * (3 * env.n_levels))(*(x for row in env.levels for x in row))
+        self.head = (P(packed.nodes.data_ptr()), P(packed.leaves.data_ptr()),
+                     P(packed.normals.data_ptr()), I(isect), P(env.texels.data_ptr()), levels,
+                     I(env.n_levels), I(fs.which), I(fs.env_aniso))
+        self.tail = (I(fs.width), I(fs.height), *map(F, _raygen_scalars(fs.width, fs.height)),
+                     I(fs.bounce_count), I(fs.cast_shadows), I(fs.enable_diffuse),
+                     F(fs.surface_fudge), F(fs.mt_eps), F(fs.min_contrib),
+                     I(fs.max_steps or Nw + 2), I(packed.stack_depth), I(fs.tile_w),
+                     I(_warp_code(fs.warp_map)))
 
-        fn = _entry()
+
+class FramePlan:
+    """One frame function's launches of the frame kernel (module
+    docstring): ``block``, the host block it writes each call's uniforms
+    and single-frame jitter into (``engine_frame.fill_uniforms``), and
+    the launch's fixed part (``_Launch``), built at its first call and
+    again at a call with other tables (by identity) or other settings.
+    ``_build.PLANS`` counts the plans built (``"built"``) and, by launch
+    name, the launches made through a plan."""
+
+    def __init__(self) -> None:
+        self.block = np.zeros(UNI_BLOCK, np.float32)
+        self.block_ptr = self.block.ctypes.data
+        self._launch: _Launch | None = None
+
+    def launch_for(self, packed: PackedWide, fs: FrameSettings) -> _Launch:
+        launch = self._launch
+        if launch is None or launch.packed is not packed or launch.fs != fs:
+            launch = self._launch = _Launch(packed, fs)
+            _build.PLANS["built"] += 1
+        return launch
+
+
+def _check_block(block: np.ndarray) -> None:
+    """Raise unless ``block`` is a host block: contiguous f32 of shape
+    (UNI_BLOCK,)."""
+    if not isinstance(block, np.ndarray) or block.dtype != np.float32 or \
+            block.shape != (UNI_BLOCK,) or not block.flags.c_contiguous:
+        got = f"{block.dtype} {tuple(block.shape)}" if hasattr(block, "shape") else type(block).__name__
+        raise ValueError(f"frame_kernel: a host block must be contiguous float32 of shape "
+                         f"({UNI_BLOCK},), got {got}")
+
+
+_NO_RAYS = GivenRays(None, None)
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def frame_kernel(
+    packed: PackedWide,
+    block: np.ndarray,
+    jitters: torch.Tensor | None,
+    fs: FrameSettings,
+    tile_rows: torch.Tensor | None = None,
+    rays: GivenRays | None = None,
+    plan: FramePlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Render K samples of a W x H frame, from the (K, 2) ``jitters`` or
+    from the K sets of given ``rays`` (``jitters`` None): (H, W, 3) f32
+    linear colour mean and the int64 counter row; fills ``tile_rows`` if
+    given (module docstring).  ``block`` is the (UNI_BLOCK,) f32 host
+    block (``engine_frame.fill_uniforms``): the uniform table, then a
+    jitter, with which neither ``jitters`` nor ``rays`` make one frame
+    (K = 1).  With a ``plan`` the launch's fixed part is the plan's
+    (``FramePlan``), else it is built for this call.  The walks test
+    leaves in the tables' form (``packed.isect``).  CPU tensors run
+    ``frame_plain``; CUDA tensors launch the CUDA kernel.  The span
+    ``frame_kernel.call`` covers the whole call, the range named after the
+    kernel its launch."""
+    with span("frame_kernel.call"):
+        if plan is not None and block is plan.block:
+            block_ptr = plan.block_ptr
+        else:
+            _check_block(block)
+            block_ptr = block.ctypes.data
+        launch = _Launch(packed, fs) if plan is None else plan.launch_for(packed, fs)
+        if jitters is not None or tile_rows is not None or rays is not None:
+            given = {"nodes": packed.nodes, "jitters": jitters, "tile_rows": tile_rows,
+                     **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()})}
+            _build.one_device("frame_kernel", {k: v for k, v in given.items() if v is not None})
+        single = jitters is None and rays is None
+        if launch.fn is None:  # the tables lie on the host: the plain version
+            if single:
+                jitters = torch.from_numpy(block[UNI_JITTER:].copy()).reshape(1, 2)
+            return frame_plain(packed, torch.from_numpy(block[:UNI_SIZE].copy()), jitters, fs,
+                               tile_rows=tile_rows, rays=rays)
+        K = 1 if single else _samples(jitters, rays, fs)
+        if jitters is not None:
+            _build.check("frame_kernel", "jitters", jitters, torch.float32, (None, 2))
+        if tile_rows is not None:
+            _build.check("frame_kernel", "tile_rows", tile_rows, torch.long,
+                         (fs.n_tiles(), launch.n_counters))
+        if K < 1:
+            raise ValueError("frame_kernel: need K >= 1 and a non-empty frame")
+        device = launch.device
         out = torch.empty((fs.height, fs.width, 3), dtype=torch.float32, device=device)
-        counters = torch.zeros(1 + 3 * fs.phases(), dtype=torch.long, device=device)
-        levels = (ctypes.c_int * (3 * env.n_levels))(*(x for row in env.levels for x in row))
-        inv_w, inv_h, aspect = _raygen_scalars(fs.width, fs.height)
+        counters = torch.empty(launch.n_counters, dtype=torch.long, device=device)  # zeroed by the entry
         ptr = lambda x: None if x is None else x.data_ptr()
-        given = rays or GivenRays(None, None)
-        name = launch_name("frame_kernel", packed.isect)
-        with torch.cuda.device(device), span(name):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(
-                packed.nodes.data_ptr(), packed.leaves.data_ptr(), packed.normals.data_ptr(), isect,
-                env.texels.data_ptr(), levels, env.n_levels, fs.which, fs.env_aniso,
-                uni.data_ptr(), ptr(jitters), *(ptr(x) for x in given), K, fs.width, fs.height,
-                inv_w, inv_h, aspect,
-                fs.bounce_count, int(fs.cast_shadows), int(fs.enable_diffuse),
-                fs.surface_fudge, fs.mt_eps, fs.min_contrib, fs.max_steps or Nw + 2,
-                packed.stack_depth, fs.tile_w, _warp_code(fs.warp_map),
-                out.data_ptr(), counters.data_ptr(),
-                None if tile_rows is None else tile_rows.data_ptr(), stream,
-            )
-        _build.launched(name, err)
+        on = _SAME_DEVICE if torch.cuda.current_device() == device.index else torch.cuda.device(device)
+        with on, span(launch.name):
+            stream = _build.stream_of(device)
+            err = launch.fn(*launch.head, block_ptr, ptr(jitters),
+                            *map(ptr, rays or _NO_RAYS), K, *launch.tail, out.data_ptr(),
+                            counters.data_ptr(), ptr(tile_rows), stream)
+        _build.launched(launch.name, err)
+        if plan is not None:
+            _build.PLANS[launch.name] += 1
         return out, counters

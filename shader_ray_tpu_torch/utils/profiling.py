@@ -41,10 +41,10 @@ SPANS = {
     "app.frame_params": "App.frame_params: the frame's uniforms as host tensors",
     "app.copy": "App.draw_frame / render_progressive: the frame to the host (.cpu().numpy())",
     "engine.frame": "a Renderer's frame function, every route",
-    "engine.uniforms": "the fused routes' uniform table and its copy to the device",
-    "engine.jitter": "the (1, 2) jitter table and its copy to the device",
+    "engine.uniforms": "the fused routes' host block of uniforms and single-frame jitter, filled",
+    "engine.jitter": "the (1, 2) jitter table and its copy to the device (unfused, which = 5)",
     "engine.finish": "the tonemap and gamma of a linear frame",
-    "frame_kernel.call": "ops/frame_kernel.frame_kernel: checks, allocations, the launch",
+    "frame_kernel.call": "ops/frame_kernel.frame_kernel: the plan, allocations, the launch",
     "renderer.pack": "Renderer.__init__: the host pack of the scene and the env pyramid",
     "renderer.upload": "Renderer.__init__: the packed tables to the device",
     "kernels.build": "ops/_build.build: an nvcc run, ':<library>' appended",

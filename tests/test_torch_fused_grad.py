@@ -150,7 +150,8 @@ def test_stats_fn_rows_sum_to_the_frame_row(sphere):
     assert rows.dtype == torch.long and rows.shape == (n_tiles, 1 + 3 * len(phases))
     fs = engine_frame.frame_settings(st)
     uni = engine_frame.pack_uniforms(tp)
-    _, frame_row = fk.frame_kernel(r.packed, uni, engine_frame.frame_jitter(tp), fs)
+    block = engine_frame.fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), tp)
+    _, frame_row = fk.frame_kernel(r.packed, block, engine_frame.frame_jitter(tp), fs)
     assert torch.equal(rows.sum(0), frame_row)
     assert int(rows[:, 0].sum()) == r.make_count_fn(st)(tp)
     # a row is its tile's: each phase's per-ray counts of the plain walks,

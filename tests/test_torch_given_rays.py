@@ -111,15 +111,15 @@ def test_given_raygen_rays_give_the_raygen_frame(sphere, which, aniso):
 def test_given_rays_are_checked(sphere):
     _, _, tp, renderers = sphere
     packed = renderers["fused"].packed
-    uni = engine_frame.pack_uniforms(tp)
+    block = engine_frame.fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), tp)
     fs = fk.FrameSettings(width=4, height=4, which=1)
     rays = fk.GivenRays(torch.zeros((16, 3)), torch.ones((2, 16, 3)))
     with pytest.raises(ValueError, match="either jitters"):
-        fk.frame_kernel(packed, uni, torch.zeros((1, 2)), fs, rays=rays)
+        fk.frame_kernel(packed, block, torch.zeros((1, 2)), fs, rays=rays)
     with pytest.raises(ValueError, match="dDdx"):  # a grad mode reads the differentials
-        fk.frame_kernel(packed, uni, None, fs, rays=rays)
+        fk.frame_kernel(packed, block, None, fs, rays=rays)
     with pytest.raises(ValueError, match="rays.D"):
-        fk.frame_kernel(packed, uni, None, fs._replace(which=0),
+        fk.frame_kernel(packed, block, None, fs._replace(which=0),
                         rays=rays._replace(D=torch.ones((2, 15, 3))))
 
 
@@ -149,9 +149,9 @@ def test_fused_which5_is_one_given_rays_launch(sphere, supersample_oracle, monke
     _, _, tp, renderers = sphere
     calls = []
 
-    def recorded(packed, uni, jitters, fs, tile_rows=None, rays=None):
+    def recorded(packed, uni, jitters, fs, tile_rows=None, rays=None, plan=None):
         calls.append((jitters, fs, rays))
-        return fk.frame_kernel(packed, uni, jitters, fs, tile_rows, rays)
+        return fk.frame_kernel(packed, uni, jitters, fs, tile_rows, rays, plan)
 
     def no_trace(*args, **kw):
         raise AssertionError("the fused which=5 frame ran the unfused engine")

@@ -127,20 +127,21 @@ def test_wrappers_do_not_fall_back_when_the_kernel_cannot_build(monkeypatch):
     wide, binary = pack_scene_wide(data, procedural_sky(32)), pack_scene(data, procedural_sky(32))
     P = torch.zeros((8, 3))
     D = torch.ones((8, 3))
+    BLOCK = np.zeros(frame_kernel.UNI_BLOCK, np.float32)
     before = dict(_build.LAUNCHES)
     calls = [
         lambda: trace_kernel.trace_wide(wide, P, D),
         lambda: trace_kernel.trace_binary(binary, P, D, any_hit=True),
         lambda: env_kernel.env_sample(wide.env_pyramid, D),
         lambda: env_kernel.env_sample(binary.env_pyramid, D, D, D, grad=True, aniso=4),
-        lambda: frame_kernel.frame_kernel(wide, torch.zeros(52), torch.zeros((1, 2)),
+        lambda: frame_kernel.frame_kernel(wide, BLOCK, torch.zeros((1, 2)),
                                           frame_kernel.FrameSettings(width=4, height=4)),
         lambda: frame_kernel.frame_kernel(
-            wide, torch.zeros(52), torch.zeros((1, 2)),
+            wide, BLOCK, torch.zeros((1, 2)),
             frame_kernel.FrameSettings(width=4, height=4, which=1, env_aniso=4),
             tile_rows=torch.zeros((1, 19), dtype=torch.long)),
         lambda: frame_kernel.frame_kernel(
-            wide, torch.zeros(52), None,
+            wide, BLOCK, None,
             frame_kernel.FrameSettings(width=4, height=4, min_contrib=0.5),
             rays=frame_kernel.GivenRays(torch.zeros((16, 3)), torch.ones((25, 16, 3)))),
     ]
@@ -190,14 +191,14 @@ def test_frame_kernel_rejects_mixed_devices():
     from shader_ray_tpu_torch.models.fixtures import procedural_sky, uv_sphere
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
-    from shader_ray_tpu_torch.ops.frame_kernel import FrameSettings, frame_kernel
+    from shader_ray_tpu_torch.ops.frame_kernel import UNI_BLOCK, FrameSettings, frame_kernel
     from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 
     pos, nrm = uv_sphere(lat=4, lon=6)
     packed = pack_scene_wide(get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm))),
                              procedural_sky(32))
     with pytest.raises(ValueError, match="device"):
-        frame_kernel(packed, torch.zeros(52, device="meta"), torch.zeros((1, 2)),
+        frame_kernel(packed, np.zeros(UNI_BLOCK, np.float32), torch.zeros((1, 2), device="meta"),
                      FrameSettings(width=4, height=4))
 
 
@@ -234,12 +235,48 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
     jit = torch.from_numpy(halton_jitters(2)).to(cuda_device)
     fs = fk.FrameSettings(width=64, height=64)
     before = fk._build.LAUNCHES["frame_kernel"]
-    kc, kn = fk.frame_kernel(packed, uni, jit, fs)
+    kc, kn = fk.frame_kernel(packed, chip_smoke.block_of(uni), jit, fs)
     assert fk._build.LAUNCHES["frame_kernel"] == before + 1
     pc, pn = fk.frame_plain(packed, uni, jit, fs)
     torch.cuda.synchronize()
     assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None
     assert np.asarray(kc.shape).tolist() == [64, 64, 3]
+
+
+@pytest.mark.cuda
+def test_planned_launch_matches_plain_on_card(cuda_device):
+    """Two frames through one ``FramePlan``, the uniforms and each frame's
+    jitter by value from its host block (rewritten between them), each
+    against ``frame_plain`` on the uploaded table and a (1, 2) jitter table
+    with chip_smoke's limits; one plan built, both launches through it."""
+    from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
+    from shader_ray_tpu_torch.models.triangle_set import TriangleSet
+    from shader_ray_tpu_torch.models.world import get_shader_data, make_world
+    from shader_ray_tpu_torch.ops import frame_kernel as fk
+    from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms, frame_jitter, pack_uniforms
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+    from shader_ray_tpu_torch.ops.render import default_frame_params
+    from shader_ray_tpu_torch.utils import mat4
+
+    pos, nrm = bunny_class_scene(5000)
+    packed = pack_scene_wide(get_shader_data(make_world(TriangleSet.from_arrays(pos, nrm))),
+                             procedural_sky(256)).to(cuda_device)
+    params = default_frame_params()._replace(
+        camera_matrix=torch.from_numpy(mat4.make_translation(0.0, 0.0, 3.8)),
+        diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
+    )
+    fs = fk.FrameSettings(width=64, height=64)
+    plan = fk.FramePlan()
+    built, through = fk._build.PLANS["built"], fk._build.PLANS["frame_kernel"]
+    for jitter in ((0.0, 0.0), (0.25, -0.375)):
+        p = params._replace(pixel_jitter=torch.tensor(jitter))
+        kc, kn = fk.frame_kernel(packed, fill_uniforms(plan.block, p), None, fs, plan=plan)
+        pc, pn = fk.frame_plain(packed, pack_uniforms(p).to(cuda_device),
+                                frame_jitter(p).to(cuda_device), fs)
+        torch.cuda.synchronize()
+        assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None, jitter
+    assert fk._build.PLANS["built"] == built + 1
+    assert fk._build.PLANS["frame_kernel"] == through + 2
 
 
 @functools.cache
@@ -485,7 +522,7 @@ def test_frame_kernel_control_flow_on_card(cuda_device, name):
 
     packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device)
     before = fk._build.LAUNCHES["frame_kernel"]
-    kc, kn = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    kc, kn = fk.frame_kernel(packed, chip_smoke.block_of(uni), jit, fs, rays=rays)
     assert fk._build.LAUNCHES["frame_kernel"] == before + 1
     pc, pn = fk.frame_plain(packed, uni, jit, fs, rays=rays)
     torch.cuda.synchronize()
@@ -494,7 +531,7 @@ def test_frame_kernel_control_flow_on_card(cuda_device, name):
     red = torch.tensor([1.0, 0.0, 0.0], device=cuda_device)
     assert int(((kc == red).all(-1) != (pc == red).all(-1)).sum()) <= 1
     if fs.min_contrib >= 1.0:  # every hit lane retired after bounce 0
-        oc, on = fk.frame_kernel(packed, uni, jit, fs._replace(bounce_count=1))
+        oc, on = fk.frame_kernel(packed, chip_smoke.block_of(uni), jit, fs._replace(bounce_count=1))
         assert torch.equal(kc, oc) and torch.equal(kn[:on.numel()], on)
 
 
@@ -511,7 +548,7 @@ def test_frame_kernel_tile_rows_on_card(cuda_device, mode):
                      env_aniso=4 if mode == "probes" else 1)
     assert fs.mode() == mode
     rows = torch.full((fs.n_tiles(), 1 + 3 * fs.phases()), -1, dtype=torch.long, device=cuda_device)
-    kc, kn = fk.frame_kernel(packed, uni, jit, fs, tile_rows=rows)
+    kc, kn = fk.frame_kernel(packed, chip_smoke.block_of(uni), jit, fs, tile_rows=rows)
     pc, pn = fk.frame_plain(packed, uni, jit, fs)
     torch.cuda.synchronize()
     assert torch.equal(rows.sum(0), kn)
@@ -530,21 +567,22 @@ def test_frame_kernel_every_launch_shape_on_card(cuda_device, name):
     from shader_ray_tpu_torch.ops import frame_kernel as fk
 
     packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device)
-    colour, row = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    blk = chip_smoke.block_of(uni)
+    colour, row = fk.frame_kernel(packed, blk, jit, fs, rays=rays)
     for tile_w, warp_map in chip_smoke.FRAME_SHAPES:
         s = fs._replace(tile_w=tile_w, warp_map=warp_map)
         rows = torch.full((s.n_tiles(), 1 + 3 * s.phases()), -1, dtype=torch.long, device=cuda_device)
         prows = torch.empty_like(rows)
-        kc, kn = fk.frame_kernel(packed, uni, jit, s, tile_rows=rows, rays=rays)
+        kc, kn = fk.frame_kernel(packed, blk, jit, s, tile_rows=rows, rays=rays)
         fk.frame_plain(packed, uni, jit, s, tile_rows=prows, rays=rays)
         torch.cuda.synchronize()
         assert torch.equal(chip_smoke.bits(kc), chip_smoke.bits(colour)) and torch.equal(kn, row)
         assert torch.equal(rows.sum(0), kn)
         assert chip_smoke.tile_rows_disagreement(rows.cpu(), prows.cpu()) is None
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        fk.frame_kernel(packed, uni, jit, fs._replace(tile_w=12), rays=rays)
+        fk.frame_kernel(packed, blk, jit, fs._replace(tile_w=12), rays=rays)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        fk.frame_kernel(packed, uni, jit, fs._replace(warp_map="columns"), rays=rays)
+        fk.frame_kernel(packed, blk, jit, fs._replace(warp_map="columns"), rays=rays)
     info = fk.launch_info(packed.stack_depth, fs.mode(), rays is not None, tile_w=64,
                           warp_map="bricks")
     assert (info["tile_w"], info["tile_h"], info["local_bytes"]) == (64, 4, 0)
@@ -812,7 +850,7 @@ def test_mt_frame_kernel_control_flow_on_card(cuda_device, name):
     packed, uni, jit, fs, rays = chip_smoke.frame_case(name, cuda_device, "mt")
     assert packed.isect == "mt"
     before = dict(fk._build.LAUNCHES)
-    kc, kn = fk.frame_kernel(packed, uni, jit, fs, rays=rays)
+    kc, kn = fk.frame_kernel(packed, chip_smoke.block_of(uni), jit, fs, rays=rays)
     assert fk._build.LAUNCHES["frame_kernel_mt"] == before.get("frame_kernel_mt", 0) + 1
     assert fk._build.LAUNCHES["frame_kernel"] == before.get("frame_kernel", 0)
     pc, pn = fk.frame_plain(packed, uni, jit, fs, rays=rays)

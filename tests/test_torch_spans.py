@@ -23,9 +23,10 @@ from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-FRAME = ["app.drag", "app.frame_params", "engine.frame", "engine.jitter", "engine.uniforms",
+# a single frame's jitter goes by value in the uniforms' host block: no engine.jitter
+FRAME = ["app.drag", "app.frame_params", "engine.frame", "engine.uniforms",
          "frame_kernel.call", "engine.finish", "app.copy"]
-INSIDE_FRAME = {"engine.jitter", "engine.uniforms", "frame_kernel.call", "engine.finish"}
+INSIDE_FRAME = {"engine.uniforms", "frame_kernel.call", "engine.finish"}
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +89,7 @@ def test_app_drag_and_frame_record_each_layer_in_its_nesting(scene):
         app.drag(3.0, -2.0)
         app.render()
     names = [s[0] for s in rec.spans]
-    assert [n for n in names if n in FRAME] == FRAME
+    assert [n for n in names if n in FRAME] == FRAME and "engine.jitter" not in names
     by_name = {s[0]: s for s in rec.spans}
     top = {n for n, _, parent, _, _ in rec.spans if parent is None}
     assert top == {"app.drag", "app.frame_params", "engine.frame", "app.copy"}
