@@ -6,7 +6,10 @@ file (``program``; no environment variable, autotune or scene cache
 reaches it), the scene build (``TriangleSet``, ``make_world``,
 ``get_shader_data``), the ``engine.Renderer`` on the device and, for each
 window, a fresh ``app.driver.App`` over them, as the command line builds
-it.  The mix's ``warmup`` requests run first; the first of them loads
+it, set up by the configuration's ``view``: its material and diffuse
+colour by the ``m`` and ``d`` keys, then its ``drags`` in order, each
+the ``l`` or ``o`` key and a drag by (x * width, y * height) pixels, then
+``o``.  The mix's ``warmup`` requests run first; the first of them loads
 the kernel library (built once per checkout into the program's own build
 directory).
 
@@ -15,7 +18,11 @@ on the host (traffic.py), until ``seconds`` have passed; the last
 request ends the window.  A traced run records the last
 ``trace_seconds`` of it with the profiler and the benchmark's spans,
 and, before that, the host seconds inside the Renderer's frame function
-through a thin proxy of the Renderer (``Timed``).
+through a thin proxy of the Renderer (``Timed``); after the window it
+reads the walk counters of one frame at the last view (``counters``).
+Every run counts the kernel launches and launch plans of the window
+(``ops/_build.LAUNCHES`` and ``PLANS``, read just before and just after
+it).
 
 The check (``check``) takes a sample of the window's frames drawn from
 the seed (a reservoir: every frame is as likely to be kept), a sample of
@@ -29,11 +36,12 @@ import contextlib
 import gc
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from portbench import costs, reference, scene, traffic
+from portbench import costs, reference, scene, spec, traffic
 from portbench.trace import Spans, Summary, profiler, summarize
 
 
@@ -107,6 +115,12 @@ class Run:
     engine_calls: int = 0
     node_pops: int | None = None        # the stats fn's node pops of one sample
     rays_cast: int | None = None
+    # the stats fn's rows summed over tiles: "rays_cast" and
+    # "<phase>.node_pops", "<phase>.leaf_visits", "<phase>.tri_tests"
+    counters: dict[str, int] = field(default_factory=dict)
+    # the window's launches by kernel (_build.LAUNCHES) and, as
+    # "plans.<key>", its launch plans (_build.PLANS); only those that moved
+    launches: dict[str, int] = field(default_factory=dict)
     work: reference.Work | None = None  # the reference walk's work on the checked rays
     checked_rays: int = 0               # primary rays the check traced
     check: dict = field(default_factory=dict)
@@ -132,7 +146,7 @@ class Session:
     """The scene, the program's configuration, world and Renderer of one
     configuration, built once (the set-up a run times)."""
 
-    def __init__(self, config: dict, device, wrap=None):
+    def __init__(self, config: dict, device, wrap=None, root: Path = spec.ROOT):
         from shader_ray_tpu_torch.config import Config
         from shader_ray_tpu_torch.engine import Renderer
         from shader_ray_tpu_torch.models.triangle_set import TriangleSet
@@ -141,7 +155,7 @@ class Session:
         self.config = config
         self.device = torch.device(device)
         t0 = time.perf_counter()
-        self.tri, self.sky = scene.make_scene(config["scene"])
+        self.tri, self.sky = scene.make_scene(config["scene"], root)
         self.cfg = Config(**config["program"]).validate()
         t1 = time.perf_counter()
         self.world = make_world(TriangleSet.from_arrays(self.tri), self.cfg)
@@ -166,6 +180,10 @@ class Session:
             app.key("m")
         for _ in range(int(view["diffuse_color"])):
             app.key("d")
+        for d in view.get("drags", ()):
+            app.key(reference.DRAG_KEYS[d["target"]])
+            app.drag(float(d["x"]) * app.width, float(d["y"]) * app.height)
+        app.key("o")   # the traffic's drags turn the object
         app.which = int(mix["which"])
         return app
 
@@ -187,6 +205,9 @@ def run_window(session: Session, cell: str, mix: dict, seed: int, seconds: float
                t_start: float | None = None) -> tuple[Run, traffic.Gestures, Reservoir]:
     """Warm up, then serve the mix for ``seconds``: the Run, the gestures
     handed out and the frames kept for the check."""
+    from shader_ray_tpu_torch.ops.frame_kernel import stats_phases
+    from shader_ray_tpu_torch.ops.render import RenderStatics
+
     spans = Spans()
     timed = Timed(session.renderer, spans) if trace else None
     t0 = time.perf_counter()
@@ -208,6 +229,7 @@ def run_window(session: Session, cell: str, mix: dict, seed: int, seconds: float
     kept = Reservoir(int(mix["check"]["frames"]), np.random.default_rng([seed, 2]))
     prof = None
     trace_from = seconds - float(mix["trace_seconds"]) if trace else float("inf")
+    before = launch_counts()
     t_win = time.perf_counter()
     if t_start is not None:
         run.setup_s = t_win - t_start
@@ -232,21 +254,48 @@ def run_window(session: Session, cell: str, mix: dict, seed: int, seconds: float
             break
     run.window_s = now - t_win
     run.requests = n
+    run.launches = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+                    if v != before.get(k, 0)}
     if prof is not None:
         session.sync()
         prof.__exit__(None, None, None)
         spans.on = False
         run.trace = summarize(prof)
         run.engine_host_s, run.engine_calls = timed.host_s, timed.calls
-        from shader_ray_tpu_torch.ops.render import RenderStatics
-
-        stats = session.renderer.make_stats_fn(RenderStatics.from_config(
-            session.cfg, width=int(mix["width"]), height=int(mix["height"]), which=0))
+        statics = RenderStatics.from_config(session.cfg, width=int(mix["width"]),
+                                            height=int(mix["height"]), which=0)
+        stats = session.renderer.make_stats_fn(statics)
         if stats is not None:
-            rows = stats(app.frame_params()).cpu()
-            run.node_pops = int(rows[:, 1::3].sum())
-            run.rays_cast = int(rows[:, 0].sum())
+            phases = stats_phases(statics.bounce_count, statics.cast_shadows, statics.enable_diffuse)
+            run.counters = counters(stats(app.frame_params()).cpu(), phases)
+            run.rays_cast = run.counters["rays_cast"]
+            run.node_pops = sum(run.counters[f"{p}.node_pops"] for p in phases)
     return run, gestures, kept
+
+
+def launch_counts() -> dict[str, int]:
+    """The program's launch counters now: ``ops/_build.LAUNCHES`` by
+    kernel, ``_build.PLANS`` as "plans.<key>"."""
+    from shader_ray_tpu_torch.ops import _build
+
+    return {**_build.LAUNCHES, **{f"plans.{k}": v for k, v in _build.PLANS.items()}}
+
+
+COUNTER_COLUMNS = ("node_pops", "leaf_visits", "tri_tests")
+
+
+def counters(rows, phases: list[str]) -> dict[str, int]:
+    """The stats fn's (n_tiles, 1 + 3 * phases) counter rows summed over
+    tiles: column 0 as "rays_cast", columns 1 + 3p + c as
+    "<phases[p]>.<COUNTER_COLUMNS[c]>"."""
+    if rows.shape[1] != 1 + len(COUNTER_COLUMNS) * len(phases):
+        raise ValueError(f"counter rows of {rows.shape[1]} columns for phases {phases}")
+    sums = [int(x) for x in rows.sum(0)]
+    out = {"rays_cast": sums[0]}
+    for p, phase in enumerate(phases):
+        for c, name in enumerate(COUNTER_COLUMNS):
+            out[f"{phase}.{name}"] = sums[1 + len(COUNTER_COLUMNS) * p + c]
+    return out
 
 
 def check(session: Session, run: Run, gestures: traffic.Gestures, kept: Reservoir, seed: int,
@@ -262,7 +311,7 @@ def check(session: Session, run: Run, gestures: traffic.Gestures, kept: Reservoi
     items = sorted(kept.items, key=lambda x: x[0])
     views = reference.replay_views(session.tri, w, h, prog["fov_degrees"], view["material"],
                                    view["diffuse_color"], gestures.history,
-                                   [warm + i for i, _ in items])
+                                   [warm + i for i, _ in items], view.get("drags", ()))
     jit = (reference.halton_jitters(run.samples) if mix["request"] == "progressive"
            else np.zeros((1, 2), np.float32))
     ref = session.reference()

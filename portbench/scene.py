@@ -10,11 +10,23 @@ float32 arrays for the same arguments (test_portbench_scene.py holds them
 equal), without the per-triangle Python loop, so a million-triangle mesh
 takes about a second.  The mesh does not depend on the seed: it is the
 deployment's data set, the seed draws only the traffic.
+
+A configuration's ``scene.generator`` names the mesh's generator:
+``bunny_class`` is this module's (``GENERATORS``); any other name is the
+file ``scenes/<generator>.py`` of this package, whose
+``generate(scene: dict) -> np.ndarray`` gets the configuration's whole
+``scene`` entry and returns (T, 3, 3) float32 positions.  A generator
+file is part of the yardstick: it imports numpy and nothing of the
+program, and it sets the mesh from the entry alone, never from the seed.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+from portbench.spec import ROOT, module
 
 
 def uv_sphere(lat: int, lon: int) -> tuple[np.ndarray, np.ndarray]:
@@ -83,7 +95,21 @@ def procedural_sky(width: int) -> np.ndarray:
 GENERATORS = {"bunny_class": bunny_class_scene}
 
 
-def make_scene(spec: dict) -> tuple[np.ndarray, np.ndarray]:
+def make_scene(spec: dict, root: Path = ROOT) -> tuple[np.ndarray, np.ndarray]:
     """(triangles (T, 3, 3), sky (H, W, 3)) of a configuration's
-    ``scene`` entry: ``{"generator": ..., "target_tris": ..., "sky_width": ...}``."""
-    return GENERATORS[spec["generator"]](int(spec["target_tris"])), procedural_sky(int(spec["sky_width"]))
+    ``scene`` entry: ``{"generator": ..., "target_tris": ..., "sky_width": ...}``
+    and whatever else its generator reads; a generator file is looked up
+    in the checkout ``root`` (module docstring).  Raises KeyError naming
+    the missing file of an unknown generator, ValueError on triangles
+    that are not (T, 3, 3) float32."""
+    name = spec["generator"]
+    if name in GENERATORS:
+        tri = GENERATORS[name](int(spec["target_tris"]))
+    else:
+        tri = module("scenes", name, root).generate(spec)
+        if not (isinstance(tri, np.ndarray) and tri.dtype == np.float32 and tri.ndim == 3
+                and tri.shape[1:] == (3, 3) and len(tri)):
+            raise ValueError(f"scenes/{name}.py: generate() must return (T, 3, 3) float32, "
+                             f"got {type(tri).__name__} {getattr(tri, 'dtype', '')} "
+                             f"{getattr(tri, 'shape', '')}")
+    return tri, procedural_sky(int(spec["sky_width"]))

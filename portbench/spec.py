@@ -9,7 +9,9 @@ its name under this package:
 * a traffic mix: ``traffic/<name>.json`` (traffic.py reads it);
 * a cell's correctness limits: ``limits/<cell>.json``;
 * a metric's reader: ``metrics/<name>.py``, whose ``read(run)`` returns
-  the metric's value, or None where the run has nothing to read.
+  the metric's value, or None where the run has nothing to read;
+* a scene generator other than scene.py's own: ``scenes/<generator>.py``,
+  whose ``generate(scene)`` returns the triangles (scene.py).
 
 A later cell, configuration, mix or metric is a new file and a new entry;
 no file here changes.
@@ -67,15 +69,21 @@ def find_cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
     return Cell(name, int(w["chips"]), config, traffic, limits, e2e, per_layer)
 
 
-def reader(metric: str, root: Path = ROOT):
-    """The ``read`` function of ``metrics/<metric>.py``."""
-    path = root / PACKAGE.name / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench.metrics.{metric}", path)
+def module(folder: str, name: str, root: Path = ROOT):
+    """The module of ``<folder>/<name>.py`` under this package in the
+    checkout ``root``; raises KeyError naming the missing file."""
+    path = root / PACKAGE.name / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"portbench.{folder}.{name}", path)
     if spec is None or not path.exists():
-        raise KeyError(f"no reader for metric {metric!r} ({path})")
+        raise KeyError(f"no file {path} for {name!r}")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str, root: Path = ROOT):
+    """The ``read`` function of ``metrics/<metric>.py``."""
+    return module("metrics", metric, root).read
 
 
 def read_metrics(entries: list[dict], run) -> dict[str, dict]:

@@ -1,7 +1,8 @@
 """What the benchmark imports: nothing whose top-level name is jax,
 jaxlib, flax or the JAX package (shader_ray_tpu), compared whole; and the
-yardstick's modules (reference, scene, costs, traffic, trace, spec)
-nothing of the port either."""
+yardstick's modules (reference, scene, costs, traffic, trace, spec, the
+metric readers and the scene generator files) nothing of the port
+either."""
 
 import ast
 import subprocess
@@ -10,6 +11,7 @@ import sys
 import pytest
 
 from portbench import run, spec
+from portbench.conftest import copy_checkout
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "shader_ray_tpu"}
 YARDSTICK = ("reference", "scene", "costs", "traffic", "trace", "spec")
@@ -27,21 +29,40 @@ def _imports(path) -> set[str]:
     return names
 
 
-def _sources():
-    return sorted(p for p in spec.PACKAGE.rglob("*.py") if not p.name.startswith("test_"))
+def _sources(package=spec.PACKAGE):
+    return sorted(p for p in package.rglob("*.py") if not p.name.startswith("test_"))
+
+
+def _yardstick(package=spec.PACKAGE):
+    return ([package / f"{name}.py" for name in YARDSTICK] + sorted((package / "metrics").glob("*.py"))
+            + sorted((package / "scenes").glob("*.py")))
+
+
+def _port_importers(package=spec.PACKAGE) -> list[str]:
+    """The yardstick's files that import the port or any forbidden module."""
+    return [p.name for p in _yardstick(package) if _imports(p) & (FORBIDDEN | {"shader_ray_tpu_torch"})]
+
+
+def _jax_importers(package=spec.PACKAGE) -> list[str]:
+    return [p.name for p in _sources(package) if _imports(p) & FORBIDDEN]
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    for path in _sources():
-        bad = _imports(path) & FORBIDDEN
-        assert not bad, f"{path.name} imports {bad}"
+    assert _jax_importers() == []
 
 
 def test_the_yardstick_imports_nothing_of_the_port():
-    for name in YARDSTICK:
-        assert "shader_ray_tpu_torch" not in _imports(spec.PACKAGE / f"{name}.py"), name
-    for path in (spec.PACKAGE / "metrics").glob("*.py"):
-        assert "shader_ray_tpu_torch" not in _imports(path), path.name
+    assert _port_importers() == []
+
+
+@pytest.mark.parametrize("module,caught_as", [("shader_ray_tpu_torch.models.fixtures", "port"),
+                                              ("jax.numpy", "jax"), ("numpy", None)])
+def test_a_scene_generator_file_counts_as_yardstick(tmp_path, module, caught_as):
+    pkg = copy_checkout(tmp_path) / "portbench"
+    (pkg / "scenes").mkdir()
+    (pkg / "scenes" / "mesh.py").write_text(f"import {module}\n\n\ndef generate(scene):\n    pass\n")
+    assert _port_importers(pkg) == ([] if caught_as is None else ["mesh.py"])
+    assert _jax_importers(pkg) == (["mesh.py"] if caught_as == "jax" else [])
 
 
 def test_top_level_names_are_compared_whole(monkeypatch):

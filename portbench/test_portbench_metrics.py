@@ -30,10 +30,9 @@ def _x(cat, name, ts, dur):
     return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
 
 
-def test_trace_busy_idle_and_gaps():
-    # two requests of 100 us; the card busy 10-40 (kernel) and 30-50 (copy)
-    # in the first, 160-190 in the second; a kernel outside the window
-    ev = [_x("user_annotation", "pb.request", 0, 100), _x("user_annotation", "pb.drag", 0, 5),
+# two requests of 100 us; the card busy 10-40 (kernel) and 30-50 (copy)
+# in the first, 160-190 in the second; a kernel outside the window
+EVENTS = [_x("user_annotation", "pb.request", 0, 100), _x("user_annotation", "pb.drag", 0, 5),
           _x("user_annotation", "pb.render", 5, 95), _x("user_annotation", "pb.frame_fn", 8, 20),
           _x("user_annotation", "pb.request", 120, 100), _x("user_annotation", "pb.render", 125, 95),
           _x("user_annotation", "pb.frame_fn", 125, 10),
@@ -41,7 +40,17 @@ def test_trace_busy_idle_and_gaps():
           _x("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 30, 20),
           _x("kernel", "void (anonymous namespace)::frame<0, false, 0>(x)", 160, 30),
           _x("kernel", "other", 500, 10)]
-    s = trace.reduce_events(ev)
+# the program's spans inside those requests, a device-side copy of one,
+# and ranges outside the window
+PROGRAM = [_x("user_annotation", "app.drag", 1, 3), _x("user_annotation", "engine.frame", 8, 19),
+           _x("user_annotation", "frame_kernel.call", 9, 1.5), _x("user_annotation", "frame_kernel", 9.5, 0.5),
+           _x("user_annotation", "app.copy", 50, 40), _x("user_annotation", "engine.frame", 125, 9),
+           _x("user_annotation", "app.copy", 140, 60), _x("gpu_user_annotation", "engine.frame", 10, 30),
+           _x("user_annotation", "renderer.pack", -500, 300), _x("user_annotation", "app.copy", 210, 30)]
+
+
+def test_trace_busy_idle_and_gaps():
+    s = trace.reduce_events(EVENTS)
     assert s.requests == 2 and s.window_s == pytest.approx(220e-6)
     assert s.busy_s == pytest.approx(70e-6)
     assert trace.idle_pct(s) == pytest.approx(100 * 150 / 220)
@@ -55,6 +64,19 @@ def test_trace_busy_idle_and_gaps():
     assert g["loop"] == pytest.approx(20e-6)              # 100-120
     assert sum(g.values()) == pytest.approx(150e-6)
     assert trace.top(g, 2)[0][0] == "copy"
+    assert s.spans_s == {} and s.spans_n == {}
+
+
+def test_program_spans_are_summed_and_charge_no_gap():
+    plain, s = trace.reduce_events(EVENTS), trace.reduce_events(EVENTS + PROGRAM)
+    assert s[:5] == plain[:5]    # window, busy, requests, device seconds and gaps alike
+    assert s.spans_n == {"app.drag": 1, "engine.frame": 2, "frame_kernel.call": 1, "frame_kernel": 1,
+                         "app.copy": 2}
+    want = {"app.drag": 3e-6, "engine.frame": 28e-6, "frame_kernel.call": 1.5e-6, "frame_kernel": 0.5e-6,
+            "app.copy": 100e-6}
+    assert s.spans_s.keys() == want.keys()
+    for name, seconds in want.items():
+        assert s.spans_s[name] == pytest.approx(seconds), name
 
 
 def test_compare_counts_non_finite_pixels_as_off():
@@ -99,3 +121,22 @@ def test_roofline_and_step_share_from_counted_work():
     assert spec.reader("step_mfu")(run) == pytest.approx(100 * bound * 20 * 64 / 2.0)
     assert spec.reader("device_idle_pct.converge")(run) == pytest.approx(5.0)
     assert spec.reader("frame_kernel_roofline")(_run()) is None
+
+
+def test_counters_from_the_stats_rows():
+    from shader_ray_tpu_torch.ops.frame_kernel import stats_phases
+
+    phases = stats_phases(3, True, True)
+    rows = np.arange(4 * 19).reshape(4, 19)        # 4 tiles, 1 + 3 x 6 columns
+    c = harness.counters(rows, phases)
+    assert list(c) == ["rays_cast"] + [f"{p}.{k}" for p in ("bounce0", "shadow0", "bounce1", "shadow1",
+                                                             "bounce2", "shadow2")
+                                        for k in ("node_pops", "leaf_visits", "tri_tests")]
+    col = lambda j: sum(19 * t + j for t in range(4))
+    assert c["rays_cast"] == col(0)
+    assert c["bounce0.node_pops"] == col(1) and c["bounce0.tri_tests"] == col(3)
+    assert c["shadow0.leaf_visits"] == col(5) and c["shadow2.tri_tests"] == col(18)
+    assert all(type(v) is int for v in c.values())
+    assert len(harness.counters(rows[:, :10], stats_phases(3, False, True))) == 10
+    with pytest.raises(ValueError):
+        harness.counters(rows, stats_phases(2, True, True))

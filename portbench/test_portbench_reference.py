@@ -1,5 +1,9 @@
 """The plain reference against the port's plain CPU path at a tiny size,
-its hierarchy's walk against brute force, and its control (TF32) far off."""
+its hierarchy's walk against brute force, and its control (TF32) far off;
+the viewer's uniforms it replays against the App's."""
+
+import copy
+import hashlib
 
 import numpy as np
 import pytest
@@ -79,3 +83,71 @@ def test_tf32_rounds_to_ten_mantissa_bits():
     m = y.view(torch.int32) & 0x1FFF
     assert (m == 0).all()
     assert abs(float(y[3]) - 3.14159265) <= 3.14159265 * 2**-11
+
+
+GESTURES = [(5.0, -3.0), (-7.5, 2.25), (0.5, 6.0), (12.0, 0.0), (-3.0, -9.5)]
+# sha256 of each View's fields (float32 bytes, in field order) after
+# GESTURES on bunny_class_scene(2000) in a 48 x 32 window, recorded from the
+# commit before view drags
+RECORDED_VIEWS = {
+    0: "14675efc9e8baf001b5e21fdb8d9e4fe88f96574ac1dec767e036a6f15966dee",
+    2: "6feed6c40d8958b079f5aae1eb9e7da4d847125ac7e4cff5f8f633ed33da041f",
+    4: "cb573664be5a6722b472ade3d71704e87139a34bcb37fec7484e4c0011c5b10e",
+}
+
+
+def _digest(view: ref.View) -> str:
+    h = hashlib.sha256()
+    for x in view:
+        a = np.ascontiguousarray(np.asarray(x, np.float32))
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("drags", [None, []])
+def test_views_without_drags_are_the_recorded_ones(drags):
+    tri = scene.bunny_class_scene(2000)
+    args = (tri, 48, 32, 40.0, 6, 0, GESTURES, [0, 2, 4])
+    views = ref.replay_views(*args) if drags is None else ref.replay_views(*args, drags)
+    assert {i: _digest(v) for i, v in views.items()} == RECORDED_VIEWS
+
+
+DRAGS = [{"target": "light", "x": 0.21, "y": -0.13}, {"target": "object", "x": -0.07, "y": 0.33},
+         {"target": "light", "x": -0.05, "y": 0.02}]
+
+
+def test_drags_replay_as_the_app_turns_light_and_object(tiny_session):
+    """The configuration's drags through Session.app's keys and drags,
+    then one traffic gesture: the reference's light and object matrices
+    equal the App's bit for bit, and each drag moved them."""
+    cell = tiny_cell("bunny69k.interactive")
+    session = copy.copy(tiny_session)
+    session.config = copy.deepcopy(tiny_session.config)
+    session.config["view"]["drags"] = DRAGS
+    app = session.app(cell.traffic, session.renderer)
+    assert app.motion_target.name == "OBJECT"
+    app.drag(7.0, -2.5)
+    view = ref.replay_views(session.tri, 48, 32, 40.0, 6, 0, [(7.0, -2.5)], [0], DRAGS)[0]
+    w = app.world
+    assert np.array_equal(view.light_dir, app.light_dir)
+    assert np.array_equal(view.object_matrix, w.object_matrix)
+    assert np.array_equal(view.object_normal, w.object_normal_matrix)
+    assert np.array_equal(view.normal_inverse, w.object_normal_inverse)
+    assert np.array_equal(view.camera_normal, w.camera_normal_matrix)
+    plain = ref.replay_views(session.tri, 48, 32, 40.0, 6, 0, [(7.0, -2.5)], [0])[0]
+    for drags, same_light in ((DRAGS[1:2], True), (DRAGS[0:1] + DRAGS[2:], False)):
+        moved = ref.replay_views(session.tri, 48, 32, 40.0, 6, 0, [(7.0, -2.5)], [0], drags)[0]
+        assert np.array_equal(moved.light_dir, plain.light_dir) == same_light
+        assert np.array_equal(moved.object_matrix, plain.object_matrix) != same_light
+
+
+def test_an_unknown_drag_target_raises(tiny_session):
+    with pytest.raises(ValueError, match="sun"):
+        ref.replay_views(tiny_session.tri, 48, 32, 40.0, 6, 0, [], [], [{"target": "sun", "x": 0, "y": 0}])
+    session = copy.copy(tiny_session)
+    session.config = copy.deepcopy(tiny_session.config)
+    session.config["view"]["drags"] = [{"target": "sun", "x": 0.1, "y": 0.0}]
+    with pytest.raises(KeyError, match="sun"):
+        session.app(tiny_cell("bunny69k.interactive").traffic, session.renderer)

@@ -14,7 +14,10 @@ it, the device time of each kernel or copy by name, and the idle gaps,
 each part of a gap charged to what the host was doing then: the
 innermost span, with ``pb.render``'s time before its frame function
 named ``frame_params`` and after it ``copy``; outside every span
-``loop``.
+``loop``.  Only the benchmark's own spans decide how a gap is charged.
+Every other range in the window (the program's spans,
+``utils/profiling.SPANS``, and its kernel wrappers' launch ranges) is
+summed by name, in seconds and in count.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ class Summary(NamedTuple):
     requests: int                         # requests whose span lies in the window
     device_s: dict[str, float]            # device seconds by kernel or copy name
     gaps_s: dict[str, float]              # idle seconds by what the host was doing
+    spans_s: dict[str, float] = {}        # host seconds of the program's ranges by name
+    spans_n: dict[str, int] = {}          # ... and their count
 
 
 class Spans:
@@ -83,12 +88,19 @@ def _union(intervals):
 def reduce_events(events: list[dict]) -> Summary:
     """The Summary of complete ("X") trace events: ``ts`` and ``dur`` in
     microseconds, ``cat`` and ``name``."""
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("name") in SPANS]
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+              if e.get("cat") == "user_annotation"]
+    spans = [r for r in ranges if r[2] in SPANS]
     requests = [(a, b) for a, b, n in spans if n == "pb.request"]
     if not requests:
         return Summary(0.0, 0.0, 0, {}, {})
     w0, w1 = min(a for a, _ in requests), max(b for _, b in requests)
+    spans_s: dict[str, float] = {}
+    spans_n: dict[str, int] = {}
+    for a, b, n in ranges:
+        if n not in SPANS and w0 <= a and b <= w1:
+            spans_s[n] = spans_s.get(n, 0.0) + (b - a) * 1e-6
+            spans_n[n] = spans_n.get(n, 0) + 1
     device, dev_s = [], {}
     for e in events:
         if e.get("cat") not in DEVICE_CATS:
@@ -106,7 +118,7 @@ def reduce_events(events: list[dict]) -> Summary:
     if t < w1:
         gaps.append((t, w1))
     return Summary((w1 - w0) * 1e-6, sum(b - a for a, b in busy) * 1e-6, len(requests), dev_s,
-                   _charge(gaps, spans))
+                   _charge(gaps, spans), spans_s, spans_n)
 
 
 def _charge(gaps, spans) -> dict[str, float]:
