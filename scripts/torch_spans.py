@@ -17,9 +17,12 @@ activity to the innermost program span open at the time.
 It prints one JSON object as the last line of stdout:
 
 * ``setup``: each span's count, total and self seconds in set-up (the
-  frames of the mix's warm-up requests and before: ``renderer.pack``,
+  frames of the mix's warm-up requests and before: the scene build's
+  ``world.bvh:<route>`` and ``world.shader_data``, ``renderer.pack``,
   ``renderer.upload``, ``kernels.build:<library>``,
   ``kernels.load:<library>``);
+* ``build``: the World's build counts: its route, the triangles, the
+  references R, the spatial splits taken, the nodes and the leaves;
 * ``window``: each span's total and self milliseconds a request over the
   untraced window, ``requests``, ``frame_ms_mean`` and the proxy's
   ``engine_host_ms`` over every frame beside ``engine.frame``'s;
@@ -36,6 +39,7 @@ It prints one JSON object as the last line of stdout:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -196,6 +200,8 @@ def main(argv: list[str] | None = None) -> int:
     out = {
         "cell": cell.name, "seed": args.seed,
         "setup": {k: t._asdict() for k, t in sorted(setup.items())},
+        "build": {"triangles": session.world.triangle_count,
+                  **dataclasses.asdict(session.world.counts)},
         "window": {"requests": n, "frame_ms_mean": 1e3 * run.window_s / n,
                    "engine_host_ms_all_frames": 1e3 * timed.host_s / max(timed.calls, 1),
                    "engine_frame_ms_all_frames": 1e3 * frame.total_s / frame.count if frame else None,

@@ -15,7 +15,11 @@ defaults:
 * stable partition by barycenter vs. the split plane (bvh.cpp:249-286).
 
 Node order, split choices and the triangle permutation are the
-reference package's numpy construction's, byte for byte.
+reference package's numpy construction's, byte for byte, but for one
+departure: where no split divides a node of more than
+``Config.max_leaf_tests`` triangles, which the kernels would test only in
+part, the node is split at its median barycenter (``_cap_split``) instead
+of becoming a leaf.
 """
 
 from __future__ import annotations
@@ -90,6 +94,7 @@ class BVH:
     root: int
     order: np.ndarray
     stats: BVHStats
+    spatial_splits: int = field(default=0, kw_only=True)  # those the SBVH build took
 
     @property
     def node_count(self) -> int:
@@ -104,6 +109,18 @@ def _surface_area(dim: np.ndarray) -> np.ndarray:
 
 def _leaf_cost(count: int, cfg: Config) -> float:
     return cfg.sah_ctrav + cfg.sah_cisec * count  # bvh.cpp:107-110
+
+
+def _cap_split(x: np.ndarray, start: int, level: int, verbose: bool) -> tuple[int, np.ndarray]:
+    """(left count, permutation) of the leaf cap's split: the references
+    in the stable order of their coordinates ``x`` on the split axis,
+    halved.  A node that no split divides but that holds more than
+    ``Config.max_leaf_tests`` references is split so, since the kernels
+    test at most that many of a leaf's (the reference's builds make the
+    leaf)."""
+    if verbose:
+        print(f"Leaf cap split at {level}, {len(x)} triangles", file=sys.stderr)
+    return len(x) // 2, np.argsort(x, kind="stable") + start
 
 
 def make_bvh(
@@ -207,23 +224,26 @@ def make_bvh(
                     best = cost
                     split_x = lo + i * (hi - lo) / bin_count  # bvh.cpp:187
 
-        if split_x is None:
-            stats.large_leaf_no_split += 1
-            if verbose:
-                print(f"Large leaf node (no good split) at {level}, {count} triangles",
-                      file=sys.stderr)
-            return make_leaf(start, count, level)
-        neg_mask = x < split_x
-        countA = int(neg_mask.sum())
+        neg_mask = None if split_x is None else x < split_x
+        countA = 0 if neg_mask is None else int(neg_mask.sum())
+        if countA == 0 or countA == count:
+            if count > cfg.max_leaf_tests:
+                countA, perm = _cap_split(x, start, level, verbose)
+            elif split_x is None:
+                stats.large_leaf_no_split += 1
+                if verbose:
+                    print(f"Large leaf node (no good split) at {level}, {count} triangles",
+                          file=sys.stderr)
+                return make_leaf(start, count, level)
+            else:
+                stats.large_leaf_one_side += 1
+                if verbose:
+                    print(f"Large leaf node (all one side) at {level}, {count} triangles",
+                          file=sys.stderr)
+                return make_leaf(start, count, level)
+        else:
+            perm = np.concatenate([np.nonzero(neg_mask)[0], np.nonzero(~neg_mask)[0]]) + start
         countB = count - countA
-        if countA == 0 or countB == 0:
-            stats.large_leaf_one_side += 1
-            if verbose:
-                print(f"Large leaf node (all one side) at {level}, {count} triangles",
-                      file=sys.stderr)
-            return make_leaf(start, count, level)
-
-        perm = np.concatenate([np.nonzero(neg_mask)[0], np.nonzero(~neg_mask)[0]]) + start
         order[sl] = order[perm]
         bmin[sl] = bmin[perm]
         bmax[sl] = bmax[perm]

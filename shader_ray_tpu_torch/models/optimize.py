@@ -27,6 +27,7 @@ than scalar float math, and a large scene runs millions of unions.
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import sys
 import time
@@ -297,4 +298,4 @@ def optimize_bvh(
             f"{time.monotonic() - t0:.1f}s, {pass_i + 1} passes",
             file=sys.stderr,
         )
-    return BVH(nodes=new_nodes, root=root, order=bvh.order, stats=bvh.stats)
+    return dataclasses.replace(bvh, nodes=new_nodes, root=root)

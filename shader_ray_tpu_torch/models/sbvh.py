@@ -1,5 +1,6 @@
 """SBVH spatial-split builder (host side, numpy; counterpart of
-shader_ray_tpu/models/sbvh.py, node for node).
+shader_ray_tpu/models/sbvh.py, node for node but for the leaf cap
+split, below).
 
 Stich et al. 2009, "Spatial Splits in Bounding Volume Hierarchies", on
 the binary-BVH contract of models/bvh.py (nodes + a leaf-ordered
@@ -16,8 +17,14 @@ unchanged: every part of a triangle is covered by the leaves whose
 regions it overlaps, and a hit accepted outside the current leaf's box
 is still a real intersection that the closest-hit test keeps.
 
+One departure from the JAX package's builder, as in models/bvh.py: where
+no split divides a node of more than ``max_leaf_tests`` references, which
+the kernels would test only in part, the node is split at its median
+centroid (``cap_split``) instead of becoming a leaf.
+
 Not the default build; ``Config.splits = "sbvh"`` (SRT_SPLITS=sbvh)
-selects it.
+selects it, through its native twin (native.build_flat_sbvh, the same
+tables bit for bit) where ``Config.use_native`` lets it.
 """
 
 from __future__ import annotations
@@ -103,7 +110,8 @@ def make_sbvh(
     Returns a ``BVH`` whose ``order`` is the concatenated per-leaf
     reference list — length R >= T, with duplicates where spatial
     splits divided a triangle.  Same node structure, flattening, and
-    leaf-range semantics as ``make_bvh``.
+    leaf-range semantics as ``make_bvh``; ``spatial_splits`` counts the
+    spatial splits taken.
     """
     cfg = config or Config()
     verts = np.asarray(verts, np.float32)
@@ -278,6 +286,8 @@ def make_sbvh(
                 plan = ("sp", sp[0], sp[1], sp[2])
 
         if plan is None:
+            if count > cfg.max_leaf_tests:
+                return cap_split(tri, rmin, rmax, nmin, nmax, level)
             stats.large_leaf_no_split += 1
             return make_leaf(tri, rmin, rmax, level)
 
@@ -286,6 +296,8 @@ def make_sbvh(
             cent_a = 0.5 * (rmin[:, a] + rmax[:, a])
             neg = cent_a < x
             if not neg.any() or neg.all():
+                if count > cfg.max_leaf_tests:
+                    return cap_split(tri, rmin, rmax, nmin, nmax, level)
                 stats.large_leaf_one_side += 1
                 return make_leaf(tri, rmin, rmax, level)
             lt, lmn, lmx = tri[neg], rmin[neg], rmax[neg]
@@ -335,20 +347,34 @@ def make_sbvh(
             rmn = np.concatenate([rmin[right_only], crmin[rvalid]])
             rmx = np.concatenate([rmax[right_only], crmax[rvalid]])
             if len(lt) == 0 or len(rt) == 0 or len(lt) == count or len(rt) == count:
+                if count > cfg.max_leaf_tests:
+                    return cap_split(tri, rmin, rmax, nmin, nmax, level)
                 stats.large_leaf_one_side += 1
                 return make_leaf(tri, rmin, rmax, level)
             state["total_refs"] += dup
             state["dup_refs"] += dup
             state["spatial_splits"] += 1
+        return inner(a, nmin, nmax, build(lt, lmn, lmx, level + 1),
+                     build(rt, rmn, rmx, level + 1), level)
 
-        neg_i = build(lt, lmn, lmx, level + 1)
-        pos_i = build(rt, rmn, rmx, level + 1)
+    def inner(a, nmin, nmax, neg_i, pos_i, level):
         nodes.append(
             BVHNode(boxmin=nmin, boxmax=nmax, axis=a, negative=neg_i, positive=pos_i)
         )
         stats.node_count += 1
         stats.nodes_by_level[level] = stats.nodes_by_level.get(level, 0) + 1
         return len(nodes) - 1
+
+    def cap_split(tri, rmin, rmax, nmin, nmax, level):
+        """The leaf cap's split (models/bvh.py ``_cap_split``): the
+        references in the stable order of their centroids on the widest
+        centroid axis, halved."""
+        cent = 0.5 * (rmin + rmax)
+        a = int(np.argmax(cent.max(axis=0) - cent.min(axis=0)))
+        idx = np.argsort(cent[:, a], kind="stable")
+        lo, hi = idx[: len(tri) // 2], idx[len(tri) // 2 :]
+        return inner(a, nmin, nmax, build(tri[lo], rmin[lo], rmax[lo], level + 1),
+                     build(tri[hi], rmin[hi], rmax[hi], level + 1), level)
 
     sys.setrecursionlimit(max(sys.getrecursionlimit(), 10000))
     # whole-triangle ref boxes carry the reference's BUMPOUT padding
@@ -369,4 +395,5 @@ def make_sbvh(
             file=sys.stderr,
         )
         stats.print()
-    return BVH(nodes=nodes, root=root, order=order, stats=stats)
+    return BVH(nodes=nodes, root=root, order=order, stats=stats,
+               spatial_splits=state["spatial_splits"])

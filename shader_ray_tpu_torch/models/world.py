@@ -3,11 +3,11 @@ reads (reference world.cpp:46-134, 298-347; numpy path of
 shader_ray_tpu/models/world.py).  ``load_world`` dispatches on the file
 extension (.trisrc, .obj); ``make_world`` builds the BVH the
 configuration asks for (``Config.splits``, ``Config.bvh_opt``), the
-object-split one through the native builder where ``Config.use_native``
-lets it (native.py: flattened as it builds, bit-identical to the numpy
-build); the World carries the view matrices the app sets
-(app/camera.update_view_params); ``scene_fingerprint`` keys the scene
-cache (utils/cache.py)."""
+object-split and the spatial-split one through the native builder where
+``Config.use_native`` lets it (native.py: flattened as it builds,
+bit-identical to the numpy builds); the World carries the view matrices
+the app sets (app/camera.update_view_params); ``scene_fingerprint`` keys
+the scene cache (utils/cache.py)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from shader_ray_tpu_torch.models.bvh import BVH, make_bvh
 from shader_ray_tpu_torch.models.flatten import FlatBVH, flatten_bvh
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.utils import mat4
+from shader_ray_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -31,6 +32,19 @@ class Camera:
     """Reference world.h camera: just a field of view (radians)."""
 
     fov: float = mat4.to_radians(40.0)  # ray.cpp:1078
+
+
+@dataclass
+class BuildCounts:
+    """What ``make_world``'s build made: its route (``object``,
+    ``object-native``, ``sbvh``, ``sbvh-native``), the triangle references
+    R, the spatial splits taken, the nodes and the leaves."""
+
+    route: str
+    references: int
+    spatial_splits: int
+    nodes: int
+    leaves: int
 
 
 @dataclass
@@ -42,6 +56,7 @@ class World:
     triangle_count: int
     flat: FlatBVH | None = None      # the native builder's flattened BVH
     order: np.ndarray | None = None  # the native builder's triangle order
+    counts: BuildCounts | None = None  # the build's counts, None with build_bvh=False
     cam: Camera = field(default_factory=Camera)
     # view matrices, set by app.camera.update_view_params (reference
     # world.h:44-59)
@@ -115,13 +130,15 @@ def make_world(
     distance from it, world.cpp:106-117) and the BVH: the binned-SAH
     object-split build, or with ``splits="sbvh"`` the spatial-split one,
     then with ``bvh_opt="reinsert"`` the reinsertion optimizer
-    (shader_ray_tpu/models/world.py:119-232).  The object split without
+    (shader_ray_tpu/models/world.py:119-232).  Either split without
     reinsertion (which needs the node list) goes through the native
-    builder where ``Config.use_native`` lets it.  ``verbose`` prints the
-    reference's build log to stderr: the triangle and vertex counts, the
-    center and extent's seconds, then "BVH" with ``BVHStats``, "BVH
-    (native)" with its node and leaf counts, or "SBVH", and passes
-    ``verbose`` on to the builders."""
+    builder where ``Config.use_native`` lets it.  The build is the span
+    ``world.bvh:<route>`` and its counts are the World's ``counts``.
+    ``verbose`` prints the reference's build log to stderr: the triangle
+    and vertex counts, the center and extent's seconds, then "BVH" with
+    ``BVHStats``, "BVH (native)" with its node and leaf counts, "SBVH", or
+    "SBVH (native)" with its node, leaf, reference and spatial split
+    counts, and passes ``verbose`` on to the builders."""
     cfg = config or Config()
     tcount = triangles.triangle_count
     if verbose:
@@ -139,27 +156,51 @@ def make_world(
         scene_extent = 1.0
     if verbose:
         _log_seconds("Finding scene center and extent", then)
-    then = time.monotonic()
+    bvh = flat = order = counts = None
+    if build_bvh:
+        fast = cfg.bvh_opt != "reinsert" and native.wanted(cfg.use_native)
+        route = cfg.splits + ("-native" if fast else "")
+        then = time.monotonic()
+        with span(f"world.bvh:{route}"):
+            bvh, flat, order, counts = _build(triangles, cfg, route, verbose, then)
+    return World(
+        triangles=triangles, bvh=bvh, scene_center=scene_center,
+        scene_extent=scene_extent, triangle_count=tcount, flat=flat, order=order,
+        counts=counts,
+    )
+
+
+def _build(triangles: TriangleSet, cfg: Config, route: str, verbose: bool, then: float):
+    """(bvh, flat, order, BuildCounts) of ``make_world``'s build by
+    ``route``: the numpy builds give the node list, the native ones the
+    flattened tree and its order."""
+    tcount = triangles.triangle_count
     bvh = flat = order = None
-    if build_bvh and cfg.splits == "object" and cfg.bvh_opt != "reinsert" and \
-            native.wanted(cfg.use_native):
-        flat, order, leaf_count = native.build_flat_bvh(
+    splits = 0
+    if route == "object-native":
+        flat, order, leaves = native.build_flat_bvh(
             triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters,
             leaf_max=cfg.bvh_leaf_max, max_depth=cfg.bvh_max_depth,
-            ctrav=cfg.sah_ctrav, cisec=cfg.sah_cisec,
+            ctrav=cfg.sah_ctrav, cisec=cfg.sah_cisec, leaf_cap=cfg.max_leaf_tests,
         )
         if verbose:
             _log_seconds("BVH (native)", then)
-            print(f"{flat.node_count} bvh nodes", file=sys.stderr)
-            print(f"{leaf_count} of those are leaves", file=sys.stderr)
-    elif build_bvh and cfg.splits == "sbvh":
-        from shader_ray_tpu_torch.models.sbvh import make_sbvh
-
+    elif route.startswith("sbvh"):
         verts = triangles.positions[triangles.indices] if tcount else np.zeros((0, 3, 3), np.float32)
-        bvh = make_sbvh(verts, cfg, verbose=verbose)
-        if verbose:
-            _log_seconds("SBVH", then)
-    elif build_bvh:
+        if route == "sbvh-native":
+            flat, order, leaves, splits = native.build_flat_sbvh(
+                verts, leaf_max=cfg.bvh_leaf_max, max_depth=cfg.bvh_max_depth,
+                ctrav=cfg.sah_ctrav, cisec=cfg.sah_cisec, leaf_cap=cfg.max_leaf_tests,
+            )
+            if verbose:
+                _log_seconds("SBVH (native)", then)
+        else:
+            from shader_ray_tpu_torch.models.sbvh import make_sbvh
+
+            bvh = make_sbvh(verts, cfg, verbose=verbose)
+            if verbose:
+                _log_seconds("SBVH", then)
+    else:
         bvh = make_bvh(triangles.tri_boxmin, triangles.tri_boxmax, triangles.barycenters, cfg,
                        verbose=verbose)
         if verbose:
@@ -169,10 +210,18 @@ def make_world(
         from shader_ray_tpu_torch.models.optimize import optimize_bvh
 
         bvh = optimize_bvh(bvh, cfg, verbose=verbose)
-    return World(
-        triangles=triangles, bvh=bvh, scene_center=scene_center,
-        scene_extent=scene_extent, triangle_count=tcount, flat=flat, order=order,
-    )
+    if bvh is not None:
+        counts = BuildCounts(route, len(bvh.order), bvh.spatial_splits, bvh.node_count,
+                             sum(n.is_leaf for n in bvh.nodes))
+    else:
+        counts = BuildCounts(route, len(order), splits, flat.node_count, leaves)
+        if verbose:
+            print(f"{counts.nodes} bvh nodes", file=sys.stderr)
+            print(f"{counts.leaves} of those are leaves", file=sys.stderr)
+            if route == "sbvh-native":
+                print(f"{counts.references} references for {tcount} triangles, "
+                      f"{counts.spatial_splits} spatial splits", file=sys.stderr)
+    return bvh, flat, order, counts
 
 
 def get_shader_data(world: World, config: Config | None = None, verbose: bool = False) -> SceneData:
@@ -181,6 +230,11 @@ def get_shader_data(world: World, config: Config | None = None, verbose: bool = 
     prints the flattening's "hitmiss" seconds to stderr, as the
     reference's; ``config`` is the reference's parameter, which its
     flattening does not read either."""
+    with span("world.shader_data"):
+        return _shader_data(world, verbose)
+
+
+def _shader_data(world: World, verbose: bool) -> SceneData:
     then = time.monotonic()
     flat = world.flat if world.flat is not None else flatten_bvh(world.bvh)
     if verbose:

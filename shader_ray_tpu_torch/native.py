@@ -1,16 +1,18 @@
 """ctypes bindings for the native C++ scene builder (counterpart of
 shader_ray_tpu/native/__init__.py).
 
-``csrc/host/libscene.cpp`` is a byte copy of the reference's
-``native/libscene.cpp``: binned-SAH BVH build + flatten with the hit/miss
-links, and the trisrc, OBJ and Radiance HDR readers.  It is built with
-g++ and the reference's flags at first use into the git-ignored
-``shader_ray_tpu_torch/build/``, under a cache tag over the source and
-the flags (as ``ops/_build.py`` tags the CUDA libraries), one build at a
-time across processes.  Its BVH is bit-identical to the numpy builder
-(models/bvh.py + models/flatten.py); its parsers agree with the Python
-readers (tests/test_torch_native.py).  ``Config.use_native`` routes to
-it (models/world.py, trisrc.py, obj.py, background.py):
+``csrc/host/libscene.cpp`` is the reference's ``native/libscene.cpp``
+(binned-SAH BVH build + flatten with the hit/miss links, and the trisrc,
+OBJ and Radiance HDR readers) with an SBVH build beside the object
+split's: models/sbvh.py's spatial splits, on the same flatten.  It is
+built with g++ and the reference's flags at first use into the
+git-ignored ``shader_ray_tpu_torch/build/``, under a cache tag over the
+source and the flags (as ``ops/_build.py`` tags the CUDA libraries), one
+build at a time across processes.  Its BVH and SBVH are bit-identical to
+the numpy builders (models/bvh.py, models/sbvh.py + models/flatten.py);
+its parsers agree with the Python readers (tests/test_torch_native.py).
+``Config.use_native`` routes to it (models/world.py, trisrc.py, obj.py,
+background.py):
 
 * ``auto``    -- use it when it builds and loads; numpy otherwise;
 * ``never``   -- numpy only;
@@ -88,7 +90,12 @@ def _load() -> tuple[ctypes.CDLL | None, str]:
     i32, i64, vp, cp = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p
     signatures = {
         "srt_bvh_build": (vp, [f32p, f32p, f32p, i32, i32, i32, ctypes.c_float, ctypes.c_float,
-                               ctypes.POINTER(i32), ctypes.POINTER(i32), i32p]),
+                               i32, ctypes.POINTER(i32), ctypes.POINTER(i32), i32p]),
+        "srt_sbvh_build": (vp, [f32p, i32, i32, i32, i32, ctypes.c_double, ctypes.c_double,
+                                ctypes.c_double, ctypes.c_double, ctypes.c_float,
+                                ctypes.POINTER(i32), ctypes.POINTER(i32), ctypes.POINTER(i32),
+                                ctypes.POINTER(i32)]),
+        "srt_sbvh_order": (None, [vp, i32p]),
         "srt_bvh_fill": (i32, [vp, f32p, f32p, i32p, i32p, i32p, i32p, i32p]),
         "srt_bvh_leaf_count": (i32, [vp]),
         "srt_bvh_free": (None, [vp]),
@@ -142,11 +149,13 @@ def build_flat_bvh(
     max_depth: int = 30,
     ctrav: float = 1.0,
     cisec: float = 4.0,
+    *,
+    leaf_cap: int = 10,
 ):
     """Native BVH build + flatten: (FlatBVH, order, leaf count), equal to
-    models.bvh.make_bvh + models.flatten.flatten_bvh."""
-    from shader_ray_tpu_torch.models.flatten import FlatBVH
-
+    models.bvh.make_bvh + models.flatten.flatten_bvh; ``leaf_cap`` is
+    ``Config.max_leaf_tests``, past which a node no split divides is
+    split at its median (the leaf cap split)."""
     lib = _lib()
     T = int(barycenters.shape[0])
     bmin = np.ascontiguousarray(tri_boxmin, np.float32)
@@ -156,12 +165,49 @@ def build_flat_bvh(
     node_count = ctypes.c_int32()
     root = ctypes.c_int32()
     handle = lib.srt_bvh_build(bmin, bmax, bary, T, leaf_max, max_depth, ctypes.c_float(ctrav),
-                               ctypes.c_float(cisec), ctypes.byref(node_count), ctypes.byref(root),
-                               order)
+                               ctypes.c_float(cisec), leaf_cap, ctypes.byref(node_count),
+                               ctypes.byref(root), order)
+    flat, leaf_count = _flatten(lib, handle, node_count.value, root.value)
+    return flat, order, leaf_count
+
+
+def build_flat_sbvh(
+    verts: np.ndarray,
+    leaf_max: int = 10,
+    max_depth: int = 30,
+    ctrav: float = 1.0,
+    cisec: float = 4.0,
+    *,
+    leaf_cap: int = 10,
+):
+    """Native SBVH build + flatten over (T, 3, 3) triangle positions:
+    (FlatBVH, order, leaf count, spatial splits taken), ``order`` the R >= T
+    references in leaf order, equal to models.sbvh.make_sbvh (its
+    SPATIAL_BINS, ALPHA and REF_BUDGET; ``leaf_cap`` is its
+    ``Config.max_leaf_tests``) + models.flatten.flatten_bvh."""
+    from shader_ray_tpu_torch.models.sbvh import ALPHA, REF_BUDGET
+    from shader_ray_tpu_torch.models.triangle_set import BUMPOUT
+
+    lib = _lib()
+    v = np.ascontiguousarray(verts, np.float32).reshape(-1, 9)
+    node_count, root, refs, splits = (ctypes.c_int32() for _ in range(4))
+    handle = lib.srt_sbvh_build(v.reshape(-1), len(v), leaf_max, max_depth, leaf_cap, float(ctrav),
+                                float(cisec), ALPHA, REF_BUDGET, ctypes.c_float(BUMPOUT),
+                                ctypes.byref(node_count), ctypes.byref(root), ctypes.byref(refs),
+                                ctypes.byref(splits))
+    order = np.empty(refs.value, np.int32)
+    lib.srt_sbvh_order(handle, order)
+    flat, leaf_count = _flatten(lib, handle, node_count.value, root.value)
+    return flat, order, leaf_count, splits.value
+
+
+def _flatten(lib: ctypes.CDLL, handle, n: int, root: int):
+    """(FlatBVH, leaf count) of a built tree's handle, which it frees."""
+    from shader_ray_tpu_torch.models.flatten import FlatBVH
+
     try:
-        if root.value < 0:
+        if root < 0:
             raise RuntimeError("native BVH build failed (index assignment)")
-        n = node_count.value
         boxmin = np.empty((n, 3), np.float32)
         boxmax = np.empty((n, 3), np.float32)
         start = np.empty(n, np.int32)
@@ -177,8 +223,8 @@ def build_flat_bvh(
     finally:
         lib.srt_bvh_free(handle)
     flat = FlatBVH(boxmin=boxmin, boxmax=boxmax, start=start, count=count, children=children,
-                   axis=axis, hitmiss=hitmiss, root=int(root.value))
-    return flat, order, int(leaf_count)
+                   axis=axis, hitmiss=hitmiss, root=int(root))
+    return flat, int(leaf_count)
 
 
 def parse_trisrc_file(path: str, geometry_scale: float, screen_gamma: float,

@@ -41,7 +41,7 @@ import torch
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
 from shader_ray_tpu_torch.ops.envmap import EnvPyramid
-from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK
+from shader_ray_tpu_torch.ops.pack_wide import COUNT_SHIFT, FIRST_MASK, capped_counts
 
 BANKS = 8
 INNER = -1  # the leaf field of an inner node
@@ -106,7 +106,7 @@ def pack_scene(
     if data.triangle_count > FIRST_MASK:
         raise ValueError("scene too large for the 26-bit leaf field")
     N = int(data.group_count)
-    counts = np.minimum(data.node_objects[:, 1], cfg.max_leaf_tests).astype(np.int64)
+    counts = capped_counts(data, cfg).astype(np.int64)
     is_leaf = data.node_children[:, 0] < 0
     leaf_field = np.where(is_leaf, (counts << COUNT_SHIFT) | data.node_objects[:, 0], INNER)
     nodes = np.zeros((BANKS, N, 8), np.float32)

@@ -43,6 +43,7 @@ Leaf counts are capped at ``max_leaf_tests`` (the reference's
 
 from __future__ import annotations
 
+import warnings
 from collections import deque
 from dataclasses import dataclass
 
@@ -320,6 +321,21 @@ def _collapse_greedy(data: SceneData):
 COLLAPSES = {"sah": _collapse_sah, "greedy": _collapse_greedy}  # by Config.collapse
 
 
+def capped_counts(data: SceneData, cfg: Config) -> np.ndarray:
+    """Each node's triangle count capped at ``max_leaf_tests`` (fs:382), the
+    count a leaf's visit tests; warns where a leaf holds more, since the
+    kernels never test the rest (the builds split such nodes: the leaf cap
+    split, models/bvh.py)."""
+    counts = data.node_objects[:, 1]
+    over = counts > cfg.max_leaf_tests
+    if over.any():
+        warnings.warn(
+            f"{int(over.sum())} leaves hold more than max_leaf_tests={cfg.max_leaf_tests} "
+            f"triangles: {int((counts[over] - cfg.max_leaf_tests).sum())} triangle references "
+            "are never tested", stacklevel=3)
+    return np.minimum(counts, cfg.max_leaf_tests)
+
+
 def pack_scene_wide(
     data: SceneData, env: np.ndarray, config: Config | None = None
 ) -> PackedWide:
@@ -332,7 +348,7 @@ def pack_scene_wide(
     Nw = len(wide_children)
     if Nw >= (1 << COUNT_SHIFT) or data.triangle_count > FIRST_MASK:
         raise ValueError("scene too large for the 26-bit child meta")
-    counts = np.minimum(data.node_objects[:, 1], cfg.max_leaf_tests)
+    counts = capped_counts(data, cfg)
     starts = data.node_objects[:, 0]
 
     boxes = np.zeros((Nw, WIDE, 6), np.float32)

@@ -2,8 +2,8 @@
 
 ``span(name)`` brackets one step of the program at a layer boundary (the
 App's input and copy, the Renderer's frame function and its steps, the
-set-up's pack, upload and kernel library, each kernel launch).  It has
-three states:
+set-up's scene build, pack, upload and kernel library, each kernel
+launch).  It has three states:
 
 * off (the default): ``span`` returns one shared null context; it reads
   no clock and allocates nothing;
@@ -45,6 +45,9 @@ SPANS = {
     "engine.jitter": "the (1, 2) jitter table and its copy to the device (unfused, which = 5)",
     "engine.finish": "the tonemap and gamma of a linear frame",
     "frame_kernel.call": "ops/frame_kernel.frame_kernel: the plan, allocations, the launch",
+    "world.bvh": "make_world: the BVH build, ':<route>' appended (object, object-native, sbvh, "
+                 "sbvh-native), reinsertion inside",
+    "world.shader_data": "get_shader_data: the flatten of a numpy build and the reference tables",
     "renderer.pack": "Renderer.__init__: the host pack of the scene and the env pyramid",
     "renderer.upload": "Renderer.__init__: the packed tables to the device",
     "kernels.build": "ops/_build.build: an nvcc run, ':<library>' appended",

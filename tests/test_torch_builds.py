@@ -73,7 +73,8 @@ def _worlds(scene: str, build: str):
     """(port World, reference World) of one scene and build."""
     pos, nrm = SCENES[scene]()
     knobs = BUILDS.get(build, {})
-    return (world.make_world(TriangleSet.from_arrays(pos, nrm), Config(**knobs)),
+    # the numpy builds: under use_native="auto" the SBVH would build natively
+    return (world.make_world(TriangleSet.from_arrays(pos, nrm), Config(use_native="never", **knobs)),
             ref_world.make_world(RefTriangleSet.from_arrays(pos, nrm), _ref_config(**knobs)))
 
 

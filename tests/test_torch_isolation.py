@@ -13,6 +13,7 @@ import ast
 import functools
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -742,15 +743,26 @@ NEW_MODULES = ("shader_ray_tpu_torch.parallel", "shader_ray_tpu_torch.parallel.m
 def test_new_modules_are_walked_and_stand_alone():
     """The mesh, native-builder, quality, diagnostics, profiling and
     brute-force oracle modules are among those the import test loads, and the native builder compiles
-    the port's own copy of libscene.cpp into the port's build directory,
-    never the reference's native/."""
+    the port's own libscene.cpp into the port's build directory, never
+    the reference's native/: the reference's source with the port's
+    SBVH build and leaf cap split added, every C entry point of the
+    reference's kept and its scene-file loaders byte for byte (the
+    builds are held to the reference's by their outputs,
+    tests/test_torch_native.py)."""
     from shader_ray_tpu_torch import native
 
     walked = {m.name for m in pkgutil.walk_packages(shader_ray_tpu_torch.__path__,
                                                     "shader_ray_tpu_torch.")}
     assert set(NEW_MODULES) <= walked
     assert native.SOURCE.is_relative_to(PKG) and native._path().is_relative_to(PKG)
-    assert native.SOURCE.read_bytes() == open(os.path.join(ROOT, "native", "libscene.cpp"), "rb").read()
+    ours = native.SOURCE.read_text()
+    with open(os.path.join(ROOT, "native", "libscene.cpp")) as f:
+        theirs = f.read()
+    entry = re.compile(r"^\S[^\n(]*\b(srt_\w+)\(", re.M)
+    assert set(entry.findall(theirs)) < set(entry.findall(ours))
+    assert {"srt_sbvh_build", "srt_sbvh_order"} <= set(entry.findall(ours)) - set(entry.findall(theirs))
+    loaders = theirs[theirs.index("// Native scene-file loaders") - 79:]
+    assert loaders.startswith("// ---") and ours.endswith(loaders)
 
 
 def _bench_like(device, n_tris=5000, mesh=None, **knobs):

@@ -4,15 +4,21 @@ and the JAX package's: ``make_world`` with ``use_native="require"``
 gives the ``SceneData`` of ``use_native="never"`` and of the reference's
 numpy ``get_shader_data`` on every array, byte for byte, for random,
 clustered, degenerate (stacked), knob-varied, sphere, bunny-class and
-empty scenes (the scenes of tests/test_native.py); the native OBJ,
+empty scenes (the scenes of tests/test_native.py); the native SBVH gives
+``make_sbvh`` + ``flatten_bvh``'s tree and reference order bit for bit
+(beams over a floor, a soup of long triangles, knot.obj and a small
+atrium of the benchmark's) and is ``splits="sbvh"``'s route unless
+``use_native="never"``; the native OBJ,
 trisrc and Radiance HDR readers equal the port's Python readers;
 ``use_native="require"`` raises when the library cannot be built,
 ``auto`` then falls back to numpy, and ``never`` builds nothing."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from shader_ray_tpu.config import Config as RefConfig
 from shader_ray_tpu.models.triangle_set import TriangleSet as RefTriangleSet
@@ -25,8 +31,10 @@ from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_s
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
 from shader_ray_tpu_torch.models.world import SceneData, get_shader_data, load_world, make_world
 from shader_ray_tpu_torch.utils.hdr import write_hdr
+from test_sbvh import _beams_and_floor, _long_diagonal_soup
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
+ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 ARRAYS = ("tri_positions", "tri_normals", "node_boxes", "node_objects", "node_children", "hitmiss")
 INTS = ("tree_root", "triangle_count", "group_count")
 
@@ -43,7 +51,8 @@ def _clustered():
 
 
 def _degenerate():
-    """Identical barycenters (stacked triangles): no split."""
+    """Identical barycenters (stacked triangles): no split, and past the
+    leaf cap."""
     tri = np.random.default_rng(2).normal(size=(1, 3, 3)).astype(np.float32)
     return np.repeat(tri, 50, axis=0), None
 
@@ -89,7 +98,25 @@ def test_native_build_equals_numpy_and_reference(scene):
     _assert_same(native_data, get_shader_data(w_numpy), f"{scene} native vs numpy")
     ref_cfg = _ref_config(**knobs)
     ref = ref_get_shader_data(ref_make_world(RefTriangleSet.from_arrays(pos, nrm), ref_cfg), ref_cfg)
-    _assert_same(native_data, ref, f"{scene} native vs the reference")
+    if scene == "degenerate":
+        _assert_cap_split(native_data, ref, Config(**knobs).max_leaf_tests)
+    else:
+        _assert_same(native_data, ref, f"{scene} native vs the reference")
+
+
+def _assert_cap_split(got: SceneData, ref, cap: int):
+    """The leaf cap split (models/bvh.py ``_cap_split``): where no split
+    divides a node of more than ``cap`` triangles, the reference makes the
+    leaf, of which the kernels test ``cap``; the port splits it at the
+    median until every leaf holds at most ``cap``, over the same triangles
+    each once."""
+    def leaf_counts(d):
+        return d.node_objects[d.node_children[:, 0] < 0, 1]
+
+    assert leaf_counts(ref).max() > cap >= leaf_counts(got).max()
+    assert leaf_counts(got).sum() == got.triangle_count == ref.triangle_count
+    rows = np.sort(got.tri_positions.view(np.uint32), axis=0)
+    assert rows.tobytes() == np.sort(ref.tri_positions.view(np.uint32), axis=0).tobytes()
 
 
 def test_native_leaf_count_and_flat_match_the_numpy_tree():
@@ -106,14 +133,144 @@ def test_native_leaf_count_and_flat_match_the_numpy_tree():
     assert np.array_equal(order, bvh.order)
 
 
+def _atrium(target: int) -> np.ndarray:
+    """The benchmark's atrium (portbench/scenes/atrium.py) at ``target``
+    triangles, in its configuration's layout."""
+    import json
+
+    from portbench import spec
+
+    with open(spec.ROOT / "portbench" / "configs" / "sponza262k.json") as f:
+        scene = dict(json.load(f)["scene"], target_tris=target)
+    return spec.module("scenes", "atrium").generate(scene)
+
+
+def _knot() -> np.ndarray:
+    ts = obj.parse_obj(str(ASSETS / "knot.obj"), config=Config(use_native="never"))
+    return ts.positions[ts.indices]
+
+
+# (triangle positions, whether spatial splits duplicate references)
+SBVH_SCENES = {
+    "beams": (lambda: _beams_and_floor(), True),
+    "soup": (lambda: _long_diagonal_soup(), False),
+    "knot": (_knot, True),
+    "atrium": (lambda: _atrium(2000), True),
+    "empty": (lambda: np.zeros((0, 3, 3), np.float32), False),
+}
+
+
+@pytest.mark.parametrize("scene", sorted(SBVH_SCENES))
+def test_native_sbvh_equals_numpy_make_sbvh(scene):
+    """``native.build_flat_sbvh`` is ``make_sbvh`` + ``flatten_bvh`` bit for
+    bit: every FlatBVH field, the reference order, the leaf count and the
+    spatial splits, and ``make_world`` routes ``splits="sbvh"`` to it
+    under ``require`` with the same ``get_shader_data`` tables as under
+    ``never``."""
+    from shader_ray_tpu_torch.models.flatten import flatten_bvh
+
+    make, duplicates = SBVH_SCENES[scene]
+    verts = make()
+    ts = TriangleSet.from_arrays(verts)
+    assert np.array_equal(ts.positions[ts.indices], verts)
+    w_numpy = make_world(ts, Config(splits="sbvh", use_native="never"))   # make_sbvh
+    w_native = make_world(ts, Config(splits="sbvh", use_native="require"))
+    cfg, bvh = Config(), w_numpy.bvh
+    want = flatten_bvh(bvh)
+    flat, order, leaves, splits = native.build_flat_sbvh(
+        verts, leaf_max=cfg.bvh_leaf_max, max_depth=cfg.bvh_max_depth, ctrav=cfg.sah_ctrav,
+        cisec=cfg.sah_cisec)
+    for f in dataclasses.fields(want):
+        a, b = getattr(flat, f.name), getattr(want, f.name)
+        assert np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b), f.name
+    assert order.dtype == bvh.order.dtype and order.tobytes() == bvh.order.tobytes()
+    assert leaves == sum(n.is_leaf for n in bvh.nodes) and splits == w_numpy.counts.spatial_splits
+    assert (len(order) > len(verts)) == duplicates == (splits > 0)
+    assert w_native.bvh is None and w_native.counts.route == "sbvh-native"
+    assert w_native.counts == dataclasses.replace(w_numpy.counts, route="sbvh-native")
+    _assert_same(get_shader_data(w_native), get_shader_data(w_numpy), f"{scene} native vs numpy")
+
+
+def _star(n: int = 60) -> np.ndarray:
+    """``n`` long thin triangles in the plane z = 0, each a spoke at its own
+    angle with its barycenter at the origin: no object split divides
+    them, so the reference's object build makes one leaf of all ``n``."""
+    th = np.pi * np.arange(n) / n
+    u = np.array([[1.0, 0.0], [-0.5, 0.06], [-0.5, -0.06]])
+    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1), np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    xy = np.einsum("nij,kj->nki", rot, u)
+    return np.concatenate([xy, np.zeros((n, 3, 1))], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("splits,use_native", [("object", "never"), ("object", "require"),
+                                               ("sbvh", "never"), ("sbvh", "require")])
+def test_an_over_cap_scene_renders_as_the_brute_force_oracle(splits, use_native):
+    """Rays straight down onto the star hit what the brute-force oracle
+    hits, on every route: the builds split a node that no split divides
+    past ``max_leaf_tests`` (the leaf cap split), where the reference's
+    build leaves a leaf of which the kernels test only the first 10 of 60
+    (the pack then warns)."""
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+    from shader_ray_tpu_torch.ops.reference import intersect_brute
+    from shader_ray_tpu_torch.ops.trace_kernel import INFINITELY_FAR, trace
+
+    tri = _star()
+    cfg = Config(splits=splits, use_native=use_native)
+    ref_cfg = _ref_config()
+    ref = ref_get_shader_data(ref_make_world(RefTriangleSet.from_arrays(tri), ref_cfg), ref_cfg)
+    assert ref.node_objects[:, 1].max() == len(tri)        # the reference's one leaf
+    data = get_shader_data(make_world(TriangleSet.from_arrays(tri), cfg))
+    assert data.node_objects[data.node_children[:, 0] < 0, 1].max() <= cfg.max_leaf_tests
+    g = np.linspace(-0.95, 0.95, 48, dtype=np.float32)
+    P = np.stack(np.meshgrid(g, g, [1.0], indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    D = np.broadcast_to(np.float32([0.0, 0.0, -1.0]), P.shape).copy()
+    got = trace(pack_scene_wide(data, procedural_sky(8), cfg), torch.from_numpy(P), torch.from_numpy(D))
+    t_ref = intersect_brute(tri, P, D)[0].numpy()
+    hit = got.t.numpy() < INFINITELY_FAR
+    np.testing.assert_array_equal(hit, t_ref < INFINITELY_FAR)
+    assert 0.2 < hit.mean() < 0.8
+    np.testing.assert_allclose(got.t.numpy()[hit], t_ref[hit], atol=1e-6)
+
+
+@pytest.mark.parametrize("splits", ["object", "sbvh"])
+def test_native_builds_of_the_full_atrium_keep_leaves_within_the_leaf_cap(splits):
+    """Over the benchmark's 262,267-triangle atrium both native builds would
+    make leaves past the kernels' ``max_leaf_tests`` (the object split
+    hundreds, of up to 1,216 references; the SBVH a few, where a spatial
+    split's clips leave one child every reference), whose references
+    past the cap are never tested.  The leaf cap split keeps every leaf
+    within the cap, over every reference once a leaf slot."""
+    verts = _atrium(262267)
+    ts = TriangleSet.from_arrays(verts)
+    cfg = Config()
+
+    def leaf_counts(cap):
+        if splits == "object":
+            flat, order, leaves = native.build_flat_bvh(ts.tri_boxmin, ts.tri_boxmax, ts.barycenters,
+                                                        leaf_cap=cap)
+        else:
+            flat, order, leaves, _ = native.build_flat_sbvh(ts.positions[ts.indices], leaf_cap=cap)
+        is_leaf = flat.children[:, 0] < 0
+        assert leaves == is_leaf.sum() and flat.count[is_leaf].sum() == len(order)
+        return flat.count[is_leaf]
+
+    assert leaf_counts(2**30).max() > cfg.max_leaf_tests
+    assert leaf_counts(cfg.max_leaf_tests).max() <= cfg.max_leaf_tests
+
+
 def test_native_build_skips_sbvh_and_reinsert():
-    """The native builder makes the reference's object split only: SBVH
-    and reinsertion (which needs the node list) build in Python even
-    under ``require``, as in the reference."""
+    """``splits="sbvh"`` takes the native build under ``auto`` and
+    ``require`` and the numpy one under ``never``; reinsertion (which
+    needs the node list) builds in Python after either split, even under
+    ``require``, as in the reference."""
     ts = TriangleSet.from_arrays(*uv_sphere(lat=6, lon=8))
-    for knobs in (dict(splits="sbvh"), dict(bvh_opt="reinsert")):
+    for use_native, route in (("auto", "sbvh-native"), ("require", "sbvh-native"), ("never", "sbvh")):
+        w = make_world(ts, Config(splits="sbvh", use_native=use_native))
+        assert w.counts.route == route and (w.flat is None) == (route == "sbvh")
+        assert (w.bvh is None) == (route == "sbvh-native")
+    for knobs in (dict(splits="sbvh", bvh_opt="reinsert"), dict(bvh_opt="reinsert")):
         w = make_world(ts, Config(use_native="require", **knobs))
-        assert w.flat is None and w.bvh is not None
+        assert w.flat is None and w.bvh is not None and w.counts.route == knobs.get("splits", "object")
 
 
 def _write_obj(path, with_normals: bool):

@@ -109,7 +109,7 @@ def _is_dataclass(cls: ast.ClassDef) -> bool:
 def _signatures(path: pathlib.Path, generated_init: bool) -> dict:
     """Public functions and methods (and ``__init__``) of a module by
     name; with ``generated_init`` a dataclass without one gets the
-    ``__init__`` its fields make."""
+    ``__init__`` its fields make (a ``field(kw_only=True)`` keyword-only)."""
     out = {}
     for node in ast.parse(path.read_text()).body:
         if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
@@ -120,9 +120,13 @@ def _signatures(path: pathlib.Path, generated_init: bool) -> dict:
                         (not sub.name.startswith("_") or sub.name == "__init__"):
                     out[f"{node.name}.{sub.name}"] = _params(sub)
             if generated_init and _is_dataclass(node) and f"{node.name}.__init__" not in out:
-                fields = [s.target.id for s in node.body
+                fields = [s for s in node.body
                           if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)]
-                out[f"{node.name}.__init__"] = (["self", *fields], [])
+                kw_only = {s.target.id for s in fields
+                           if s.value is not None and "kw_only=True" in ast.unparse(s.value)}
+                out[f"{node.name}.__init__"] = (
+                    ["self", *(s.target.id for s in fields if s.target.id not in kw_only)],
+                    [s.target.id for s in fields if s.target.id in kw_only])
     return out
 
 
@@ -220,12 +224,20 @@ def test_make_bvh_stats_and_warnings_equal_the_references(scene):
                                 RefConfig(), verbose=True)
     with _stderr_lines() as log:
         got = bvh.make_bvh(ts.tri_boxmin, ts.tri_boxmax, ts.barycenters, Config(), verbose=True)
-    assert vars(got.stats) == vars(want.stats)
-    assert _masked(log) == _masked(ref_log)
     assert got.stats.node_count == len(got.nodes)
     assert got.stats.leaf_count == sum(n.is_leaf for n in got.nodes)
     if scene == "stacked":
-        assert got.stats.large_leaf_no_split > 0 and any("Large leaf node" in x for x in log)
+        # the reference makes a leaf of the 24 copies, past the kernels'
+        # max_leaf_tests; the port splits it at the median (the leaf cap
+        # split, models/bvh.py _cap_split) and says so in the log
+        assert want.stats.large_leaf_no_split > 0 and any("Large leaf node" in x for x in ref_log)
+        assert max(n.count for n in want.nodes) > Config().max_leaf_tests
+        assert max(n.count for n in got.nodes) <= Config().max_leaf_tests
+        assert any(x.startswith("Leaf cap split at ") for x in log)
+        assert sorted(got.order) == sorted(want.order)
+        return
+    assert vars(got.stats) == vars(want.stats)
+    assert _masked(log) == _masked(ref_log)
     assert np.array_equal(got.order, want.order) and got.root == want.root
     for a, b in zip(got.nodes, want.nodes, strict=True):
         assert (a.negative, a.positive, a.start, a.count, a.axis) == \

@@ -4,7 +4,8 @@ each span lands in the Recorder with its frame id and enclosing span, and
 ``totals`` gives count, total and self seconds by name; an App's drag and
 frame record each layer's span in its nesting under one frame id, and the
 same names are ranges in ``device_trace``'s file; a Renderer's
-construction records its pack and upload, and the kernel library's build
+construction records its pack and upload, the scene's build and tables
+are spans named after the build's route, and the kernel library's build
 and load are spans named after the library."""
 
 import json
@@ -125,6 +126,28 @@ def test_renderer_construction_records_pack_then_upload(scene):
     assert [(n, p) for n, _, p, _, _ in rec.spans] == [("renderer.pack", None),
                                                          ("renderer.upload", None)]
     assert rec.totals()["renderer.pack"].total_s > 0.0
+
+
+@pytest.mark.parametrize("route", ["object", "object-native", "sbvh", "sbvh-native"])
+def test_the_scene_build_is_one_span_of_its_route(route):
+    """``make_world``'s build is one ``world.bvh:<route>`` span, reinsertion
+    inside it, and ``get_shader_data`` one ``world.shader_data`` span."""
+    from shader_ray_tpu_torch.config import Config
+
+    splits, _, how = route.partition("-")
+    cfg = Config(splits=splits, use_native="require" if how else "never")
+    ts = TriangleSet.from_arrays(*uv_sphere(lat=6, lon=8))
+    with profiling.recording() as rec:
+        world = make_world(ts, cfg)
+        get_shader_data(world, cfg)
+    assert [(n, p) for n, _, p, _, _ in rec.spans] == [(f"world.bvh:{route}", None),
+                                                         ("world.shader_data", None)]
+    assert world.counts.route == route and world.counts.references == len(world.tri_order)
+    assert "world.bvh" in profiling.SPANS and "world.shader_data" in profiling.SPANS
+    if not how:
+        with profiling.recording() as rec:
+            make_world(ts, Config(splits=splits, bvh_opt="reinsert", use_native="require"))
+        assert [s[0] for s in rec.spans] == [f"world.bvh:{route}"]
 
 
 def test_kernel_library_build_and_load_are_spans(monkeypatch, tmp_path):
