@@ -825,6 +825,182 @@ void srt_bvh_free(void* handle) { delete static_cast<Tree*>(handle); }
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
+// The 8-wide SAH collapse of ops/pack_wide.py _collapse_sah, step for step:
+// the same float64 areas and costs, the same strict comparisons and tie
+// order, the same forest order and BFS numbering, so the pack gives the
+// same wide tree on either route.  Explicit stacks, no recursion.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kWide = 8;
+constexpr int32_t kTinyLeafMax = 4;   // pack_wide.TINY_LEAF_MAX
+constexpr int32_t kSmallLeafMax = 7;  // pack_wide.SMALL_LEAF_MAX
+// _collapse_sah's costs: a cut internal node, a leaf child's fixed part
+// and its part a slot of its unrolled test count
+constexpr double kCNode = 1.0, kCLeafFixed = 0.8, kCSlot = 0.45;
+
+struct Collapse {
+  const int32_t* children;  // (n, 2)
+  const int32_t* count;     // (n,) raw leaf counts
+  std::vector<double> C;    // (n, kWide): C[b, i-1] best cost of subtree(b) as <= i roots
+  std::vector<int8_t> K;    // (n, kWide): 0 keep b whole, k > 0 split k left, i-k right
+
+  bool is_leaf(int32_t b) const { return count[b] > 0; }
+  bool terminal(int32_t b) const { return is_leaf(b) || children[2 * b] < 0; }
+
+  // forest(b, i): the roots that stand for subtree(b) in <= i slots, left
+  // before right
+  void forest(int32_t b, int i, std::vector<int32_t>* out) const {
+    std::vector<std::pair<int32_t, int>> stack{{b, i}};
+    while (!stack.empty()) {
+      auto [x, slots] = stack.back();
+      stack.pop_back();
+      const int k = terminal(x) ? 0 : K[(size_t)x * kWide + slots - 1];
+      if (k == 0) {
+        out->push_back(x);
+        continue;
+      }
+      stack.push_back({children[2 * x + 1], slots - k});
+      stack.push_back({children[2 * x], k});
+    }
+  }
+
+  // node_children_of(b): a wide node's child slots
+  void node_children(int32_t b, std::vector<int32_t>* out) const {
+    out->clear();
+    if (is_leaf(b)) {
+      out->push_back(b);
+      return;
+    }
+    if (children[2 * b] < 0) return;
+    const int32_t l = children[2 * b], r = children[2 * b + 1];
+    double best = INFINITY;
+    int bestk = 1;
+    for (int k = 1; k < kWide; ++k) {
+      const double c = C[(size_t)l * kWide + k - 1] + C[(size_t)r * kWide + kWide - k - 1];
+      if (c < best) {
+        best = c;
+        bestk = k;
+      }
+    }
+    forest(l, bestk, out);
+    forest(r, kWide - bestk, out);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Collapse the flat binary tree (boxes n x 6 f32 lo.xyz hi.xyz, children
+// n x 2, raw leaf counts n) into 8-wide nodes.  slots (n x 8) receives each
+// wide node's child slots as binary node ids padded with -1, depth (n) each
+// wide node's depth, wid (n) each binary node's wide id or -1.  Returns the
+// wide node count (<= n), or -1 when the root is not a node or the
+// nodes do not form a tree.
+int32_t srt_collapse_sah(const float* boxes, const int32_t* children,
+                         const int32_t* count, int32_t n, int32_t root,
+                         int32_t* slots, int32_t* depth, int32_t* wid) {
+  if (root < 0 || root >= n) return -1;
+  std::vector<double> area(n);
+  int32_t count_max = count[0];
+  for (int32_t b = 0; b < n; ++b) {
+    double e[3];
+    for (int d = 0; d < 3; ++d) {
+      const double x = (double)boxes[(size_t)b * 6 + 3 + d] - (double)boxes[(size_t)b * 6 + d];
+      e[d] = x < 0.0 ? 0.0 : x;  // np.maximum(x, 0.0), NaN kept
+    }
+    area[b] = e[0] * e[1] + e[1] * e[2] + e[2] * e[0];
+    count_max = std::max(count_max, count[b]);
+  }
+  const double area_root = area[root];
+  if (area_root > 0)
+    for (double& a : area) a = a / area_root;
+
+  Collapse t{children, count, std::vector<double>((size_t)n * kWide, INFINITY),
+             std::vector<int8_t>((size_t)n * kWide, 0)};
+  auto unroll = [&](int32_t c) -> int32_t {
+    if (c <= kTinyLeafMax) return kTinyLeafMax;
+    if (c <= kSmallLeafMax) return kSmallLeafMax;
+    return std::max(count_max, kSmallLeafMax + 1);
+  };
+
+  // pre-order from the root, then children before parents
+  std::vector<int32_t> order, stack{root};
+  std::vector<char> seen(n, 0);
+  while (!stack.empty()) {
+    const int32_t b = stack.back();
+    stack.pop_back();
+    if (seen[b]) continue;
+    seen[b] = 1;
+    order.push_back(b);
+    if (!t.is_leaf(b) && children[2 * b] >= 0) {
+      stack.push_back(children[2 * b]);
+      stack.push_back(children[2 * b + 1]);
+    }
+  }
+  for (auto it = order.rbegin(); it != order.rend(); ++it) {
+    const int32_t b = *it;
+    double* Cb = &t.C[(size_t)b * kWide];
+    int8_t* Kb = &t.K[(size_t)b * kWide];
+    if (t.terminal(b)) {
+      const double c = area[b] * (kCLeafFixed + kCSlot * (double)unroll(count[b]));
+      for (int i = 0; i < kWide; ++i) Cb[i] = c;
+      continue;
+    }
+    const double* Cl = &t.C[(size_t)children[2 * b] * kWide];
+    const double* Cr = &t.C[(size_t)children[2 * b + 1] * kWide];
+    double dist[kWide + 1];
+    int8_t dargk[kWide + 1];
+    for (int i = 0; i <= kWide; ++i) {
+      dist[i] = INFINITY;
+      dargk[i] = 0;
+    }
+    for (int i = 2; i <= kWide; ++i)
+      for (int k = 1; k < i; ++k) {
+        const double c = Cl[k - 1] + Cr[i - k - 1];
+        if (c < dist[i]) {
+          dist[i] = c;
+          dargk[i] = (int8_t)k;
+        }
+      }
+    const double c_cut = area[b] * kCNode + dist[kWide];
+    Cb[0] = c_cut;
+    Kb[0] = 0;
+    for (int i = 2; i <= kWide; ++i) {
+      const bool split = dist[i] < c_cut;
+      Cb[i - 1] = split ? dist[i] : c_cut;
+      Kb[i - 1] = split ? dargk[i] : 0;
+    }
+  }
+
+  // BFS with FIFO ids: parents precede children, root = 0
+  std::fill(wid, wid + n, -1);
+  std::vector<std::pair<int32_t, int32_t>> queue{{root, 0}};
+  std::vector<int32_t> fr;
+  wid[root] = 0;
+  int32_t next_id = 1;
+  for (size_t head = 0; head < queue.size(); ++head) {
+    const auto [b, d] = queue[head];
+    t.node_children(b, &fr);
+    int32_t* row = slots + head * kWide;
+    std::fill(row, row + kWide, -1);
+    std::copy(fr.begin(), fr.end(), row);
+    depth[head] = d;
+    for (const int32_t f : fr)
+      if (!t.is_leaf(f)) {
+        if (next_id >= n) return -1;  // not a tree: more wide nodes than nodes
+        wid[f] = next_id++;
+        queue.push_back({f, d + 1});
+      }
+  }
+  return (int32_t)queue.size();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
 // Native scene-file loaders (reference trisrc-support.cpp:43-104 and
 // obj-support.cpp:226-350 equivalents; same grammar and numeric
 // behavior as the Python parsers in shader_ray_tpu/models/, which stay

@@ -11,8 +11,9 @@ source and the flags (as ``ops/_build.py`` tags the CUDA libraries), one
 build at a time across processes.  Its BVH and SBVH are bit-identical to
 the numpy builders (models/bvh.py, models/sbvh.py + models/flatten.py);
 its parsers agree with the Python readers (tests/test_torch_native.py).
-``Config.use_native`` routes to it (models/world.py, trisrc.py, obj.py,
-background.py):
+It also holds the pack's 8-wide SAH collapse (``collapse_sah``, equal to
+ops/pack_wide.py ``_collapse_sah``).  ``Config.use_native`` routes to it
+(models/world.py, trisrc.py, obj.py, background.py, ops/pack_wide.py):
 
 * ``auto``    -- use it when it builds and loads; numpy otherwise;
 * ``never``   -- numpy only;
@@ -99,6 +100,7 @@ def _load() -> tuple[ctypes.CDLL | None, str]:
         "srt_bvh_fill": (i32, [vp, f32p, f32p, i32p, i32p, i32p, i32p, i32p]),
         "srt_bvh_leaf_count": (i32, [vp]),
         "srt_bvh_free": (None, [vp]),
+        "srt_collapse_sah": (i32, [f32p, i32p, i32p, i32, i32, i32p, i32p, i32p]),
         "srt_trisrc_count": (i64, [cp]),
         "srt_trisrc_parse": (i64, [cp, ctypes.c_double, ctypes.c_double, i32, f32p, f32p, f32p]),
         "srt_obj_count": (i64, [cp]),
@@ -225,6 +227,31 @@ def _flatten(lib: ctypes.CDLL, handle, n: int, root: int):
     flat = FlatBVH(boxmin=boxmin, boxmax=boxmax, start=start, count=count, children=children,
                    axis=axis, hitmiss=hitmiss, root=int(root))
     return flat, int(leaf_count)
+
+
+def collapse_sah(data):
+    """Native ``ops.pack_wide._collapse_sah`` (its default costs) over a
+    ``SceneData``'s flat tree, as arrays: (slots, depth, wid), ``slots`` (Nw, 8) i32 each wide
+    node's child slots as binary node ids padded with -1, ``depth`` (Nw,)
+    i32 each wide node's depth, ``wid`` (N,) i32 each binary node's wide
+    id or -1; the same wide tree as the numpy collapse's lists."""
+    lib = _lib()
+    n = int(data.group_count)
+    boxes = np.ascontiguousarray(data.node_boxes[:, 0:6], np.float32)
+    children = np.ascontiguousarray(data.node_children, np.int32)
+    count = np.ascontiguousarray(data.node_objects[:, 1], np.int32)
+    inner = children >= 0
+    if (boxes.shape != (n, 6) or children.shape != (n, 2) or count.shape != (n,)
+            or (children >= n).any() or (inner[:, 0] != inner[:, 1]).any()):
+        raise ValueError("native collapse: the node tables disagree with group_count")
+    slots = np.empty((n, 8), np.int32)
+    depth = np.empty(n, np.int32)
+    wid = np.empty(n, np.int32)
+    n_wide = lib.srt_collapse_sah(boxes, children.reshape(-1), count, n, int(data.tree_root),
+                                  slots.reshape(-1), depth, wid)
+    if n_wide < 0:
+        raise RuntimeError("native collapse failed: the nodes do not form a tree from the root")
+    return slots[:n_wide], depth[:n_wide], wid
 
 
 def parse_trisrc_file(path: str, geometry_scale: float, screen_gamma: float,

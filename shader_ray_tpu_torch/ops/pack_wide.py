@@ -3,7 +3,8 @@ shader_ray_tpu/ops/pallas/pack_wide.py with pack.py's leaf records,
 Woop or Moller-Trumbore).
 
 The binary SAH tree is collapsed into 8-wide nodes by the same SAH
-dynamic program (``_collapse_sah``) or, with ``Config.collapse =
+dynamic program (``_collapse_sah``, or natively ``native.collapse_sah``
+where ``Config.use_native`` lets it) or, with ``Config.collapse =
 "greedy"``, the same largest-area greedy cut (``_collapse_greedy``), with
 the same per-octant near-to-far child orders and stack bound, so both
 packages walk the same wide tree.  The layout is the one a thread walking one ray wants,
@@ -50,9 +51,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from shader_ray_tpu_torch import native
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import SceneData
 from shader_ray_tpu_torch.ops.envmap import EnvPyramid
+from shader_ray_tpu_torch.utils.profiling import span
 
 WIDE = 8            # children per wide node
 TINY_LEAF_MAX = 4   # leaf size classes of the collapse cost model
@@ -336,35 +339,50 @@ def capped_counts(data: SceneData, cfg: Config) -> np.ndarray:
     return np.minimum(counts, cfg.max_leaf_tests)
 
 
+def _slot_table(wide_children, wid_of_binary, depth_of, n: int):
+    """A collapse's lists (``COLLAPSES``' return contract) as the native
+    collapse's arrays (native.collapse_sah): (Nw, 8) child slots padded
+    with -1, each wide node's depth, each of the ``n`` binary nodes' wide
+    id or -1."""
+    slots = np.full((len(wide_children), WIDE), -1, np.int32)
+    for w, fr in enumerate(wide_children):
+        slots[w, :len(fr)] = fr
+    wid = np.full(n, -1, np.int32)
+    wid[list(wid_of_binary)] = list(wid_of_binary.values())
+    return slots, np.asarray(depth_of, np.int32), wid
+
+
 def pack_scene_wide(
     data: SceneData, env: np.ndarray, config: Config | None = None
 ) -> PackedWide:
     """Wide node table, leaf test rows of the form ``Config.leaf_isect``,
     normal terms and the env pyramid, as CPU tensors
     (``PackedWide.to(device)`` moves them); the binary tree is collapsed
-    as ``Config.collapse`` says."""
+    as ``Config.collapse`` says, the SAH collapse natively where
+    ``Config.use_native`` lets it (native.collapse_sah, the same wide
+    tree), in the span ``pack.collapse:<route>`` (sah-native, sah,
+    greedy)."""
     cfg = (config or Config()).validate()
-    wide_children, wid_of_binary, depth_of, is_leaf = COLLAPSES[cfg.collapse](data)
-    Nw = len(wide_children)
+    native_sah = cfg.collapse == "sah" and native.wanted(cfg.use_native)
+    with span(f"pack.collapse:{'sah-native' if native_sah else cfg.collapse}"):
+        if native_sah:
+            slots, depth, wid = native.collapse_sah(data)
+        else:
+            slots, depth, wid = _slot_table(*COLLAPSES[cfg.collapse](data)[:3], data.group_count)
+    Nw = len(slots)
     if Nw >= (1 << COUNT_SHIFT) or data.triangle_count > FIRST_MASK:
         raise ValueError("scene too large for the 26-bit child meta")
     counts = capped_counts(data, cfg)
-    starts = data.node_objects[:, 0]
+    is_leaf = data.node_objects[:, 1] > 0
 
-    boxes = np.zeros((Nw, WIDE, 6), np.float32)
-    meta = np.full((Nw, 2 * WIDE), -1, np.int64)
-    centers = np.full((Nw, WIDE, 3), np.inf)
-    for w, fr in enumerate(wide_children):
-        for k, b in enumerate(fr):
-            boxes[w, k] = data.node_boxes[b, 0:6]
-            centers[w, k] = 0.5 * (
-                data.node_boxes[b, 0:3].astype(np.float64)
-                + data.node_boxes[b, 3:6].astype(np.float64)
-            )
-            if is_leaf[b]:
-                meta[w, k] = (int(counts[b]) << COUNT_SHIFT) | int(starts[b])
-            else:
-                meta[w, k] = wid_of_binary[b]
+    filled = slots >= 0
+    b = np.where(filled, slots, 0)
+    boxes = data.node_boxes[b, 0:6].astype(np.float32)
+    boxes[~filled] = 0.0
+    lo, hi = boxes[..., 0:3].astype(np.float64), boxes[..., 3:6].astype(np.float64)
+    centers = np.where(filled[..., None], 0.5 * (lo + hi), np.inf)
+    leaf_meta = (counts.astype(np.int64)[b] << COUNT_SHIFT) | data.node_objects[b, 0].astype(np.int64)
+    meta = np.where(filled, np.where(is_leaf[b], leaf_meta, wid[b]), -1)
 
     # per-octant near-to-far order: sort child centers projected on the
     # octant direction (bit set = D positive on that axis)
@@ -378,14 +396,13 @@ def pack_scene_wide(
     packed_order = np.zeros((Nw, 8), np.int64)
     for p in range(WIDE):
         packed_order |= order[:, :, p].T << (3 * p)
-    meta[:, WIDE:] = packed_order
 
     nodes = np.zeros((Nw, WIDE, 8), np.float32)
     nodes[:, :, 0:3] = boxes[:, :, 0:3]
     nodes[:, :, 4:7] = boxes[:, :, 3:6]
     bits = nodes.view(np.int32)
-    bits[:, :, 3] = meta[:, :WIDE]
-    bits[:, :, 7] = meta[:, WIDE:]
+    bits[:, :, 3] = meta
+    bits[:, :, 7] = packed_order
     if cfg.leaf_isect == "woop":
         records = woop_records(data.tri_positions, data.tri_normals)
         rows = np.ascontiguousarray(records[:, :LEAF_STRIDE])
@@ -404,7 +421,7 @@ def pack_scene_wide(
         env_pyramid=EnvPyramid.pack(env, cfg.env_base),
         n_wide=Nw,
         # each pop pushes <= 7 net entries per level (pack_wide.py:427)
-        stack_depth=(WIDE - 1) * (max(depth_of) + 1) + 8,
+        stack_depth=(WIDE - 1) * (int(depth.max()) + 1) + 8,
         max_count=int(max(1, leaf_counts.max())) if leaf_counts.size else 1,
         isect=cfg.leaf_isect,
     )

@@ -49,6 +49,8 @@ SPANS = {
                  "sbvh-native), reinsertion inside",
     "world.shader_data": "get_shader_data: the flatten of a numpy build and the reference tables",
     "renderer.pack": "Renderer.__init__: the host pack of the scene and the env pyramid",
+    "pack.collapse": "pack_scene_wide: the 8-wide collapse, ':<route>' appended (sah-native, sah, "
+                     "greedy)",
     "renderer.upload": "Renderer.__init__: the packed tables to the device",
     "kernels.build": "ops/_build.build: an nvcc run, ':<library>' appended",
     "kernels.load": "ops/_build.library: the library's ctypes load, ':<library>' appended",

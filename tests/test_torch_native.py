@@ -10,8 +10,11 @@ empty scenes (the scenes of tests/test_native.py); the native SBVH gives
 atrium of the benchmark's) and is ``splits="sbvh"``'s route unless
 ``use_native="never"``; the native OBJ,
 trisrc and Radiance HDR readers equal the port's Python readers;
-``use_native="require"`` raises when the library cannot be built,
-``auto`` then falls back to numpy, and ``never`` builds nothing."""
+the native 8-wide SAH collapse gives the numpy collapse's wide tree, and
+``pack_scene_wide`` the same tables on either route (the greedy collapse
+stays numpy); ``use_native="require"`` raises when the library cannot be
+built, from the build and from the pack, ``auto`` then falls back to
+numpy, and ``never`` builds nothing."""
 
 import dataclasses
 import pathlib
@@ -273,6 +276,131 @@ def test_native_build_skips_sbvh_and_reinsert():
         assert w.flat is None and w.bvh is not None and w.counts.route == knobs.get("splits", "object")
 
 
+def _one_leaf():
+    return np.random.default_rng(3).normal(size=(3, 3, 3)).astype(np.float32), None
+
+
+# the native builds' scenes, SBVH tables with R > T and a one-leaf tree
+COLLAPSE_SCENES = sorted(SCENES) + ["sbvh-atrium", "sbvh-beams", "one_leaf"]
+
+
+def _collapse_scene(scene: str, **knobs) -> SceneData:
+    if scene.startswith("sbvh-"):
+        verts = SBVH_SCENES[scene[5:]][0]()
+        data = get_shader_data(make_world(TriangleSet.from_arrays(verts), Config(splits="sbvh", **knobs)))
+        assert data.triangle_count > len(verts)  # spatial splits duplicated references
+        return data
+    make, build_knobs = SCENES.get(scene, (_one_leaf, {}))
+    return get_shader_data(make_world(TriangleSet.from_arrays(*make()), Config(**build_knobs, **knobs)))
+
+
+@pytest.mark.parametrize("scene", COLLAPSE_SCENES)
+def test_native_collapse_equals_numpy_collapse_sah(scene):
+    """``native.collapse_sah`` gives ``_collapse_sah``'s wide tree: each wide
+    node's child slots in the same order (then -1), its depth, and each
+    binary node's wide id."""
+    from shader_ray_tpu_torch.ops.pack_wide import _collapse_sah
+
+    data = _collapse_scene(scene)
+    wide_children, wid_of, depth_of, _ = _collapse_sah(data)
+    slots, depth, wid = native.collapse_sah(data)
+    assert slots.dtype == depth.dtype == wid.dtype == np.int32
+    assert slots.tolist() == [fr + [-1] * (8 - len(fr)) for fr in wide_children]
+    assert depth.tolist() == depth_of
+    assert wid.shape == (data.group_count,)
+    assert {b: w for b, w in enumerate(wid.tolist()) if w >= 0} == wid_of
+    if scene == "one_leaf":
+        assert data.group_count == 1 and wide_children == [[data.tree_root]]
+
+
+def _broken(data: SceneData, how: str) -> SceneData:
+    children = data.node_children.copy()
+    inner = np.flatnonzero(children[:, 0] >= 0)
+    if how == "root":
+        return dataclasses.replace(data, tree_root=data.group_count)
+    if how == "past_the_end":
+        children[inner[-1], 1] = data.group_count
+    elif how == "one_child":
+        children[inner[-1], 1] = -1
+    elif how == "cycle":  # a branch's child is the root again
+        children[inner[inner != data.tree_root][0], 0] = data.tree_root
+    return dataclasses.replace(data, node_children=children)
+
+
+@pytest.mark.parametrize("how,error", [("past_the_end", ValueError), ("one_child", ValueError),
+                                       ("root", RuntimeError), ("cycle", RuntimeError)])
+def test_native_collapse_refuses_tables_that_are_not_a_tree(how, error):
+    """Node tables that disagree with ``group_count``, or do not form a tree
+    from the root, raise before or from the native collapse, not a crash."""
+    with pytest.raises(error, match="native collapse"):
+        native.collapse_sah(_broken(_collapse_scene("sphere"), how))
+
+
+def _loop_nodes(data: SceneData, cfg: Config) -> np.ndarray:
+    """The node table as a loop over every child of the collapse's lists
+    fills it: boxes, meta and the octant orders of f64 centers."""
+    from shader_ray_tpu_torch.ops.pack_wide import COLLAPSES, COUNT_SHIFT, capped_counts
+
+    wide_children, wid_of, _, is_leaf = COLLAPSES[cfg.collapse](data)
+    counts = capped_counts(data, cfg)
+    nodes = np.zeros((len(wide_children), 8, 8), np.float32)
+    bits = nodes.view(np.int32)
+    bits[..., 3] = -1
+    centers = np.full((len(wide_children), 8, 3), np.inf)
+    for w, fr in enumerate(wide_children):
+        for k, b in enumerate(fr):
+            lo, hi = data.node_boxes[b, 0:3], data.node_boxes[b, 3:6]
+            nodes[w, k, 0:3], nodes[w, k, 4:7] = lo, hi
+            centers[w, k] = 0.5 * (lo.astype(np.float64) + hi.astype(np.float64))
+            bits[w, k, 3] = ((int(counts[b]) << COUNT_SHIFT) | int(data.node_objects[b, 0])
+                             if is_leaf[b] else wid_of[b])
+    for w in range(len(wide_children)):
+        for o in range(8):
+            d = [1.0 if (o >> a) & 1 else -1.0 for a in range(3)]
+            keys = [sum(float(c) * s for c, s in zip(centers[w, k], d))
+                    if np.isfinite(centers[w, k, 0]) else np.inf for k in range(8)]
+            bits[w, o, 7] = sum(k << (3 * p) for p, k in enumerate(sorted(range(8), key=keys.__getitem__)))
+    return nodes
+
+
+@pytest.mark.parametrize("isect", ["woop", "mt"])
+@pytest.mark.parametrize("scene", ["bunny_class", "sbvh-atrium", "one_leaf", "empty"])
+def test_pack_is_byte_equal_under_the_native_and_numpy_collapse(scene, isect):
+    """``pack_scene_wide`` packs the same tables byte for byte whether the
+    SAH collapse runs natively (``require``) or in numpy (``never``), and
+    its node table is the per-child loop's over the collapse's lists."""
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    data = _collapse_scene(scene)
+    env = procedural_sky(8)
+    got, want = (pack_scene_wide(data, env, Config(leaf_isect=isect, use_native=use_native))
+                 for use_native in ("require", "never"))
+    for name in ("nodes", "leaves", "normals"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.numpy().tobytes() == b.numpy().tobytes(), name
+    for name in ("n_wide", "stack_depth", "max_count", "isect"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.nodes.numpy().tobytes() == _loop_nodes(data, Config()).tobytes()
+
+
+def test_greedy_collapse_never_takes_the_native_route(monkeypatch):
+    """``collapse="greedy"`` stays on the numpy ``_collapse_greedy`` under
+    every ``use_native``, with the per-child loop's node table."""
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    def refused(data):
+        raise AssertionError("the greedy collapse took the native route")
+
+    data = _collapse_scene("bunny_class")
+    monkeypatch.setattr(native, "collapse_sah", refused)
+    packs = [pack_scene_wide(data, procedural_sky(8), Config(collapse="greedy", use_native=u))
+             for u in ("require", "auto", "never")]
+    want = _loop_nodes(data, Config(collapse="greedy")).tobytes()
+    assert all(p.nodes.numpy().tobytes() == want for p in packs)
+    assert len({p.stack_depth for p in packs}) == 1
+
+
 def _write_obj(path, with_normals: bool):
     verts = [(-0.5, -0.5, 0), (0.5, -0.5, 0), (0.5, 0.5, 0.2), (-0.5, 0.5, 0.2), (0.0, 0.0, 1.0)]
     lines = ["o thing"] + [f"v {x} {y} {z}" for x, y, z in verts]
@@ -374,6 +502,22 @@ def test_require_without_a_compiler_raises(no_compiler, tmp_path):
     _assert_same(get_shader_data(w), get_shader_data(make_world(ts, Config(use_native="never"))),
                  "auto without a compiler")
     assert not (tmp_path / "build").exists()
+
+
+def test_require_without_a_compiler_raises_from_the_pack(no_compiler):
+    """The pack's SAH collapse under ``require`` raises as the build does;
+    ``auto`` then takes the numpy collapse, and the greedy collapse never
+    asks for the library."""
+    from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
+
+    data = get_shader_data(make_world(TriangleSet.from_arrays(*uv_sphere(lat=4, lon=6)),
+                                      Config(use_native="never")))
+    env = procedural_sky(8)
+    with pytest.raises(RuntimeError, match="use_native=require.*g\\+\\+ not found"):
+        pack_scene_wide(data, env, Config(use_native="require"))
+    auto, never = (pack_scene_wide(data, env, Config(use_native=u)) for u in ("auto", "never"))
+    assert auto.nodes.numpy().tobytes() == never.nodes.numpy().tobytes()
+    assert pack_scene_wide(data, env, Config(collapse="greedy", use_native="require")).n_wide > 0
 
 
 def test_never_builds_nothing(monkeypatch, tmp_path):

@@ -7,7 +7,7 @@ records match pack._woop_records.  The port's node table packs a
 child's box, meta and one octant's order into two float4s; the tests
 read it back through ``child_boxes``, ``child_meta`` and ``orders``;
 the Woop records are split into test rows (``leaves``) and normal terms
-(``normals``)."""
+(``normals``).  Each pack's collapse is one span named after its route."""
 
 import numpy as np
 import pytest
@@ -99,3 +99,19 @@ def test_woop_records(packs):
         c0 = sub * WOOP_LEAF_RECORD
         block = leaves[grp * GROUP_ROWS : grp * GROUP_ROWS + cnt, c0 : c0 + WOOP_LEAF_RECORD]
         np.testing.assert_allclose(records[tb : tb + cnt], block, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("collapse,use_native,route", [
+    ("sah", "require", "sah-native"), ("sah", "never", "sah"),
+    ("greedy", "require", "greedy"), ("greedy", "never", "greedy")])
+def test_the_collapse_is_one_span_of_its_route(collapse, use_native, route):
+    """A pack opens ``pack.collapse:<route>`` once, for the route it took."""
+    from shader_ray_tpu_torch.config import Config
+    from shader_ray_tpu_torch.utils import profiling
+
+    data = get_shader_data(make_world(TriangleSet.from_arrays(*uv_sphere(lat=6, lon=8))))
+    with profiling.recording() as rec:
+        pack_scene_wide(data, procedural_sky(8), Config(collapse=collapse, use_native=use_native))
+    assert [(n, p) for n, _, p, _, _ in rec.spans] == [(f"pack.collapse:{route}", None)]
+    assert rec.totals()[f"pack.collapse:{route}"].count == 1
+    assert "pack.collapse" in profiling.SPANS

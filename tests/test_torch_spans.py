@@ -4,9 +4,9 @@ each span lands in the Recorder with its frame id and enclosing span, and
 ``totals`` gives count, total and self seconds by name; an App's drag and
 frame record each layer's span in its nesting under one frame id, and the
 same names are ranges in ``device_trace``'s file; a Renderer's
-construction records its pack and upload, the scene's build and tables
-are spans named after the build's route, and the kernel library's build
-and load are spans named after the library."""
+construction records its pack (the collapse inside) and upload, the
+scene's build and tables are spans named after the build's route, and the
+kernel library's build and load are spans named after the library."""
 
 import json
 import os
@@ -124,6 +124,7 @@ def test_renderer_construction_records_pack_then_upload(scene):
     with profiling.recording() as rec:
         Renderer(data, sky, device="cpu")
     assert [(n, p) for n, _, p, _, _ in rec.spans] == [("renderer.pack", None),
+                                                         ("pack.collapse:sah-native", 0),
                                                          ("renderer.upload", None)]
     assert rec.totals()["renderer.pack"].total_s > 0.0
 
