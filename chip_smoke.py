@@ -1197,8 +1197,8 @@ def mesh_phase(data, sky, params, singles: dict, card: str) -> dict:
     want = {}
     for route, which, aniso in cases:
         r, st = singles[route], linear._replace(which=which, env_aniso=aniso)
-        want[route, which] = render_linear(r.packed, params, st, frame_jitter(params), r.max_steps,
-                                           r.fused, r.cfg.min_contrib, rows=(0, H))
+        want[route, which] = render_linear(r.packed, params, st, frame_jitter(params), r.cfg,
+                                           rows=(0, H))
     t0 = time.perf_counter()
     sharded = {(m, route): Renderer(data, sky, cfg, mesh=mesh)
                for m, mesh in meshes.items() for route, cfg in routes.items()}
@@ -1523,8 +1523,7 @@ def bench_phase(renderer, params, cast: int, k64_ms: float, make_fn_ms: float, c
     # two means lie within (K - 1 + 63 + 15) * 2^-24 of the value
     linear = RenderStatics(width=W, height=H, do_tonemap=False)
     jit = torch.from_numpy(halton_jitters(BENCH_K)).cuda()
-    run = lambda j: render_linear(renderer.packed, params, linear, j, renderer.max_steps,
-                                  renderer.fused, renderer.cfg.min_contrib)
+    run = lambda j: render_linear(renderer.packed, params, linear, j, renderer.cfg)
     whole = run(jit)
     parts = torch.stack([run(jit[i:i + BENCH_SLICE]) for i in range(0, BENCH_K, BENCH_SLICE)])
     sliced = parts.sum(0) / parts.shape[0]
@@ -1574,17 +1573,18 @@ def block_of(uni):
     return block
 
 
-def planned(packed, params, fs, jitters=None, rays=None):
-    """A launch of the frame kernel as a frame function makes it: one
-    ``FramePlan``, its host block filled from ``params`` at each call (the
-    uniforms, and with neither ``jitters`` nor ``rays`` the frame's
-    jitter, by value)."""
+def routed(packed, params, fs, jitters=None, rays=None):
+    """A launch of the frame kernel as the routes make it: a new host
+    block filled from ``params`` at each call (the uniforms, and with
+    neither ``jitters`` nor ``rays`` the frame's jitter, by value), the
+    launch's fixed part from the tables' cache."""
+    import numpy as np
+
     from shader_ray_tpu_torch.ops import frame_kernel as fk
     from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
 
-    plan = fk.FramePlan()
-    return lambda: fk.frame_kernel(packed, fill_uniforms(plan.block, params), jitters, fs,
-                                   rays=rays, plan=plan)
+    new_block = lambda: np.zeros(fk.UNI_BLOCK, np.float32)
+    return lambda: fk.frame_kernel(packed, fill_uniforms(new_block(), params), jitters, fs, rays=rays)
 
 
 def tile_rows_disagreement(kr, pr) -> str | None:
@@ -1686,8 +1686,8 @@ def tune_phase(renderer, params, card: str) -> dict:
     for _ in range(2):
         for sh in FRAME_SHAPES:
             fs = fs0._replace(tile_w=sh[0], warp_map=sh[1])
-            t1[sh] += cuda_times(planned(packed, params, fs), TIMED // 2)
-            t64[sh] += [t / TUNE_K for t in cuda_times(planned(packed, params, fs, batch), 5)]
+            t1[sh] += cuda_times(routed(packed, params, fs), TIMED // 2)
+            t64[sh] += [t / TUNE_K for t in cuda_times(routed(packed, params, fs, batch), 5)]
     shapes = {}
     for sh in FRAME_SHAPES:
         info = fk.launch_info(packed.stack_depth, "bilinear", tile_w=sh[0], warp_map=sh[1])
@@ -1883,9 +1883,9 @@ def main() -> int:
         """The frame kernel against frame_plain on the bench tables (or
         ``tables``, whose leaf form names the kernel).  With a ``view``
         (FrameParams; ``jit`` None) the kernel launches as a frame function
-        launches it (``planned``: a plan, the uniforms and the view's jitter
-        by value) and frame_plain takes the uploaded table and a (1, 2)
-        jitter table."""
+        launches it (``routed``: a new host block, the uniforms and the
+        view's jitter by value) and frame_plain takes the uploaded table and
+        a (1, 2) jitter table."""
         tables = tables or packed
         name = tk.launch_name("frame_kernel", tables.isect)
         fs = fk.FrameSettings(width=w, height=h, which=which, env_aniso=aniso)
@@ -1893,9 +1893,9 @@ def main() -> int:
             kc, kn = fk.frame_kernel(tables, blk, jit, fs)
             p_uni = uni
         else:
-            kc, kn = planned(tables, view, fs)()
+            kc, kn = routed(tables, view, fs)()
             p_uni, jit = pack_uniforms(view).cuda(), frame_jitter(view).cuda()
-            name += " (planned, by value)"
+            name += " (routed, by value)"
         k = jit.shape[0]
         pc, pn = fk.frame_plain(tables, p_uni, jit, fs, probe)
         torch.cuda.synchronize()
@@ -2301,9 +2301,9 @@ def main() -> int:
     fs = fk.FrameSettings(width=W, height=H)
     one = torch.zeros((1, 2), dtype=torch.float32, device="cuda")
     batch = torch.from_numpy(halton_jitters(BATCH_K)).cuda()
-    kernel_t = cuda_times(planned(packed, params, fs), TIMED)
+    kernel_t = cuda_times(routed(packed, params, fs), TIMED)
     ms = float(np.median(kernel_t))
-    batch_t = [t / BATCH_K for t in cuda_times(planned(packed, params, fs, batch), 5)]
+    batch_t = [t / BATCH_K for t in cuda_times(routed(packed, params, fs, batch), 5)]
     plain_t = cuda_times(lambda: fk.frame_plain(packed, uni, one, fs), 2)
     frame = renderer.make_fn(statics)
     e2e_t = host_times(lambda: frame(params), TIMED)
@@ -2351,7 +2351,7 @@ def main() -> int:
             tk.trace_wide(unfused.packed, P, D, active, **kw)
 
     ab = {"fused": [], "walks": []}
-    fns = {"fused": planned(packed, params, fs), "walks": six_walks}
+    fns = {"fused": routed(packed, params, fs), "walks": six_walks}
     for which in ("fused", "walks", "walks", "fused"):  # in turns on one card
         ab[which] += cuda_times(fns[which], TIMED // 2)
     print(f"  A/B on {card}: frame_kernel {W}x{H} K=1 {summary(ab['fused'])}; the same "
@@ -2366,7 +2366,7 @@ def main() -> int:
     grad_entry, grad_e2e = {}, {}
     for which, aniso in GRAD_MODES:
         fsg = fk.FrameSettings(width=W, height=H, which=which, env_aniso=aniso)
-        t_k = cuda_times(planned(packed, params, fsg), TIMED)
+        t_k = cuda_times(routed(packed, params, fsg), TIMED)
         t_p = cuda_times(lambda: fk.frame_plain(packed, uni, one, fsg), 2)
         frame_g = renderer.make_fn(statics._replace(which=which, env_aniso=aniso))
         grad_e2e[which] = host_times(lambda: frame_g(params), TIMED)
@@ -2409,7 +2409,7 @@ def main() -> int:
 
     t5_sets = cuda_times(sets5, 10)
     given5 = sets5()
-    t5_k = cuda_times(planned(packed, params, fs, rays=given5), 20)
+    t5_k = cuda_times(routed(packed, params, fs, rays=given5), 20)
     k5, n5 = fk.frame_kernel(packed, blk, None, fs, rays=given5)
     ops5, moved5, t5_p, pops5 = 0, nbytes(given5.P, given5.D, uni) + W * H * 3 * 4 + wide_tables, 0.0, 0
     sum5 = torch.zeros((H, W, 3), device="cuda")
@@ -2453,7 +2453,7 @@ def main() -> int:
 
     # lane retirement on the bench frame: min_contrib = 0.004
     fs_mc = fs._replace(min_contrib=0.004)
-    t_mc = cuda_times(planned(packed, params, fs_mc), TIMED)
+    t_mc = cuda_times(routed(packed, params, fs_mc), TIMED)
     c_mc, n_mc = fk.frame_kernel(packed, blk, one, fs_mc)
     n0 = fk.frame_kernel(packed, blk, one, fs)[1]
     phases_n = fk.stats_phases(3, True, True)
@@ -2668,7 +2668,7 @@ def main() -> int:
                     compare_trace(name, kernel, plain, ways[way].packed, P_p, D_p, all_p, any_hit,
                                   f"{tag}, {'any-hit' if any_hit else 'closest'}, primaries {W}x{H}", W)
         t = {base: [], tag: []}
-        fns = {base: planned(packed, params, fs0), tag: planned(pk, params, fs0)}
+        fns = {base: routed(packed, params, fs0), tag: routed(pk, params, fs0)}
         for which in (base, tag, tag, base):  # in turns on one card
             t[which] += cuda_times(fns[which], TIMED // 2)
         pops, base_pops = int(kn[1::3].sum()), int(base_row[1::3].sum())
@@ -2842,8 +2842,8 @@ def main() -> int:
         # mt and Woop in turns on one card
         fs1 = fs._replace(which=1, env_aniso=4)
         series = {
-            "frame_kernel which=0": (lambda t: planned(t, params, fs)),
-            "frame_kernel which=1 aniso=4": (lambda t: planned(t, params, fs1)),
+            "frame_kernel which=0": (lambda t: routed(t, params, fs)),
+            "frame_kernel which=1 aniso=4": (lambda t: routed(t, params, fs1)),
             "trace_wide closest": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f, width=W)),
             "trace_wide any-hit": (lambda t: lambda: tk.trace_wide(t, P_f, D_f, all_f,
                                                                    any_hit=True, width=W)),

@@ -12,10 +12,11 @@ at K=1 (n=100) and a sample of K=64 (n=10), which=1 aniso 4 at K=1
 (n=100) and the given-rays form of the which=0 rays (n=100); it prints
 the medians with the raygen which=0 instantiation's registers and blocks
 an SM, each instantiation's registers, and the most local bytes and the
-fewest blocks an SM over them.  A checkout with launch plans
-(ops/frame_kernel.FramePlan) launches through one plan a series, its
-uniforms by value from the plan's host block and, at K=1, the zero
-jitter with them; an older one with the uploaded table.  The pairs
+fewest blocks an SM over them.  Each launch takes the uniforms by value
+from a host block filled once a series (``fill_uniforms``) and, at K=1,
+the zero jitter with them; the other checkout's wrapper must take the
+block too.  A wrapper that builds the launch's fixed part at each call
+(one without a launch cache) does so inside the timed region.  The pairs
 alternate which checkout runs first.  The script prints every run, the
 median of each side's medians, and the card's name and power limit.
 Each checkout builds its kernels into its own ``shader_ray_tpu_torch/
@@ -37,7 +38,7 @@ import numpy as np, torch
 import chip_smoke
 from shader_ray_tpu_torch.engine import Renderer
 from shader_ray_tpu_torch.ops import frame_kernel as fk
-from shader_ray_tpu_torch.ops.engine_frame import halton_jitters, pack_uniforms
+from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms, halton_jitters, pack_uniforms
 data, sky, params = chip_smoke.bench_inputs()
 packed = Renderer(data, sky).packed
 uni = pack_uniforms(params).cuda()
@@ -48,13 +49,9 @@ given = fk.raygen_rays(uni, one, fs)
 
 
 def launch(jit, fs, rays=None):
-    if not hasattr(fk, "FramePlan"):
-        return lambda: fk.frame_kernel(packed, uni, jit, fs, rays=rays)
-    from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
-    plan = fk.FramePlan()
-    block = fill_uniforms(plan.block, params)
+    block = fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), params)
     jit = None if jit is one else jit
-    return lambda: fk.frame_kernel(packed, block, jit, fs, rays=rays, plan=plan)
+    return lambda: fk.frame_kernel(packed, block, jit, fs, rays=rays)
 
 
 runs = {

@@ -12,12 +12,11 @@ both tables after a drag, an interactive 512x512 view at which 0, 1 and
 5 with its cast count and tile rows, and a converging 1024x768 view of
 64 samples; and the binary trace kernel's machine code (cuobjdump -sass,
 its instructions without their addresses and encodings), where the
-toolkit has cuobjdump.  A checkout with launch plans
-(ops/frame_kernel.FramePlan) launches the frame kernel through one, its
-uniforms and a single frame's jitter by value from the plan's host
-block; an older one as it did.  Each checkout builds its own kernels in
-a process of its own; the outputs are compared here with NaN equal to
-NaN.
+toolkit has cuobjdump.  The frame kernel takes its uniforms and a
+single frame's jitter by value, in a host block (``fill_uniforms``), as
+the routes hand them; the other checkout's wrapper must take the block
+too.  Each checkout builds its own kernels in a process of its own; the
+outputs are compared here with NaN equal to NaN.
 
     python3 scripts/torch_parent_identity.py OTHER_CHECKOUT   # on a machine with one NVIDIA GPU
 
@@ -52,7 +51,7 @@ def dump(root: str, path: str) -> None:
     from shader_ray_tpu_torch.ops import frame_kernel as fk
     from shader_ray_tpu_torch.ops import trace_kernel as tk
     from shader_ray_tpu_torch.ops.engine_frame import (
-        pack_uniforms,
+        fill_uniforms,
         primary_rays,
         supersample_directions,
     )
@@ -77,17 +76,10 @@ def dump(root: str, path: str) -> None:
     data, sky, params = chip_smoke.bench_inputs()
     renderers = {isect: Renderer(data, sky, Config(leaf_isect=isect)) for isect in ("woop", "mt")}
     packed = renderers["woop"].packed
-    planned = hasattr(fk, "FramePlan")
 
-    def frame(tables, fs, rays=None):
-        if planned:  # the uniforms and the zero jitter by value, through a plan
-            from shader_ray_tpu_torch.ops.engine_frame import fill_uniforms
-
-            plan = fk.FramePlan()
-            return fk.frame_kernel(tables, fill_uniforms(plan.block, params), None, fs, rays=rays,
-                                   plan=plan)
-        jit = None if rays is not None else torch.zeros((1, 2), device="cuda")
-        return fk.frame_kernel(tables, pack_uniforms(params).cuda(), jit, fs, rays=rays)
+    def frame(tables, fs, rays=None):  # the uniforms and the zero jitter by value
+        block = fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), params)
+        return fk.frame_kernel(tables, block, None, fs, rays=rays)
 
     statics = RenderStatics(width=chip_smoke.W, height=chip_smoke.H)
     on_card = type(params)(*[x.cuda() for x in params])

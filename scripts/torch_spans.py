@@ -27,8 +27,8 @@ It prints one JSON object as the last line of stdout:
   untraced window, ``requests``, ``frame_ms_mean`` and the proxy's
   ``engine_host_ms`` over every frame beside ``engine.frame``'s;
 * ``plans``: over set-up and the untraced window, the frame kernel's
-  launch plans built (``ops/_build.PLANS``), its launches, those made
-  through a plan, and their share;
+  launch cache entries built (``ops/_build.PLANS``), its launches, those
+  made through an entry (``through_a_plan``), and their share;
 * ``traced``: the profiled window's seconds, requests, device
   operations (kernels, copies, memsets) a request, the card's idle
   share, and its idle seconds by the innermost program span

@@ -201,7 +201,7 @@ class App:
         where the knobs act."""
         from shader_ray_tpu_torch.ops.engine_frame import fused_route
 
-        if not fused_route(self.renderer.packed, self._statics(), self.renderer.fused):
+        if not fused_route(self.renderer.packed, self._statics(), self.renderer.cfg):
             print("autotune needs the fused frame kernel (wide tables, packet_fused, which != 3)",
                   file=file)
             return None

@@ -249,7 +249,7 @@ def main() -> None:
         bounce_count=int(os.environ.get("BENCH_BOUNCES", "3")),
         which=int(os.environ.get("BENCH_WHICH", "0")),
     )
-    route = fused_route(renderer.packed, statics, renderer.fused)
+    route = fused_route(renderer.packed, statics, renderer.cfg)
     print(f"route: {'fused frame kernel' if route else 'unfused'}, {cfg.packet_kernel} tables",
           file=sys.stderr)
     fov = np.deg2rad(40.0)

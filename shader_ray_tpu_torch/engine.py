@@ -4,13 +4,11 @@ scene onto the device — the 8-wide tables or, with
 frame functions per static render configuration.  A frame function runs
 the fused frame kernel once per call (wide tables, ``Config.packet_fused``,
 every ``which`` but 3; ``which = 5`` over its 25 given sub-ray sets) or
-the unfused trace engine; ops/engine_frame.py routes.  Every fused route
-retires spent lanes at ``Config.min_contrib`` and launches in the tile
-shape of ``Config.frame_tile`` and ``frame_warp``, all read at each call:
-a ``copy.copy`` of a Renderer with another ``cfg`` renders the same
-tables under that config's knobs (utils/autotune.py measures so).  Each
-function keeps a ``FramePlan`` (ops/frame_kernel.py) for its launches,
-rebuilt at the call that brings other tables or settings.
+the unfused trace engine; ops/engine_frame.py routes.  Each call hands
+the routes ``self.cfg`` as it stands then, so a live edit reaches the
+next frame, and a ``copy.copy`` of a Renderer with another ``cfg``
+renders the same tables under that config's knobs (utils/autotune.py
+measures so).
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request the constructor raises.  With
@@ -56,7 +54,6 @@ from shader_ray_tpu_torch.ops.engine_frame import (
     render_progressive,
     tile_stats,
 )
-from shader_ray_tpu_torch.ops.frame_kernel import FramePlan
 from shader_ray_tpu_torch.ops.pack import pack_scene
 from shader_ray_tpu_torch.ops.pack_wide import pack_scene_wide
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
@@ -118,21 +115,6 @@ class Renderer:
 
             self.replicas = replicate_scene(self.packed, mesh)
 
-    # the render knobs are read from the config at each call, so a live
-    # edit (app.driver.App.set_knob) reaches the next frame
-    @property
-    def max_steps(self) -> int:
-        return self.cfg.packet_max_steps
-
-    @property
-    def fused(self) -> bool:
-        return self.cfg.packet_fused
-
-    @property
-    def shape(self) -> dict:
-        """The frame kernel's launch shape, as the fused routes take it."""
-        return dict(tile_w=self.cfg.frame_tile, warp_map=self.cfg.frame_warp)
-
     def _wrap(self, fn, label: str, statics: RenderStatics):
         """``fn`` with the failure dump and ``Config.debug_nans`` (module
         docstring)."""
@@ -159,12 +141,12 @@ class Renderer:
         """What the dump shows of a function's kernel settings: the frame
         kernel's ``FrameSettings`` on the fused route, else the unfused
         route's trace and env settings."""
-        if fused_route(self.packed, statics, self.fused):
-            return frame_settings(statics, self.max_steps, self.cfg.min_contrib, **self.shape)
+        if fused_route(self.packed, statics, self.cfg):
+            return frame_settings(statics, self.cfg)
         return dict(route="unfused", tables=type(self.packed).__name__, which=statics.which,
                     width=statics.width, height=statics.height, bounce_count=statics.bounce_count,
                     cast_shadows=statics.cast_shadows, mt_eps=statics.mt_eps,
-                    max_steps=self.max_steps, env_aniso=statics.env_aniso)
+                    max_steps=self.cfg.packet_max_steps, env_aniso=statics.env_aniso)
 
     def _sharded_linear(self, params: FrameParams, statics: RenderStatics,
                         jitters: torch.Tensor) -> torch.Tensor:
@@ -173,19 +155,16 @@ class Renderer:
         from shader_ray_tpu_torch.parallel import shard_rows
 
         return shard_rows(self.replicas, self.mesh, statics.height, lambda packed, rows: render_linear(
-            packed, params, statics, jitters, self.max_steps, self.fused, self.cfg.min_contrib, rows,
-            **self.shape))
+            packed, params, statics, jitters, self.cfg, rows))
 
     def make_fn(self, statics: RenderStatics):
         """``fn(params) -> (H, W, 3)`` one frame at params.pixel_jitter;
         ray-sharded under a mesh."""
-        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
             if self.mesh is not None:
                 return finish(self._sharded_linear(params, statics, frame_jitter(params)), statics)
-            return render_frame(self.packed, params, statics, self.max_steps, self.fused,
-                                self.cfg.min_contrib, **self.shape, plan=plan)
+            return render_frame(self.packed, params, statics, self.cfg)
 
         return self._wrap(fn, "frame fn", statics)
 
@@ -202,22 +181,17 @@ class Renderer:
         (each device one launch over its block), else the rays."""
         jitters = torch.from_numpy(halton_jitters(samples)).to(self.device)
         sample_shards = self.mesh is not None and samples % len(self.mesh) == 0
-        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
             if sample_shards:
                 from shader_ray_tpu_torch.parallel import sample_sharded
 
                 out = finish(sample_sharded(self.replicas, self.mesh, jitters, lambda packed, block: render_linear(
-                    packed, params, statics, block, self.max_steps, self.fused,
-                    self.cfg.min_contrib, **self.shape)), statics)
+                    packed, params, statics, block, self.cfg)), statics)
             elif self.mesh is not None:
                 out = finish(self._sharded_linear(params, statics, jitters), statics)
             else:
-                out = render_progressive(
-                    self.packed, params, statics, jitters, self.max_steps, self.fused,
-                    self.cfg.min_contrib, **self.shape, plan=plan,
-                )
+                out = render_progressive(self.packed, params, statics, jitters, self.cfg)
             return out.sum() if reduce_sum else out
 
         kind = "sample-sharded " if sample_shards else ""
@@ -227,11 +201,9 @@ class Renderer:
         """``fn(params) -> int`` rays actually cast for one frame (live
         bounce rays + shadow rays from light-facing hits), the honest
         Mrays/s denominator vs the W*H*6 potential."""
-        plan = FramePlan()
 
         def fn(params: FrameParams) -> int:
-            return count_cast(self.packed, params, statics, self.max_steps, self.fused,
-                              self.cfg.min_contrib, **self.shape, plan=plan)
+            return count_cast(self.packed, params, statics, self.cfg)
 
         return self._wrap(fn, "cast-count fn", statics)
 
@@ -245,12 +217,10 @@ class Renderer:
         the phases).  None where there is no fused route (binary tables,
         ``packet_fused=False``), as the reference's without the fused
         packet engine."""
-        if not fused_route(self.packed, statics._replace(which=0), self.fused):
+        if not fused_route(self.packed, statics._replace(which=0), self.cfg):
             return None
-        plan = FramePlan()
 
         def fn(params: FrameParams) -> torch.Tensor:
-            return tile_stats(self.packed, params, statics, self.max_steps, self.cfg.min_contrib,
-                              **self.shape, plan=plan)
+            return tile_stats(self.packed, params, statics, self.cfg)
 
         return self._wrap(fn, "stats fn", statics._replace(which=0))

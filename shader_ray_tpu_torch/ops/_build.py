@@ -11,9 +11,10 @@ imported.
 ``LAUNCHES`` counts launches per kernel name, process-wide: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
 set a count to 0, drive a path and read how often the kernel really ran.
-``PLANS`` counts the frame kernel's launch plans (ops/frame_kernel.
-FramePlan): ``"built"`` the plans built, and by launch name the launches
-made through a plan (``PLANS[name] / LAUNCHES[name]``, their share).
+``PLANS`` counts the frame kernel's cached launches (ops/frame_kernel.
+_launch_for): ``"built"`` the entries built, and by launch name the
+launches made through an entry (``PLANS[name] / LAUNCHES[name]``, their
+share).
 An nvcc run is the span ``kernels.build:<name>``, a library's load
 ``kernels.load:<name>`` (utils/profiling.span).
 """

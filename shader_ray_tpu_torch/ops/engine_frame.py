@@ -2,9 +2,14 @@
 shader_ray_tpu/ops/engine_pallas.render_frame_packet and
 render_progressive_packet).
 
+Every route takes the Renderer's ``Config`` as it stands at the call
+and reads its knobs there: ``packet_fused`` (``fused_route``),
+``packet_max_steps``, and on the fused route ``min_contrib``,
+``frame_tile`` and ``frame_warp`` through ``frame_settings``, the one
+place where a ``Config`` becomes the kernel's ``FrameSettings``.
 Routing is by configuration, decided in ``fused_route``:
 
-* every ``which`` but 3, ``fused`` and wide tables: the fused frame
+* every ``which`` but 3, ``packet_fused`` and wide tables: the fused frame
   kernel (ops/frame_kernel.py), as the reference runs ``which`` 0, 1, 2
   and 5 in its fused kernel (engine_pallas.py:229-239, :555, :606-612,
   :755-760).  One frame or a progressive batch is ONE launch; the kernel
@@ -15,9 +20,9 @@ Routing is by configuration, decided in ``fused_route``:
   (``supersample_directions``) and runs them as ONE launch of the
   kernel's given-rays form, K = 25, bilinear env: the mean of the 25
   sets is the reference's ``acc / (n * n)`` (engine_pallas.py:665-702).
-  ``min_contrib`` > 0 retires spent lanes in the kernel (Config.
-  min_contrib, as the reference's packet_shade reads it).
-* ``fused=False`` or binary tables: primary rays as tensors
+  ``min_contrib`` > 0 retires spent lanes in the kernel (as the
+  reference's packet_shade reads it).
+* ``packet_fused=False`` or binary tables: primary rays as tensors
   (``generate_rays``) through the unfused trace engine
   (ops/engine_trace.py), every ``which``, ``which = 5`` as 25 sub-frames
   over the same directions; this route ignores ``min_contrib``, as the
@@ -28,10 +33,10 @@ Routing is by configuration, decided in ``fused_route``:
 ``tile_stats`` is the stats fn's frame: the fused kernel's counter row
 of each pixel tile of a ``which = 0`` frame.
 
-Every fused route launches the kernel in the tile shape of ``tile_w``
-and ``warp_map`` (``Config.frame_tile`` and ``frame_warp``, read by the
-Renderer at each call; 16 x 16 tiles in rows by default): the frame is
-the same under each, and ``tile_stats``' rows follow the tiles.
+Every fused route launches the kernel in the tile shape of
+``Config.frame_tile`` and ``frame_warp`` (16 x 16 tiles in rows by
+default): the frame is the same under each, and ``tile_stats``' rows
+follow the tiles.
 
 ``render_linear(rows=(r0, r1))`` renders only image rows r0 to r1 - 1
 (a shard of parallel/mesh.shard_rows), each ray the whole frame's: on the
@@ -45,13 +50,11 @@ PyTorch, as it runs in plain XLA outside the Pallas kernels in the
 reference.
 
 Every fused route hands the frame kernel its uniforms, and a single
-frame its jitter, by value: a host block (``fill_uniforms``) that the
-launch copies into its parameters, so a single frame uploads nothing; a
-progressive batch's jitters stay the device table its function made
-once.  The routes take the frame function's ``FramePlan``
-(ops/frame_kernel.py), which keeps the block and the launch's fixed
-arguments from one call to the next; a call without one fills a block
-of its own and the wrapper builds that launch's fixed part for it.
+frame its jitter, by value: a new host block (``fill_uniforms``) that
+the launch copies into its parameters, so a single frame uploads
+nothing; a progressive batch's jitters stay the device table its
+function made once.  The kernel's wrapper keeps the launch's fixed part
+on the tables (ops/frame_kernel.py).
 
 Spans (utils/profiling.span): ``engine.uniforms`` around the block's
 fill at each fused call site, ``engine.jitter`` around the (1, 2) jitter
@@ -64,6 +67,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.ops.frame_kernel import (
     UNI_CAM_NORMAL,
     UNI_CAM_ORIGIN,
@@ -75,10 +79,8 @@ from shader_ray_tpu_torch.ops.frame_kernel import (
     UNI_NORMAL_INVERSE,
     UNI_NORMAL_MATRIX,
     UNI_OBJECT_MATRIX,
-    TILE,
     UNI_SIZE,
     UNI_SPECULAR,
-    FramePlan,
     FrameSettings,
     GivenRays,
     frame_kernel,
@@ -150,9 +152,9 @@ def fill_uniforms(block: np.ndarray, params: FrameParams) -> np.ndarray:
     return block
 
 
-def _block(plan: FramePlan | None) -> np.ndarray:
-    """The host block a launch is filled into: the plan's, or a new one."""
-    return np.zeros(UNI_BLOCK, np.float32) if plan is None else plan.block
+def _new_block(params: FrameParams) -> np.ndarray:
+    """A new host block holding ``params`` (``fill_uniforms``)."""
+    return fill_uniforms(np.zeros(UNI_BLOCK, np.float32), params)
 
 
 def halton_jitters(samples: int) -> np.ndarray:
@@ -169,20 +171,17 @@ SUPERSAMPLE = 5  # which=5 sub-samples per axis (fs:654-673)
 Packed = PackedWide | PackedBinary
 
 
-def fused_route(packed: Packed, statics: RenderStatics, fused: bool) -> bool:
+def fused_route(packed: Packed, statics: RenderStatics, cfg: Config) -> bool:
     """Whether this configuration renders through the fused frame
     kernel (module docstring)."""
-    return fused and isinstance(packed, PackedWide) and statics.which != 3
+    return cfg.packet_fused and isinstance(packed, PackedWide) and statics.which != 3
 
 
-def frame_settings(
-    statics: RenderStatics, max_steps: int = 0, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows",
-) -> FrameSettings:
-    """The fused frame kernel's settings.  ``which = 3`` traces nothing
-    and must not arrive here; ``which = 5`` is the bilinear mode over
-    given rays (``fused_supersample``); a ``which`` the kernel does not
-    know renders as 0."""
+def frame_settings(statics: RenderStatics, cfg: Config) -> FrameSettings:
+    """The fused frame kernel's settings under ``cfg``.  ``which = 3``
+    traces nothing and must not arrive here; ``which = 5`` is the
+    bilinear mode over given rays (``fused_supersample``); a ``which``
+    the kernel does not know renders as 0."""
     if statics.which == 3:
         raise NotImplementedError(
             "which=3 is not a mode of the fused frame kernel; it is math on the "
@@ -196,12 +195,12 @@ def frame_settings(
         enable_diffuse=statics.enable_diffuse,
         surface_fudge=statics.surface_fudge,
         mt_eps=statics.mt_eps,
-        max_steps=max_steps,
+        max_steps=cfg.packet_max_steps,
         which=statics.which if statics.which in (1, 2) else 0,
         env_aniso=statics.env_aniso,
-        min_contrib=min_contrib,
-        tile_w=tile_w,
-        warp_map=warp_map,
+        min_contrib=cfg.min_contrib,
+        tile_w=cfg.frame_tile,
+        warp_map=cfg.frame_warp,
     )
 
 
@@ -224,7 +223,7 @@ def primary_rays(
 
 
 def unfused_linear(
-    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
+    packed: Packed, params: FrameParams, statics: RenderStatics, cfg: Config,
     rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` off the fused route: linear
@@ -245,10 +244,10 @@ def unfused_linear(
                 P=rays.P, D=Ds, dPdx=zeros, dDdx=right - dot(Ds, right)[..., None] * Ds,
                 dPdy=zeros, dDdy=up - dot(Ds, up)[..., None] * Ds,
             )
-            color = color + trace_rays(packed, sub, params, statics, max_steps)
+            color = color + trace_rays(packed, sub, params, statics, cfg.packet_max_steps)
         color = color / SUPERSAMPLE**2
     else:
-        color = trace_rays(packed, rays, params, statics, max_steps)
+        color = trace_rays(packed, rays, params, statics, cfg.packet_max_steps)
     return color.reshape(-1, statics.width, 3)
 
 
@@ -264,43 +263,39 @@ def supersample_directions(D: torch.Tensor, right: torch.Tensor, up: torch.Tenso
 
 def fused_linear(
     packed: PackedWide, params: FrameParams, statics: RenderStatics,
-    jitters: torch.Tensor | None, max_steps: int = 0, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
+    jitters: torch.Tensor | None, cfg: Config,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ONE frame-kernel launch: the linear (H, W, 3) mean over the
     (K, 2) jitters, or with ``jitters`` None the one frame at
     ``params.pixel_jitter``, + the kernel's counter row
-    (ops/frame_kernel.py).  The uniforms go by value, from the plan's
-    host block."""
+    (ops/frame_kernel.py).  The uniforms go by value, in a new host
+    block."""
     return frame_kernel(
-        packed, fill_uniforms(_block(plan), params),
-        None if jitters is None else jitters.to(packed.leaves.device),
-        frame_settings(statics, max_steps, min_contrib, tile_w, warp_map), plan=plan,
+        packed, _new_block(params), None if jitters is None else jitters.to(packed.leaves.device),
+        frame_settings(statics, cfg),
     )
 
 
 def fused_supersample(
-    packed: PackedWide, params: FrameParams, statics: RenderStatics,
-    max_steps: int = 0, min_contrib: float = 0.0, rows: tuple[int, int] | None = None,
-    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
+    packed: PackedWide, params: FrameParams, statics: RenderStatics, cfg: Config,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """The which = 5 frame at ``params.pixel_jitter`` as ONE launch of
     the frame kernel's given-rays form: the primaries' origins and their
     25 sub-sample direction sets, built on the scene's device; the
     linear (H, W, 3) mean of the 25 sub-frames, or (r1 - r0, W, 3) of
     image ``rows`` (r0, r1)."""
-    block = fill_uniforms(_block(plan), params)
+    block = _new_block(params)
     rays, (right, up) = primary_rays(statics, _on(params, packed.leaves.device), rows)
     given = GivenRays(P=rays.P.contiguous(), D=supersample_directions(rays.D, right, up))
-    fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
+    fs = frame_settings(statics, cfg)
     return frame_kernel(packed, block, None, fs._replace(height=rays.P.shape[0] // fs.width),
-                        rays=given, plan=plan)[0]
+                        rays=given)[0]
 
 
 def fused_given(
     packed: PackedWide, params: FrameParams, statics: RenderStatics, jitters: torch.Tensor,
-    rows: tuple[int, int], max_steps: int = 0, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
+    cfg: Config, rows: tuple[int, int],
 ) -> torch.Tensor:
     """Image ``rows`` (r0, r1) of the fused frame over the (K, 2)
     ``jitters`` as ONE launch of the frame kernel's given-rays form: the
@@ -310,11 +305,10 @@ def fused_given(
     given-rays form; the rays' uniform table is the host block's, copied
     to the scene's device."""
     dev = packed.leaves.device
-    block = fill_uniforms(_block(plan), params)
-    fs = frame_settings(statics, max_steps, min_contrib, tile_w, warp_map)
+    block = _new_block(params)
+    fs = frame_settings(statics, cfg)
     rays = raygen_rays(torch.tensor(block[:UNI_SIZE]).to(dev), jitters.to(dev), fs, rows)
-    return frame_kernel(packed, block, None, fs._replace(height=rows[1] - rows[0]), rays=rays,
-                        plan=plan)[0]
+    return frame_kernel(packed, block, None, fs._replace(height=rows[1] - rows[0]), rays=rays)[0]
 
 
 def render_linear(
@@ -322,68 +316,55 @@ def render_linear(
     params: FrameParams,
     statics: RenderStatics,
     jitters: torch.Tensor,
-    max_steps: int = 0,
-    fused: bool = True,
-    min_contrib: float = 0.0,
+    cfg: Config,
     rows: tuple[int, int] | None = None,
-    tile_w: int = TILE,
-    warp_map: str = "rows",
-    plan: FramePlan | None = None,
 ) -> torch.Tensor:
     """Linear (H, W, 3) mean over the (K, 2) jitters, by the route of
     the configuration (module docstring); with ``rows`` = (r0, r1) the
     (r1 - r0, W, 3) band of those image rows, on the fused route through
     the kernel's given-rays form (``fused_given``), elsewhere the same
     function as the whole frame's."""
-    on_kernel = fused_route(packed, statics, fused)
-    shape = dict(tile_w=tile_w, warp_map=warp_map, plan=plan)
+    on_kernel = fused_route(packed, statics, cfg)
     if on_kernel and statics.which != 5:
         if rows is not None:
-            return fused_given(packed, params, statics, jitters, rows, max_steps, min_contrib, **shape)
-        return fused_linear(packed, params, statics, jitters, max_steps, min_contrib, **shape)[0]
+            return fused_given(packed, params, statics, jitters, cfg, rows)
+        return fused_linear(packed, params, statics, jitters, cfg)[0]
     total = None
     for jit in jitters:
         jittered = params._replace(pixel_jitter=jit)
-        frame = (fused_supersample(packed, jittered, statics, max_steps, min_contrib, rows, **shape)
-                 if on_kernel else unfused_linear(packed, jittered, statics, max_steps, rows))
+        frame = (fused_supersample(packed, jittered, statics, cfg, rows)
+                 if on_kernel else unfused_linear(packed, jittered, statics, cfg, rows))
         total = frame if total is None else total + frame
     return total / jitters.shape[0]
 
 
-def count_cast(
-    packed: Packed, params: FrameParams, statics: RenderStatics,
-    max_steps: int = 0, fused: bool = True, min_contrib: float = 0.0,
-    tile_w: int = TILE, warp_map: str = "rows", plan: FramePlan | None = None,
-) -> int:
+def count_cast(packed: Packed, params: FrameParams, statics: RenderStatics, cfg: Config) -> int:
     """Rays actually cast for one frame at ``params.pixel_jitter``: live
     bounce rays + shadow rays from light-facing hits.  It is one trace of
     the primary rays, whatever ``which``: the fused route counts the
     ``which = 0`` frame at ``which = 5`` (shader_ray_tpu/engine.py:339-371)."""
-    if fused_route(packed, statics, fused):
+    if fused_route(packed, statics, cfg):
         if statics.which == 5:
             statics = statics._replace(which=0)
-        return int(fused_linear(packed, params, statics, None, max_steps, min_contrib, tile_w,
-                                warp_map, plan)[1][0])
+        return int(fused_linear(packed, params, statics, None, cfg)[1][0])
     params = _on(params, packed.env_pyramid.texels.device)
     rays = generate_rays(statics, params)
-    return int(trace_rays(packed, rays, params, statics, max_steps, with_counts=True)[1])
+    return int(trace_rays(packed, rays, params, statics, cfg.packet_max_steps, with_counts=True)[1])
 
 
-def tile_stats(
-    packed: PackedWide, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
-    min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
-    plan: FramePlan | None = None,
-) -> torch.Tensor:
+def tile_stats(packed: PackedWide, params: FrameParams, statics: RenderStatics,
+               cfg: Config) -> torch.Tensor:
     """The per-tile counter rows of one ``which = 0`` frame at
     ``params.pixel_jitter`` through the fused frame kernel:
-    (n_tiles, 1 + 3 * phases) int64, one row a tile of ``tile_w`` x
-    256 / ``tile_w`` pixels, tiles row-major.  Column 0 rays cast; columns 1+3p, 2+3p, 3+3p phase
-    p's node pops, leaf visits and triangle tests (phases in
-    ``frame_kernel.stats_phases`` order), summed over the tile's rays."""
-    fs = frame_settings(statics._replace(which=0), max_steps, min_contrib, tile_w, warp_map)
+    (n_tiles, 1 + 3 * phases) int64, one row a tile of ``Config.frame_tile``
+    x 256 / ``frame_tile`` pixels, tiles row-major.  Column 0 rays cast;
+    columns 1+3p, 2+3p, 3+3p phase p's node pops, leaf visits and
+    triangle tests (phases in ``frame_kernel.stats_phases`` order), summed
+    over the tile's rays."""
+    fs = frame_settings(statics._replace(which=0), cfg)
     rows = torch.empty((fs.n_tiles(), 1 + 3 * fs.phases()), dtype=torch.long,
                        device=packed.leaves.device)
-    frame_kernel(packed, fill_uniforms(_block(plan), params), None, fs, tile_rows=rows, plan=plan)
+    frame_kernel(packed, _new_block(params), None, fs, tile_rows=rows)
     return rows
 
 
@@ -406,37 +387,21 @@ def finish(color: torch.Tensor, statics: RenderStatics) -> torch.Tensor:
         return tonemap_and_gamma(color, statics.use_filmic) if statics.do_tonemap else color
 
 
-def render_frame(
-    packed: Packed, params: FrameParams, statics: RenderStatics, max_steps: int = 0,
-    fused: bool = True, min_contrib: float = 0.0, tile_w: int = TILE, warp_map: str = "rows",
-    plan: FramePlan | None = None,
-) -> torch.Tensor:
+def render_frame(packed: Packed, params: FrameParams, statics: RenderStatics,
+                 cfg: Config) -> torch.Tensor:
     """One frame at ``params.pixel_jitter`` -> (H, W, 3), tonemapped
     unless ``statics.do_tonemap`` is off; on the fused route outside
     ``which = 5`` its jitter goes by value, with no table."""
-    if fused_route(packed, statics, fused) and statics.which != 5:
-        color = fused_linear(packed, params, statics, None, max_steps, min_contrib, tile_w,
-                             warp_map, plan)[0]
+    if fused_route(packed, statics, cfg) and statics.which != 5:
+        color = fused_linear(packed, params, statics, None, cfg)[0]
     else:
         jitters = jitter_on(params, packed.env_pyramid.texels.device)
-        color = render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
-                              tile_w=tile_w, warp_map=warp_map, plan=plan)
+        color = render_linear(packed, params, statics, jitters, cfg)
     return finish(color, statics)
 
 
-def render_progressive(
-    packed: Packed,
-    params: FrameParams,
-    statics: RenderStatics,
-    jitters: torch.Tensor,
-    max_steps: int = 0,
-    fused: bool = True,
-    min_contrib: float = 0.0,
-    tile_w: int = TILE,
-    warp_map: str = "rows",
-    plan: FramePlan | None = None,
-) -> torch.Tensor:
+def render_progressive(packed: Packed, params: FrameParams, statics: RenderStatics,
+                       jitters: torch.Tensor, cfg: Config) -> torch.Tensor:
     """Mean of K frames at the (K, 2) jitters in linear space, tonemapped
     once -> (H, W, 3)."""
-    return finish(render_linear(packed, params, statics, jitters, max_steps, fused, min_contrib,
-                                tile_w=tile_w, warp_map=warp_map, plan=plan), statics)
+    return finish(render_linear(packed, params, statics, jitters, cfg), statics)

@@ -32,12 +32,15 @@ kernel in ``csrc/frame_kernel.cu`` (built with nvcc at first use into
 uniform table and a single frame's jitter by value: the wrapper passes a
 (UNI_BLOCK,) f32 host block, which the launch copies into its parameters,
 so a single frame uploads nothing and the block may be rewritten as soon
-as the call returns; a batch's (K, 2) jitters stay a device table.  A
-frame function keeps a ``FramePlan``: its host block, and what a launch
-takes that depends only on the tables, the settings and their device
-(the checks, the entry, the fixed ctypes arguments), built once and
-rebuilt only for other tables or settings.  Both return the linear
-colour mean over the jitter samples and an int64 counter row:
+as the call returns; a batch's (K, 2) jitters stay a device table.  What
+a launch takes that depends only on the tables, the settings and their
+device (the checks, the entry, the fixed ctypes arguments: ``_Launch``)
+is built at the first call with those settings and kept on the tables
+(``PackedWide.launches``, at most ``MAX_LAUNCHES`` settings a table
+set): an entry holds the tables' raw pointers, never the tensors, so it
+serves only the tables it was built for and goes with them.  Both
+return the linear colour mean over the jitter samples and an int64
+counter row:
 ``[0]`` rays cast (live bounce rays + lcos-gated shadow rays), then per
 walk phase p (bounce walks and shadow walks interleaved, as the
 reference stats row) ``[1+3p]`` node pops, ``[2+3p]`` leaf visits,
@@ -476,14 +479,14 @@ class _Launch:
     tables, the settings and their device: the tables' device, and on a
     card the checks of the tables and settings, the entry, the launch name
     and the fixed ctypes arguments (``head`` before the host block's
-    pointer, ``tail`` after K)."""
+    pointer, ``tail`` after K).  It holds no tensor."""
 
-    __slots__ = ("packed", "fs", "device", "fn", "name", "n_counters", "head", "tail")
+    __slots__ = ("device", "fn", "name", "n_counters", "head", "tail")
 
     def __init__(self, packed: PackedWide, fs: FrameSettings) -> None:
         env = packed.env_pyramid
         isect = isect_code("frame_kernel", packed.isect)
-        self.packed, self.fs, self.fn = packed, fs, None
+        self.fn = None
         self.device = _build.one_device("frame_kernel", dict(
             nodes=packed.nodes, leaves=packed.leaves, normals=packed.normals, env=env.texels))
         if self.device.type == "cpu":
@@ -520,26 +523,22 @@ class _Launch:
                      I(_warp_code(fs.warp_map)))
 
 
-class FramePlan:
-    """One frame function's launches of the frame kernel (module
-    docstring): ``block``, the host block it writes each call's uniforms
-    and single-frame jitter into (``engine_frame.fill_uniforms``), and
-    the launch's fixed part (``_Launch``), built at its first call and
-    again at a call with other tables (by identity) or other settings.
-    ``_build.PLANS`` counts the plans built (``"built"``) and, by launch
-    name, the launches made through a plan."""
+MAX_LAUNCHES = 32  # settings kept a table set: a tune's 8 shapes and a session's edits
 
-    def __init__(self) -> None:
-        self.block = np.zeros(UNI_BLOCK, np.float32)
-        self.block_ptr = self.block.ctypes.data
-        self._launch: _Launch | None = None
 
-    def launch_for(self, packed: PackedWide, fs: FrameSettings) -> _Launch:
-        launch = self._launch
-        if launch is None or launch.packed is not packed or launch.fs != fs:
-            launch = self._launch = _Launch(packed, fs)
-            _build.PLANS["built"] += 1
-        return launch
+def _launch_for(packed: PackedWide, fs: FrameSettings) -> _Launch:
+    """The launch's fixed part for ``packed`` under ``fs``, from the
+    tables' own entries; built on a miss, the oldest entry dropped past
+    ``MAX_LAUNCHES``.  ``_build.PLANS`` counts the entries built
+    (``"built"``) and, by launch name, the launches made through them."""
+    launch = packed.launches.get(fs)
+    if launch is None:
+        launch = _Launch(packed, fs)
+        if len(packed.launches) >= MAX_LAUNCHES:
+            del packed.launches[next(iter(packed.launches))]
+        packed.launches[fs] = launch
+        _build.PLANS["built"] += 1
+    return launch
 
 
 def _check_block(block: np.ndarray) -> None:
@@ -563,7 +562,6 @@ def frame_kernel(
     fs: FrameSettings,
     tile_rows: torch.Tensor | None = None,
     rays: GivenRays | None = None,
-    plan: FramePlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render K samples of a W x H frame, from the (K, 2) ``jitters`` or
     from the K sets of given ``rays`` (``jitters`` None): (H, W, 3) f32
@@ -571,19 +569,14 @@ def frame_kernel(
     given (module docstring).  ``block`` is the (UNI_BLOCK,) f32 host
     block (``engine_frame.fill_uniforms``): the uniform table, then a
     jitter, with which neither ``jitters`` nor ``rays`` make one frame
-    (K = 1).  With a ``plan`` the launch's fixed part is the plan's
-    (``FramePlan``), else it is built for this call.  The walks test
-    leaves in the tables' form (``packed.isect``).  CPU tensors run
-    ``frame_plain``; CUDA tensors launch the CUDA kernel.  The span
-    ``frame_kernel.call`` covers the whole call, the range named after the
-    kernel its launch."""
+    (K = 1).  The launch's fixed part is the tables' entry for ``fs``
+    (``_launch_for``).  The walks test leaves in the tables' form
+    (``packed.isect``).  CPU tensors run ``frame_plain``; CUDA tensors
+    launch the CUDA kernel.  The span ``frame_kernel.call`` covers the
+    whole call, the range named after the kernel its launch."""
     with span("frame_kernel.call"):
-        if plan is not None and block is plan.block:
-            block_ptr = plan.block_ptr
-        else:
-            _check_block(block)
-            block_ptr = block.ctypes.data
-        launch = _Launch(packed, fs) if plan is None else plan.launch_for(packed, fs)
+        _check_block(block)
+        launch = _launch_for(packed, fs)
         if jitters is not None or tile_rows is not None or rays is not None:
             given = {"nodes": packed.nodes, "jitters": jitters, "tile_rows": tile_rows,
                      **({} if rays is None else {f"rays.{k}": v for k, v in rays._asdict().items()})}
@@ -609,10 +602,9 @@ def frame_kernel(
         on = _SAME_DEVICE if torch.cuda.current_device() == device.index else torch.cuda.device(device)
         with on, span(launch.name):
             stream = _build.stream_of(device)
-            err = launch.fn(*launch.head, block_ptr, ptr(jitters),
+            err = launch.fn(*launch.head, block.ctypes.data, ptr(jitters),
                             *map(ptr, rays or _NO_RAYS), K, *launch.tail, out.data_ptr(),
                             counters.data_ptr(), ptr(tile_rows), stream)
         _build.launched(launch.name, err)
-        if plan is not None:
-            _build.PLANS[launch.name] += 1
+        _build.PLANS[launch.name] += 1
         return out, counters

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import warnings
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -86,6 +86,8 @@ class PackedWide:
     stack_depth: int
     max_count: int            # largest leaf count after the cap
     isect: str = "woop"       # the leaf test the rows are for (ISECTS)
+    # the frame kernel's launches on these tables, by FrameSettings (ops/frame_kernel._launch_for)
+    launches: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def child_boxes(self) -> torch.Tensor:

@@ -44,7 +44,8 @@ SPANS = {
     "engine.uniforms": "the fused routes' host block of uniforms and single-frame jitter, filled",
     "engine.jitter": "the (1, 2) jitter table and its copy to the device (unfused, which = 5)",
     "engine.finish": "the tonemap and gamma of a linear frame",
-    "frame_kernel.call": "ops/frame_kernel.frame_kernel: the plan, allocations, the launch",
+    "frame_kernel.call": "ops/frame_kernel.frame_kernel: the block check, the launch cache's "
+                         "lookup, allocations, the launch",
     "world.bvh": "make_world: the BVH build, ':<route>' appended (object, object-native, sbvh, "
                  "sbvh-native), reinsertion inside",
     "world.shader_data": "get_shader_data: the flatten of a numpy build and the reference tables",

@@ -204,7 +204,7 @@ def test_fused_frame_over_sbvh_and_reinserted_trees_matches_the_wavefront_engine
     statics = RefStatics(width=64, height=64, tile_size=64 * 64)
     want = np.asarray(jax.jit(lambda s, p: ref_render_frame(s, p, statics))(upload_scene(ref, env), jp))
     r = Renderer(got_data, env, device="cpu")
-    assert r.fused
+    assert r.cfg.packet_fused
     got = r.make_fn(RenderStatics(width=64, height=64))(
         frame_params_from_numpy({k: np.asarray(v) for k, v in jp._asdict().items()}))
     assert got.shape == (64, 64, 3) and want.std() > 0.05

@@ -131,11 +131,12 @@ def test_default_statics_match():
     port = RenderStatics()
     for name in port._fields:
         assert getattr(port, name) == getattr(ref, name), name
+    from shader_ray_tpu_torch.config import Config
     from shader_ray_tpu_torch.ops.engine_frame import frame_settings
 
     # the frame kernel renders which 0, 1 and 2, and 5 as the bilinear
     # mode over given rays; 3 is not its mode
-    assert frame_settings(port._replace(which=1)).which == 1
-    assert frame_settings(port._replace(which=5)).which == 0
+    assert frame_settings(port._replace(which=1), Config()).which == 1
+    assert frame_settings(port._replace(which=5), Config()).which == 0
     with pytest.raises(NotImplementedError):
-        frame_settings(port._replace(which=3))
+        frame_settings(port._replace(which=3), Config())

@@ -64,7 +64,7 @@ def sphere():
 def default_frame(sphere):
     """Colour and counter row of the W x H frame at the default shape."""
     _, _, tp, r = sphere
-    fs = engine_frame.frame_settings(RenderStatics(width=W, height=H))
+    fs = engine_frame.frame_settings(RenderStatics(width=W, height=H), Config())
     assert (fs.tile_w, fs.warp_map) == (16, "rows")
     uni = engine_frame.pack_uniforms(tp)
     return fk.frame_plain(r.packed, uni, engine_frame.frame_jitter(tp), fs)
@@ -74,8 +74,8 @@ def default_frame(sphere):
 def test_each_shape_gives_the_default_frame_and_its_own_tile_rows(sphere, default_frame, tile_w,
                                                                   warp_map):
     _, _, tp, r = sphere
-    fs = engine_frame.frame_settings(RenderStatics(width=W, height=H), tile_w=tile_w,
-                                     warp_map=warp_map)
+    fs = engine_frame.frame_settings(RenderStatics(width=W, height=H),
+                                     Config(frame_tile=tile_w, frame_warp=warp_map))
     tw, th = fs.tile()
     assert tw * th == fk.BLOCK and tw == tile_w
     tiles_x, tiles_y = -(-W // tw), -(-H // th)

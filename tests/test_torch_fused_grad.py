@@ -84,7 +84,7 @@ def test_fused_grad_frame_matches_wavefront_engine(sphere, which, aniso):
     tonemap = which == 1
     kw = dict(width=N, height=N, which=which, env_aniso=aniso, do_tonemap=tonemap)
     r = renderers["fused"]
-    assert engine_frame.fused_route(r.packed, RenderStatics(**kw), r.fused)
+    assert engine_frame.fused_route(r.packed, RenderStatics(**kw), r.cfg)
     statics = RefStatics(tile_size=N * N, **kw)
     # jitted: eager, render_frame dispatches its while-loops op by op
     want = np.asarray(jax.jit(lambda s, p: ref_render_frame(s, p, statics))(scene, jp))
@@ -148,7 +148,7 @@ def test_stats_fn_rows_sum_to_the_frame_row(sphere):
     phases = fk.stats_phases(st.bounce_count, st.cast_shadows, st.enable_diffuse)
     n_tiles = (N // fk.TILE) ** 2
     assert rows.dtype == torch.long and rows.shape == (n_tiles, 1 + 3 * len(phases))
-    fs = engine_frame.frame_settings(st)
+    fs = engine_frame.frame_settings(st, r.cfg)
     uni = engine_frame.pack_uniforms(tp)
     block = engine_frame.fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), tp)
     _, frame_row = fk.frame_kernel(r.packed, block, engine_frame.frame_jitter(tp), fs)

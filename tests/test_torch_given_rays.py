@@ -149,9 +149,9 @@ def test_fused_which5_is_one_given_rays_launch(sphere, supersample_oracle, monke
     _, _, tp, renderers = sphere
     calls = []
 
-    def recorded(packed, uni, jitters, fs, tile_rows=None, rays=None, plan=None):
+    def recorded(packed, uni, jitters, fs, tile_rows=None, rays=None):
         calls.append((jitters, fs, rays))
-        return fk.frame_kernel(packed, uni, jitters, fs, tile_rows, rays, plan)
+        return fk.frame_kernel(packed, uni, jitters, fs, tile_rows, rays)
 
     def no_trace(*args, **kw):
         raise AssertionError("the fused which=5 frame ran the unfused engine")

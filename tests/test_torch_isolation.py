@@ -11,11 +11,13 @@ card tests run where jax is not installed."""
 
 import ast
 import functools
+import gc
 import os
 import pkgutil
 import re
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -246,10 +248,12 @@ def test_frame_kernel_matches_plain_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_planned_launch_matches_plain_on_card(cuda_device):
-    """Two frames through one ``FramePlan``, the uniforms and each frame's
-    jitter by value from its host block (rewritten between them), each
-    against ``frame_plain`` on the uploaded table and a (1, 2) jitter table
-    with chip_smoke's limits; one plan built, both launches through it."""
+    """Two frames through the tables' launch cache, the uniforms and each
+    frame's jitter by value from a new host block each, each against
+    ``frame_plain`` on the uploaded table and a (1, 2) jitter table with
+    chip_smoke's limits; one entry built, both launches through it.  The
+    entry holds the tables' pointers, not the tables: dropped, they are
+    freed while the entry lives."""
     from shader_ray_tpu_torch.models.fixtures import bunny_class_scene, procedural_sky
     from shader_ray_tpu_torch.models.triangle_set import TriangleSet
     from shader_ray_tpu_torch.models.world import get_shader_data, make_world
@@ -267,17 +271,22 @@ def test_planned_launch_matches_plain_on_card(cuda_device):
         diffuse_color=torch.tensor([0.8, 0.2, 0.2]),
     )
     fs = fk.FrameSettings(width=64, height=64)
-    plan = fk.FramePlan()
     built, through = fk._build.PLANS["built"], fk._build.PLANS["frame_kernel"]
     for jitter in ((0.0, 0.0), (0.25, -0.375)):
         p = params._replace(pixel_jitter=torch.tensor(jitter))
-        kc, kn = fk.frame_kernel(packed, fill_uniforms(plan.block, p), None, fs, plan=plan)
+        kc, kn = fk.frame_kernel(packed, fill_uniforms(np.zeros(fk.UNI_BLOCK, np.float32), p),
+                                 None, fs)
         pc, pn = fk.frame_plain(packed, pack_uniforms(p).to(cuda_device),
                                 frame_jitter(p).to(cuda_device), fs)
         torch.cuda.synchronize()
         assert chip_smoke.frame_disagreement(kc, kn.cpu(), pc, pn.cpu()) is None, jitter
     assert fk._build.PLANS["built"] == built + 1
     assert fk._build.PLANS["frame_kernel"] == through + 2
+    (entry,) = packed.launches.values()
+    tables = weakref.ref(packed.nodes)
+    del packed, kc, kn, pc, pn
+    gc.collect()
+    assert tables() is None and entry.device.type == "cuda"
 
 
 @functools.cache
@@ -811,8 +820,8 @@ def test_sharded_frame_equals_given_rays_frame_on_card(cuda_device, knobs):
     two, _ = _bench_like(cuda_device, mesh=[cuda_device, cuda_device], **knobs)
     for which in (0, 1, 5):
         statics = RenderStatics(width=96, height=37, which=which, env_aniso=4, do_tonemap=False)
-        want = ef.render_linear(one.packed, params, statics, ef.frame_jitter(params), 0, one.fused,
-                                0.0, rows=(0, statics.height))
+        want = ef.render_linear(one.packed, params, statics, ef.frame_jitter(params), one.cfg,
+                                rows=(0, statics.height))
         got = two.make_fn(statics)(params)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (knobs, which)

@@ -1,22 +1,28 @@
-"""The frame kernel's launch plan and host block (ops/frame_kernel.FramePlan,
-ops/engine_frame.fill_uniforms) on the CPU route: the block holds
-``pack_uniforms``' table bit for bit and the frame's jitter; a frame
-function builds one plan and keeps it, and builds another when its tables
-or settings change (a knob set on the App, a tune, ``min_contrib`` set on
-a Renderer used alone); and the frames, counts and tile rows of the
-planned routes equal what the routes computed before they had a plan:
-``frame_plain`` on ``pack_uniforms`` and a (1, 2) jitter table, or the
-progressive function's Halton table.  The card's form of the same
-launch is ``test_planned_launch_matches_plain_on_card`` in
+"""The frame kernel's launch cache and host block (ops/frame_kernel.
+_launch_for, ops/engine_frame.fill_uniforms) on the CPU route: the block
+holds ``pack_uniforms``' table bit for bit and the frame's jitter; the
+tables keep one entry a settings value over a session's frames and build
+another when the settings change (a knob set on the App, a tune,
+``min_contrib`` set on a Renderer used alone), every route the frame
+functions' and the sharded bands' included; an entry lives and dies with
+its tables and the cache is bounded; and the frames, counts and tile
+rows of the routes equal ``frame_plain`` on ``pack_uniforms`` and a
+(1, 2) jitter table, or the progressive function's Halton table.  The
+card's form of the same launch is
+``test_planned_launch_matches_plain_on_card`` in
 tests/test_torch_isolation.py."""
 
+import dataclasses
+import gc
 import io
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
 from shader_ray_tpu_torch.app.driver import App
+from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.engine import Renderer
 from shader_ray_tpu_torch.models.fixtures import procedural_sky, uv_sphere
 from shader_ray_tpu_torch.models.triangle_set import TriangleSet
@@ -79,10 +85,11 @@ def _plans() -> int:
 
 
 def test_a_frame_function_keeps_its_plan(scene, monkeypatch):
-    """One plan over 50 frames of one frame function, each frame its own
-    drag; a new one after ``set_knob("frame_tile", ...)``, after ``tune``
-    drops the frame functions, and when ``min_contrib`` changes on a
-    Renderer used without the App."""
+    """One cache entry over 50 App frames, each frame its own drag; a new
+    one after ``set_knob("frame_tile", ...)``, after a ``tune`` picks
+    another shape, and when ``min_contrib`` changes on a Renderer used
+    without the App; none when the knobs return to settings seen
+    before."""
     world, sky, _ = scene
     renderer = Renderer(get_shader_data(world), sky, device="cpu")
     app = App(world, renderer, width=N, height=N)
@@ -97,9 +104,18 @@ def test_a_frame_function_keeps_its_plan(scene, monkeypatch):
     assert _plans() == before + 2
     import shader_ray_tpu_torch.utils.autotune as autotune
 
-    monkeypatch.setattr(autotune, "autotune",
-                        lambda *a, **k: ({"frame_tile": 16, "frame_warp": "rows"}, {}))
+    def tuned(renderer, *args, **kw):  # the search's winner, applied as autotune applies it
+        best = {"frame_tile": 8, "frame_warp": "bricks"}
+        for k, v in best.items():
+            setattr(renderer.cfg, k, v)
+        return best, {}
+
+    monkeypatch.setattr(autotune, "autotune", tuned)
     app.tune(samples=2, file=io.StringIO())
+    app.draw_frame()
+    assert _plans() == before + 3
+    assert app.set_knob("frame_tile", "16", file=io.StringIO())
+    assert app.set_knob("frame_warp", "rows", file=io.StringIO())
     app.draw_frame()
     assert _plans() == before + 3
 
@@ -113,7 +129,7 @@ def test_a_frame_function_keeps_its_plan(scene, monkeypatch):
     alone.cfg.min_contrib = 0.5
     got = fn(params)
     assert _plans() == before + 5
-    fs = ef.frame_settings(statics, min_contrib=0.5)
+    fs = ef.frame_settings(statics, Config(min_contrib=0.5))
     want = ef.finish(fk.frame_plain(alone.packed, ef.pack_uniforms(params),
                                     ef.frame_jitter(params), fs)[0], statics)
     assert torch.equal(got, want)
@@ -124,15 +140,14 @@ ROUTES = ["which=0", "which=1", "which=5", "progressive K=4", "count", "stats"]
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_planned_routes_equal_the_unplanned_frames(route, scene):
-    """Bit for bit the frames and counts that the routes computed before
-    the plan: ``frame_plain`` on ``pack_uniforms`` with a (1, 2) jitter
-    table (or K = 4 Halton jitters, or the 25 given sub-ray sets), twice
-    through one frame function."""
+    """Bit for bit ``frame_plain`` on ``pack_uniforms`` with a (1, 2)
+    jitter table (or K = 4 Halton jitters, or the 25 given sub-ray sets),
+    twice through one frame function, which builds one cache entry."""
     world, sky, params = scene
     r = Renderer(get_shader_data(world), sky, device="cpu")
     which = int(route[6]) if route.startswith("which") else 0
     statics = RenderStatics(width=N, height=N, which=which, env_aniso=4 if which == 1 else 1)
-    fs = ef.frame_settings(statics)
+    fs = ef.frame_settings(statics, Config())
     uni, jit = ef.pack_uniforms(params), ef.frame_jitter(params)
     if route == "progressive K=4":
         fn = r.make_progressive_fn(statics, 4)
@@ -178,19 +193,60 @@ def test_frame_kernel_refuses_a_malformed_block(scene):
 
 @pytest.mark.parametrize("route", ["which=0", "which=5", "stats"])
 def test_a_route_without_a_plan_builds_none(route, scene):
-    """A route called without a plan (the sharded routes call so) fills a
-    block of its own and builds no plan: ``_build.PLANS`` counts only the
-    plans that frame functions keep.  Its frame is the planned one's."""
+    """Routes called outside a frame function share its cache: the
+    sharded bands of a ``which = 0`` frame (two bands of one height on
+    one replica), and the ``which = 5`` and stats routes called beside
+    their frame functions, build one entry and then launch through it.
+    Their frames are the frame functions' (the bands': the whole frame's
+    given-rays form, as tests/test_torch_parallel.py holds them)."""
     world, sky, params = scene
-    r = Renderer(get_shader_data(world), sky, device="cpu")
+    data = get_shader_data(world)
     which = int(route[6]) if route.startswith("which") else 0
-    statics = RenderStatics(width=N, height=N, which=which)
-    before = _plans()
-    if route == "stats":
-        got = ef.tile_stats(r.packed, params, statics)
-        want = r.make_stats_fn(statics)(params)
+    statics = RenderStatics(width=N, height=N, which=which, do_tonemap=False)
+    r = Renderer(data, sky, device="cpu")
+    if route == "which=0":
+        want = ef.render_linear(r.packed, params, statics, ef.frame_jitter(params), Config(),
+                                rows=(0, N))
+        fn = Renderer(data, sky, mesh=["cpu", "cpu"]).make_fn(statics)
+        calls = [fn, fn]
+    elif route == "stats":
+        want = ef.tile_stats(Renderer(data, sky, device="cpu").packed, params, statics, Config())
+        calls = [lambda p: ef.tile_stats(r.packed, p, statics, r.cfg), r.make_stats_fn(statics)]
     else:
-        got = ef.render_frame(r.packed, params, statics)
-        want = r.make_fn(statics)(params)
-    assert _plans() == before + 1  # the frame function's plan alone
-    assert torch.equal(got, want)
+        want = ef.render_frame(Renderer(data, sky, device="cpu").packed, params, statics, Config())
+        calls = [lambda p: ef.render_frame(r.packed, p, statics, r.cfg), r.make_fn(statics)]
+    before = _plans()
+    for call in calls * 2:
+        assert torch.equal(call(params), want)
+    assert _plans() == before + 1
+
+
+def test_a_dropped_renderer_leaves_no_entry(scene):
+    """An entry holds no tensor: the tables go with their Renderer, and
+    with them the entries.  A new ``PackedWide`` (another Renderer of the
+    same scene, a ``dataclasses.replace``) starts with none and builds
+    its own; the cache holds at most ``MAX_LAUNCHES`` settings, dropping
+    the oldest."""
+    world, sky, params = scene
+    data = get_shader_data(world)
+    statics = RenderStatics(width=N, height=N)
+    r = Renderer(data, sky, device="cpu")
+    fn = r.make_fn(statics)
+    fn(params)
+    (entry,) = r.packed.launches.values()
+    dropped, tables = weakref.ref(r.packed), weakref.ref(r.packed.nodes)
+    fresh = Renderer(data, sky, device="cpu")
+    assert not fresh.packed.launches and not dataclasses.replace(r.packed).launches
+    before = _plans()
+    fresh.make_fn(statics)(params)
+    assert _plans() == before + 1 and len(fresh.packed.launches) == 1
+    del r, fn
+    gc.collect()
+    assert dropped() is None and tables() is None and entry.device.type == "cpu"
+
+    fs = ef.frame_settings(statics, Config())
+    first = fk._launch_for(fresh.packed, fs)
+    for i in range(1, fk.MAX_LAUNCHES + 1):
+        fk._launch_for(fresh.packed, fs._replace(min_contrib=i / 64))
+    assert len(fresh.packed.launches) == fk.MAX_LAUNCHES and fs not in fresh.packed.launches
+    assert fk._launch_for(fresh.packed, fs) is not first

@@ -63,8 +63,7 @@ def scene():
 def _unsharded(renderer, params, statics):
     """The whole frame's given-rays form on one device, linear."""
     return ef.render_linear(renderer.packed, params, statics, ef.frame_jitter(params),
-                            renderer.max_steps, renderer.fused, renderer.cfg.min_contrib,
-                            rows=(0, statics.height))
+                            renderer.cfg, rows=(0, statics.height))
 
 
 def test_row_bands_cover_the_rows_once():
@@ -154,7 +153,7 @@ def test_progressive_shards_rays_when_samples_do_not_split(scene):
     linear = RenderStatics(width=W, height=H, do_tonemap=False)
     jitters = torch.from_numpy(ef.halton_jitters(6))
     one = Renderer(data, env, device="cpu")
-    want = ef.render_linear(one.packed, params, linear, jitters, rows=(0, H))
+    want = ef.render_linear(one.packed, params, linear, jitters, Config(), rows=(0, H))
     got = Renderer(data, env, mesh=["cpu"] * 4).make_progressive_fn(linear, 6)(params)
     assert torch.equal(got, want)
     tonemapped = Renderer(data, env, mesh=["cpu"] * 4).make_progressive_fn(

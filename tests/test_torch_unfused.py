@@ -137,29 +137,30 @@ def supersample_oracle(sphere):
 
 def test_renderer_packs_by_config(sphere):
     _, _, _, renderers = sphere
-    assert isinstance(renderers["wide"].packed, PackedWide) and not renderers["wide"].fused
+    assert isinstance(renderers["wide"].packed, PackedWide) and not renderers["wide"].cfg.packet_fused
     assert isinstance(renderers["binary"].packed, PackedBinary)
-    assert isinstance(renderers["fused"].packed, PackedWide) and renderers["fused"].fused
+    assert isinstance(renderers["fused"].packed, PackedWide) and renderers["fused"].cfg.packet_fused
     st = RenderStatics(width=N, height=N)
     assert st.env_aniso == 1  # isotropic unless asked, as the reference's statics
     assert RenderStatics.from_config(Config(), width=N, which=1) == \
         RenderStatics(width=N, which=1, env_aniso=4)
     route = engine_frame.fused_route
-    assert route(renderers["fused"].packed, st, True)
-    assert not route(renderers["fused"].packed, st, False)
-    assert not route(renderers["binary"].packed, st, True)
+    on, off = Config(), Config(packet_fused=False)
+    assert route(renderers["fused"].packed, st, on)
+    assert not route(renderers["fused"].packed, st, off)
+    assert not route(renderers["binary"].packed, st, on)
     # which 1 and 2 run the fused kernel's with_grads form and 5 its
     # given-rays form in the bilinear mode, as the reference's fused
     # kernel does; 3 (no trace) keeps the unfused route
     for which in (1, 2, 5):
-        assert route(renderers["fused"].packed, st._replace(which=which), True)
-        assert not route(renderers["fused"].packed, st._replace(which=which), False)
-        assert not route(renderers["binary"].packed, st._replace(which=which), True)
-        fs = engine_frame.frame_settings(st._replace(which=which, env_aniso=4))
+        assert route(renderers["fused"].packed, st._replace(which=which), on)
+        assert not route(renderers["fused"].packed, st._replace(which=which), off)
+        assert not route(renderers["binary"].packed, st._replace(which=which), on)
+        fs = engine_frame.frame_settings(st._replace(which=which, env_aniso=4), on)
         assert (fs.which, fs.env_aniso) == (0 if which == 5 else which, 4)
-    assert not route(renderers["fused"].packed, st._replace(which=3), True)
+    assert not route(renderers["fused"].packed, st._replace(which=3), on)
     with pytest.raises(NotImplementedError, match="unfused_linear"):
-        engine_frame.frame_settings(st._replace(which=3))
+        engine_frame.frame_settings(st._replace(which=3), on)
 
 
 @pytest.mark.parametrize("tables", sorted(CONFIGS))
@@ -233,11 +234,11 @@ def test_budget_overflow_paints_red_on_the_unfused_route(sphere):
     _, _, tp, renderers = sphere
     packed = renderers["binary"].packed
     linear = RenderStatics(width=32, height=32, do_tonemap=False)
-    img = engine_frame.render_frame(packed, tp, linear, max_steps=1)
+    img = engine_frame.render_frame(packed, tp, linear, Config(packet_max_steps=1))
     red = torch.tensor([1.0, 0.0, 0.0])
     painted = (img == red).all(dim=-1)
     assert painted.all()  # one step never finishes a walk of more than one node
-    ok = engine_frame.render_frame(packed, tp, linear)
+    ok = engine_frame.render_frame(packed, tp, linear, Config())
     assert not (ok == red).all(dim=-1).any()
 
 
