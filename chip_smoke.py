@@ -873,7 +873,9 @@ def app_phase(renderer, card: str) -> list[float]:
     print(f"app: REPL script of {len(APP_SCRIPT)} commands in {t_repl:.2f} s: {len(frames)} frames "
           f"(which {whiches}), screenshot {shot.shape}, launches {app_launches}")
     bad = [(what, w) for what, w, _, f in frames if f.shape != (H, W, 3) or not np.isfinite(f).all()]
-    if bad or shot.shape != (H, W, 3) or set(app_launches) != {"frame_kernel"} or 5 not in whiches:
+    # every frame the App drew came to the host by the pinned route
+    if bad or shot.shape != (H, W, 3) or set(app_launches) != {"frame_kernel", "copy_to_host:pinned"} \
+            or app_launches["copy_to_host:pinned"] != len(frames) or 5 not in whiches:
         raise AssertionError(f"app: frames off shape or non-finite {bad}, or launches {app_launches}")
     _, _, p5, f5 = next(x for x in frames if x[1] == 5)
     want = renderer.make_fn(RenderStatics.from_config(renderer.cfg, width=W, height=H, which=5))(p5)
@@ -982,7 +984,8 @@ def images_phase(data) -> dict:
     same = frames[0].shape == (H, W, 3) and frames[0].tobytes() == frames[1].tobytes()
     print(f"images: App {W}x{H} frame over the JPEG env, bit for bit the frame over its .npy: "
           f"{same}; mean {float(frames[0].mean()):.4f}; launches {launches}")
-    if not same or not np.isfinite(frames[0]).all() or launches != {"frame_kernel": 2}:
+    if not same or not np.isfinite(frames[0]).all() \
+            or launches != {"frame_kernel": 2, "copy_to_host:pinned": 2}:
         raise AssertionError("images: the App frame over the JPEG env")
     return launches
 

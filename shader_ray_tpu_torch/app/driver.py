@@ -29,6 +29,7 @@ from shader_ray_tpu_torch.app import camera as cam
 from shader_ray_tpu_torch.app.materials import DIFFUSE_COLORS, MATERIALS, resolve_material
 from shader_ray_tpu_torch.config import Config
 from shader_ray_tpu_torch.models.world import World
+from shader_ray_tpu_torch.ops import _build
 from shader_ray_tpu_torch.ops.frame_kernel import stats_phases
 from shader_ray_tpu_torch.ops.render import FrameParams, RenderStatics
 from shader_ray_tpu_torch.utils import mat4
@@ -139,12 +140,26 @@ class App:
             )
 
     def _to_host(self, fn) -> np.ndarray:
-        """Draw the next frame with ``fn`` and copy it to the host."""
+        """Draw the next frame with ``fn`` and copy it to the host.  A
+        frame on a card goes in one copy, ordered on the card's current
+        stream, into page-locked memory of its own (served by PyTorch's
+        caching host allocator; the returned array holds the block, so no
+        later frame overwrites it); a frame on the CPU is returned as it
+        is.  ``_build.LAUNCHES`` counts each frame's route,
+        ``copy_to_host:pinned`` or ``copy_to_host:plain``."""
         self.frames += 1
         set_frame(self.frames)
         out = fn(self.frame_params())
         with span("app.copy"):
-            self._frame = out.cpu().numpy()
+            if out.device.type == "cuda":
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                torch.cuda.current_stream(out.device).synchronize()
+                _build.LAUNCHES["copy_to_host:pinned"] += 1
+            else:
+                host = out.cpu()
+                _build.LAUNCHES["copy_to_host:plain"] += 1
+            self._frame = host.numpy()
         return self._frame
 
     def draw_frame(self) -> np.ndarray:

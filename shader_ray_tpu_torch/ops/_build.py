@@ -11,6 +11,10 @@ imported.
 ``LAUNCHES`` counts launches per kernel name, process-wide: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
 set a count to 0, drive a path and read how often the kernel really ran.
+It counts one device operation besides the kernels: the App's frame to
+the host (app/driver.App._to_host), by route, ``copy_to_host:pinned``
+(a frame on a card, one copy into page-locked memory) or
+``copy_to_host:plain`` (a frame on the CPU).
 ``PLANS`` counts the frame kernel's cached launches (ops/frame_kernel.
 _launch_for): ``"built"`` the entries built, and by launch name the
 launches made through an entry (``PLANS[name] / LAUNCHES[name]``, their

@@ -39,7 +39,9 @@ import torch
 SPANS = {
     "app.drag": "App.drag: the trackball, camera and light matrices",
     "app.frame_params": "App.frame_params: the frame's uniforms as host tensors",
-    "app.copy": "App.draw_frame / render_progressive: the frame to the host (.cpu().numpy())",
+    "app.copy": "App.draw_frame / render_progressive: the frame to the host (from a card one "
+                "stream-ordered copy into pinned memory, and the wait on the card; from the CPU "
+                ".cpu().numpy())",
     "engine.frame": "a Renderer's frame function, every route",
     "engine.uniforms": "the fused routes' host block of uniforms and single-frame jitter, filled",
     "engine.jitter": "the (1, 2) jitter table and its copy to the device (unfused, which = 5)",
